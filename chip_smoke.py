@@ -1,0 +1,566 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (seekmer_tpu_torch) once on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero:
+
+1. print the card's name and power limit, build the four kernels from
+   ``seekmer_tpu_torch/csrc`` with nvcc (sm_90a);
+2. make two worlds from a seed and index them through the port's CLI: the
+   config-1 world (1000 random transcripts, 4 x 65,536 single-end 100 bp
+   reads) and the config-2 GENCODE-scale isoform world (20,000 genes,
+   4 x 65,536 read pairs of 100 bp, sig_table_bits=22);
+3. hold each kernel (K1 pack, K2 lookup, K3 signature, A1 accumulate)
+   against its plain PyTorch version on the card, at the shapes of one
+   paired config-2 batch, and time both with CUDA events;
+4. run ``infer --device cuda`` of the port's CLI on both worlds with every
+   kernel's launch count set to 0 just before and read just after; check
+   the outputs (config-1 against the float64 oracle of tests/oracle) and
+   print the map and EM rates;
+5. trace the map stage (``Mapper.run`` fed as ``infer`` feeds it) and a
+   fixed 480-iteration EM on both worlds with ``torch.profiler``; print
+   each stage's wall time untraced and traced, its device busy time, and
+   the device time per kernel or copy.
+
+The JSON line of kernel results comes second to last; the last line is
+``{"ok": true, "device": {...}}``. JAX is blocked for the whole run: the
+port must not need it.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+sys.modules["jax"] = None  # any import of JAX now fails
+
+REPO = Path(__file__).resolve().parent
+B = 65536  # reads (pairs) per batch, the CLI default
+BATCHES = 4
+READ_LEN = 100
+SEED = 0
+C1_TRANSCRIPTS = 1000
+C2_GENES = 20000
+DEVICE = "cuda"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def reads_from_codes(codes):
+    import numpy as np
+
+    ascii_ = np.frombuffer(b"ACGTN", np.uint8)[np.minimum(codes, 4)]
+    return [row.tobytes().decode() for row in ascii_]
+
+
+def make_worlds(work: Path):
+    """Write both worlds' FASTA and FASTQ files and index them with the
+    port's CLI. Returns a dict of paths and the config-1 reads."""
+    import numpy as np
+
+    from seekmer_tpu_torch import cli
+    from seekmer_tpu_torch.host import (
+        isoform_transcriptome, random_transcriptome, simulate_packed_batches,
+        simulate_packed_pairs, write_fasta, write_fastq)
+
+    rng = np.random.default_rng(SEED)
+    w = {}
+    t0 = time.perf_counter()
+    names, seqs = random_transcriptome(rng, num_transcripts=C1_TRANSCRIPTS,
+                                       min_len=300, max_len=3000,
+                                       shared_prefix_frac=0.5)
+    write_fasta(str(work / "c1.fa"), names, seqs)
+    codes, _ = simulate_packed_batches(rng, seqs, BATCHES, B, READ_LEN)
+    w["c1_reads"] = reads_from_codes(codes.reshape(-1, READ_LEN))
+    write_fastq(str(work / "c1.fq"), w["c1_reads"])
+    check(cli.main(["index", str(work / "c1.fa"), str(work / "c1.npz")]) == 0,
+          "config-1 index build")
+    log(f"[setup] config-1 world: {C1_TRANSCRIPTS} transcripts, "
+        f"{BATCHES * B} reads, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    names, seqs, genes = isoform_transcriptome(rng, num_genes=C2_GENES)
+    write_fasta(str(work / "c2.fa"), names, seqs)
+    c1, c2, _ = simulate_packed_pairs(rng, seqs, BATCHES, B, READ_LEN,
+                                      mean_frag=200.0, sd_frag=20.0)
+    for name, codes in (("c2_1.fq", c1), ("c2_2.fq", c2)):
+        write_fastq(str(work / name),
+                    reads_from_codes(codes.reshape(-1, READ_LEN)))
+    w["c2_batch"] = (c1[0], c2[0])
+    t_sim = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(cli.main(["index", str(work / "c2.fa"), str(work / "c2.npz")]) == 0,
+          "config-2 index build")
+    log(f"[setup] config-2 world: {len(seqs)} transcripts from {C2_GENES} "
+        f"genes, "
+        f"{BATCHES * B} pairs; simulate {t_sim:.1f} s, index build + save "
+        f"{time.perf_counter() - t0:.1f} s")
+    return w
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_each(setup, fn, reps: int) -> float:
+    """Mean ms of ``fn(setup())`` over ``reps``, timing ``fn`` alone."""
+    import torch
+
+    fn(setup())
+    spans = []
+    for _ in range(reps):
+        arg = setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans) / reps
+
+
+def max_abs_diff(a, b) -> int:
+    import torch
+
+    check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def compare_kernels(work: Path, batch):
+    """Each kernel against its plain version at one paired config-2 batch's
+    shapes. Returns {name: (max_abs_err, ms, plain_ms)}."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch import MapConfig
+    from seekmer_tpu_torch.host import KMerIndex, pack_codes_2bit
+    from seekmer_tpu_torch.map.driver import (DeviceIndex, map_step,
+                                              merge_sig_rows)
+    from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
+    from seekmer_tpu_torch.ops import (accumulate_cuda, pack_cuda, probe_cuda,
+                                       sig_cuda)
+
+    dev = torch.device(DEVICE)
+    index = KMerIndex.load(str(work / "c2.npz"))
+    di = DeviceIndex.from_host(index, dev)
+    L, k = 128, index.k  # 100 bp reads sit in the 128 length bucket
+    out = {}
+
+    mates = []
+    for codes in batch:
+        padded = np.full((B, L), 4, np.uint8)
+        padded[:, :READ_LEN] = codes
+        packed, bad = pack_codes_2bit(padded)
+        mates.append((torch.from_numpy(packed).to(dev),
+                      torch.from_numpy(bad).to(dev),
+                      torch.full((B,), READ_LEN, dtype=torch.int32,
+                                 device=dev)))
+    p, bd, ln = mates[0]
+    got = pack_cuda.pack_canonical_2bit(p, bd, ln, L, k)
+    ref = pack_cuda.plain(p, bd, ln, L, k)
+    err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
+    out["K1"] = (
+        err, cuda_ms(lambda: pack_cuda.pack_canonical_2bit(p, bd, ln, L, k), 50),
+        cuda_ms(lambda: pack_cuda.plain(p, bd, ln, L, k), 10))
+    log(f"[K1 pack] [{B}, {L}] k={k}: max_abs_err {err}, kernel "
+        f"{out['K1'][1]:.4f} ms, plain {out['K1'][2]:.4f} ms")
+
+    packs = [pack_cuda.pack_canonical_2bit(*m, L, k) for m in mates]
+    hi = torch.cat([packs[0][0], packs[1][0]], dim=1)
+    lo = torch.cat([packs[0][1], packs[1][1]], dim=1)
+    valid = torch.cat([packs[0][2], packs[1][2]], dim=1)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    got = probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo)
+    ref = probe_cuda.plain(hi, lo, valid, *geo)
+    err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
+    hits = float((got[0] >= 0).float().mean())
+    check(hits > 0.3, f"K2 hit fraction {hits:.3f} is implausibly low")
+    out["K2"] = (
+        err, cuda_ms(lambda: probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo), 20),
+        cuda_ms(lambda: probe_cuda.plain(hi, lo, valid, *geo), 3))
+    log(f"[K2 lookup] {hi.numel()} lanes against {index.num_kmers} k-mers "
+        f"(hit fraction {hits:.4f}): max_abs_err {err}, kernel "
+        f"{out['K2'][1]:.4f} ms, plain {out['K2'][2]:.4f} ms")
+
+    ecs = got[0]
+    C = 16
+    got = sig_cuda.read_signatures(ecs, valid, C)
+    ref = sig_cuda.plain(ecs, valid, C)
+    err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
+    out["K3"] = (
+        err, cuda_ms(lambda: sig_cuda.read_signatures(ecs, valid, C), 50),
+        cuda_ms(lambda: sig_cuda.plain(ecs, valid, C), 10))
+    log(f"[K3 signature] [{B}, {ecs.shape[1]}] C={C}: max_abs_err {err}, "
+        f"kernel {out['K3'][1]:.4f} ms, plain {out['K3'][2]:.4f} ms")
+
+    sig, mapped = got
+    weights = torch.ones(B, dtype=torch.int32, device=dev)
+    tables = []
+    for fold in (accumulate_cuda.fold_batch, accumulate_cuda.plain):
+        t = make_sig_table(22, C, num_ecs=index.num_ecs, device=dev)
+        fold(t, sig, mapped, weights=weights)
+        tables.append(t)
+    merged = []
+    for t in tables:
+        s, c = table_to_host(t)
+        merged.append(merge_sig_rows(s, c, B, int(t.overflow),
+                                     int(t.collisions)))
+    mk, mp = merged
+    check(np.array_equal(mk.sigs, mp.sigs), "A1 merged signatures differ")
+    err = int(np.abs(mk.sig_counts - mp.sig_counts).max(initial=0))
+    err = max(err, abs(mk.overflow - mp.overflow),
+              abs(mk.collisions - mp.collisions))
+    keys = [np.sort(t.key.view(torch.int64).cpu().numpy().ravel())
+            for t in tables]
+    check(np.array_equal(*keys), "A1 fingerprint keys differ")
+    multi = int(((sig[:, 1] != 0x7FFFFFFF) & mapped).sum())
+
+    # first fold into an empty table: every distinct signature is claimed
+    # (the reported time); the table is made outside the timed region
+    def fresh():
+        return make_sig_table(22, C, num_ecs=index.num_ecs, device=dev)
+
+    out["A1"] = (err,
+                 cuda_ms_each(fresh, lambda t: accumulate_cuda.fold_batch(
+                     t, sig, mapped, weights=weights), 20),
+                 cuda_ms_each(fresh, lambda t: accumulate_cuda.plain(
+                     t, sig, mapped, weights=weights), 5))
+    # steady state: the batch's signatures are already in both tables, so
+    # every lane takes the matching path and none claims a slot
+    steady = (cuda_ms(lambda: accumulate_cuda.fold_batch(
+                  tables[0], sig, mapped, weights=weights), 20),
+              cuda_ms(lambda: accumulate_cuda.plain(
+                  tables[1], sig, mapped, weights=weights), 5))
+    log(f"[A1 accumulate] {B} reads ({multi} multi-EC) at sig_table_bits=22: "
+        f"{mk.sigs.shape[0]} merged signatures, overflow {mk.overflow}, "
+        f"collisions {mk.collisions}; max_abs_err {err}; empty table "
+        f"(claims): kernel {out['A1'][1]:.4f} ms, plain "
+        f"{out['A1'][2]:.4f} ms; steady state (matching path only): kernel "
+        f"{steady[0]:.4f} ms, plain {steady[1]:.4f} ms")
+    for name, (e, _, _) in out.items():
+        check(e == 0, f"{name} disagrees with its plain version: {e}")
+
+    # the whole device map step on one pre-uploaded paired batch (K1 x 2,
+    # the mate concatenation, K2, K3, A1 with the audit): the device's
+    # share of the map stage, without ingest or upload
+    cfg = MapConfig(batch_size=B, sig_table_bits=22, paired_end=True)
+    step_ms = cuda_ms(lambda: map_step(
+        di, cfg, tables[0], mates[0][0], mates[0][2], weights,
+        codes2=mates[1][0], lengths2=mates[1][2], bad=mates[0][1],
+        bad2=mates[1][1], pad_len=L, audit=True), 20)
+    log(f"[map step] one paired batch on the card: {step_ms:.4f} ms, "
+        f"{B / step_ms * 1e3:.0f} pairs/s of device time")
+    del di
+    torch.cuda.empty_cache()
+    return out
+
+
+def reset_launches():
+    from seekmer_tpu_torch.ops import (accumulate_cuda, pack_cuda, probe_cuda,
+                                       sig_cuda)
+
+    for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
+               sig_cuda.read_signatures, accumulate_cuda.fold_batch):
+        fn.launches = 0
+
+
+def run_infer(work: Path, tag: str, argv):
+    from seekmer_tpu_torch import cli
+
+    out = work / f"{tag}_out"
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["infer", str(work / f"{tag}.npz"), str(out), *argv,
+                   "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    launches = cli.kernel_launches()
+    check(rc == 0, f"{tag} infer exit {rc}")
+    info = json.loads((out / "run_info.json").read_text())
+    t = info["timings"]
+    log(f"[{tag} e2e] mapped {info['mapped']} / {info['total_reads']}, "
+        f"EM iterations {info['em_iterations']}, map stage "
+        f"{t['reads_per_s']:.0f} reads/s ({t['map_s']:.3f} s), EM "
+        f"{t['em_iterations_per_s']:.1f} it/s ({t['em_s']:.3f} s), resolve "
+        f"{t['resolve_s']:.3f} s, quantifier {t['wall_s']:.3f} s, CLI wall "
+        f"{wall:.1f} s, kernel launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{tag}: kernel {name} was never launched")
+    return out, info, launches
+
+
+def end_to_end(work: Path, w):
+    import numpy as np
+
+    from seekmer_tpu_torch import EMConfig, MapConfig
+    from seekmer_tpu_torch.host import KMerIndex, read_abundance
+    from tests.oracle import oracle
+
+    out, info, l1 = run_infer(work, "c1", [
+        str(work / "c1.fq"), "--em-tolerance", "1e-6", "--em-max-iters",
+        "2000"])
+    index = KMerIndex.load(str(work / "c1.npz"))
+    em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
+    t0 = time.perf_counter()
+    o = oracle.quantify(w["c1_reads"], index, MapConfig(), em_cfg)
+    tab = read_abundance(str(out / "abundance.tsv"))
+    check(info["unmapped"] == o["unmapped"],
+          f"config-1 unmapped {info['unmapped']} != oracle {o['unmapped']}")
+    tpm_err_tsv = float(np.abs(tab["tpm"] - o["tpm"]).max())
+    # bench.py's metric: the port's float32 EM on the card against the
+    # float64 oracle EM, on the same equivalence classes
+    tpm_err = em_tpm_error(index, o, em_cfg)
+    top = float(o["tpm"].max())
+    log(f"[c1 oracle] unmapped {info['unmapped']} == oracle; TPM max-abs "
+        f"error, f32 EM on the card vs f64 oracle: {tpm_err:.6g}; "
+        f"abundance.tsv (6 significant digits) vs oracle: "
+        f"{tpm_err_tsv:.6g}; largest TPM {top:.6g} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # float32 EM to rel_tol 1e-6 stays orders of magnitude inside 1e-5 of
+    # the largest TPM; the table's 6 significant digits add up to 5e-6
+    check(tpm_err < 1e-5 * top and tpm_err_tsv < 2e-5 * top,
+          "config-1 TPM error against the oracle")
+
+    out2, info2, l2 = run_infer(work, "c2", [
+        str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
+        "--fragment-length", "200", "--fragment-sd", "20",
+        "--sig-table-bits", "22"])
+    tab2 = read_abundance(str(out2 / "abundance.tsv"))
+    check(info2["total_reads"] == BATCHES * B, "config-2 read count")
+    check(info2["mapped"] > 0.8 * BATCHES * B,
+          f"config-2 mapped only {info2['mapped']}")
+    check(bool(np.isfinite(tab2["est_counts"]).all())
+          and bool(np.isfinite(tab2["tpm"]).all()), "config-2 non-finite")
+    mass = float(tab2["est_counts"].sum())
+    check(abs(mass - info2["mapped"]) < 1e-3 * info2["mapped"],
+          f"config-2 EM mass {mass} != mapped {info2['mapped']}")
+    log(f"[c2 check] {tab2['target_id'].size} transcripts, est_counts sum "
+        f"{mass:.1f} vs mapped {info2['mapped']}, TPM sum "
+        f"{float(tab2['tpm'].sum()):.1f}")
+    return {k: l1[k] + l2[k] for k in l1}
+
+
+def em_tpm_error(index, o, em_cfg) -> float:
+    import numpy as np
+
+    from seekmer_tpu_torch import EMConfig
+    from seekmer_tpu_torch.em.em import build_ec_table, run_em, tpm_from_alpha
+    from tests.oracle import oracle
+
+    members, counts, _ = oracle.resolve_signatures(o["sig_counts"], index)
+    ec = build_ec_table(members, counts, index.num_transcripts,
+                        device=DEVICE)
+    alpha, _ = run_em(ec, index.lengths, em_cfg)
+    tpm = tpm_from_alpha(alpha, index.lengths, em_cfg).cpu().numpy()
+    # steady EM rate: a fixed 2000-iteration run after the one above warmed
+    # up every kernel (bench.py's protocol for EM iterations/s)
+    fixed = EMConfig(rel_tol=0.0, min_iters=2000, max_iters=2000)
+    t0 = time.perf_counter()
+    run_em(ec, index.lengths, fixed)[0].sum().item()
+    dt = time.perf_counter() - t0
+    log(f"[c1 EM steady] 2000 iterations, nnz {ec.ec_ids.numel()}, "
+        f"{ec.num_ecs} ECs: {dt:.3f} s, {2000 / dt:.1f} it/s")
+    o_alpha, _ = oracle.run_em(members, counts, index.lengths, em_cfg)
+    o_tpm = oracle.tpm_from_alpha(o_alpha, index.lengths, em_cfg)
+    return float(np.abs(tpm - o_tpm).max())
+
+
+def device_busy(prof):
+    """Device busy ms of a trace, the union of its kernel and copy
+    intervals, and the device ms and count per kernel or copy name."""
+    from torch.autograd import DeviceType
+
+    spans, per = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end  # us
+        spans.append((a, b))
+        ms, n = per.get(e.name, (0.0, 0))
+        per[e.name] = (ms + (b - a) / 1e3, n + 1)
+    check(bool(spans), "the profiler saw no device time")
+    busy, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return busy / 1e3, per
+
+
+def traced(fn, trace: bool):
+    """Run ``fn()`` (which synchronizes the card) and return its wall ms
+    and, when ``trace``, its torch.profiler trace."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if trace else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, prof
+
+
+def report_stage(name: str, run):
+    """Warm ``run(trace)`` up, time it untraced, then traced; print the
+    walls, the device busy share of the traced wall and the device time
+    per kernel or copy."""
+    run(False)
+    _, wall, _ = run(False)
+    out, twall, prof = run(True)
+    busy, per = device_busy(prof)
+    log(f"[profile {name}] untraced wall {wall:.6f} ms; traced wall "
+        f"{twall:.6f} ms, device busy {busy:.6f} ms = {busy / twall:.6f} of "
+        f"the traced wall")
+    for k, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0]):
+        log(f"[profile {name}]   {ms:10.6f} ms x {n:5d}  {k[:90]}")
+    return out
+
+
+def profile_stages(work: Path) -> None:
+    """Trace the map stage and a fixed 480-iteration EM on both worlds."""
+    import torch
+
+    from seekmer_tpu_torch import EMConfig, MapConfig
+    from seekmer_tpu_torch.em.em import build_ec_table, run_em
+    from seekmer_tpu_torch.host import (KMerIndex, batch_read_pairs_native,
+                                        batch_reads_native)
+    from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
+    from seekmer_tpu_torch.utils.prefetch import device_put_batches, prefetch
+
+    dev = torch.device(DEVICE)
+    fixed = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480)
+    for tag, paired, bits in (("c1", False, 20), ("c2", True, 22)):
+        index = KMerIndex.load(str(work / f"{tag}.npz"))
+        cfg = MapConfig(batch_size=B, sig_table_bits=bits, paired_end=paired)
+
+        def map_run(trace):
+            # as Quantifier.quantify_batches: the index upload is set-up,
+            # the timed region is Mapper.run over the prefetched batches
+            mapper = Mapper(index, cfg, device=dev)
+            if paired:
+                raw = batch_read_pairs_native([str(work / "c2_1.fq")],
+                                              [str(work / "c2_2.fq")], cfg)
+            else:
+                raw = batch_reads_native([str(work / "c1.fq")], cfg)
+            batches = prefetch(device_put_batches(raw, dev), depth=4)
+            torch.cuda.synchronize()
+            return traced(lambda: (mapper.run(batches),
+                                   torch.cuda.synchronize())[0], trace)
+
+        result = report_stage(f"{tag} map", map_run)
+        members, counts, _ = resolve_signatures(result, index)
+        ec = build_ec_table(members, counts, index.num_transcripts,
+                            device=dev)
+        log(f"[profile {tag} em] nnz {ec.ec_ids.numel()}, {ec.num_ecs} ECs")
+        report_stage(f"{tag} em", lambda trace: traced(lambda: (
+            run_em(ec, index.lengths, fixed)[0].sum().item()), trace))
+
+
+KERNELS = [
+    ("K1", "pack", "seekmer_tpu_torch/csrc/pack.cu",
+     "seekmer_tpu/ops/pack_pallas.py:26"),
+    ("K2", "lookup", "seekmer_tpu_torch/csrc/probe.cu",
+     "seekmer_tpu/ops/probe_pallas.py:45"),
+    ("K3", "signature", "seekmer_tpu_torch/csrc/sig.cu",
+     "seekmer_tpu/ops/sig_pallas.py:56"),
+    ("A1", "accumulate", "seekmer_tpu_torch/csrc/accumulate.cu",
+     "seekmer_tpu/map/signature.py:127"),
+]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not (REPO / "seekmer_tpu_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    log(f"[card] {card}")
+    from seekmer_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    log(f"[build] {lib.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+
+    (REPO / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "build"))
+    try:
+        w = make_worlds(work)
+        timing = compare_kernels(work, w["c2_batch"])
+        launches = end_to_end(work, w)
+        profile_stages(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    kernels = []
+    for kid, name, src, replaces in KERNELS:
+        err, ms, plain_ms = timing[kid]
+        kernels.append({"name": f"{kid} {name}", "route": "cuda",
+                        "source": src, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

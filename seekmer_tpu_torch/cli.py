@@ -1,0 +1,196 @@
+"""Command-line interface of the port: ``index`` (delegated to
+``seekmer_tpu.cli``, whose index build is host code) and ``infer`` on one
+device, ``--device cuda`` by default.
+
+``infer`` accepts the JAX CLI's flags for the features this port does not
+have yet (``--bootstrap``, ``--checkpoint``, ``--pack-cache``,
+``--probe-sample``, ``--probe-stride``, sharding) and refuses them with an
+error naming their ROADMAP.md item, as it does ``fuse`` and paired input
+without ``--fragment-length``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+
+from seekmer_tpu.cli import _add_index, cmd_index
+
+
+class NotPorted(SystemExit):
+    """A requested feature is not in the port yet (exit status 2)."""
+
+    def __init__(self, what: str, item: str):
+        super().__init__(f"seekmer_tpu_torch: {what} is not ported yet "
+                         f"(ROADMAP.md, still to port: {item})")
+
+
+def _add_infer(sub):
+    p = sub.add_parser("infer", help="quantify reads against an index")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("index", help="index file from `index`")
+    p.add_argument("output_dir", help="output directory")
+    p.add_argument("fastq", nargs="+", help="FASTQ(.gz) files")
+    p.add_argument("--mates", nargs="*", default=None,
+                   help="mate-2 FASTQ files (paired-end)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; the run "
+                        "fails rather than fall back when it is absent)")
+    p.add_argument("--batch-size", type=int, default=65536)
+    p.add_argument("--max-ecs-per-read", type=int, default=16)
+    p.add_argument("--sig-table-bits", type=int, default=20)
+    p.add_argument("--fragment-length", type=float, default=None,
+                   help="fragment-length mean (required for paired-end "
+                        "runs; default 200 for single-end)")
+    p.add_argument("--fragment-sd", type=float, default=None,
+                   help="fragment-length sd; > 0 switches the effective-"
+                        "length model to the truncated-normal expectation")
+    p.add_argument("--em-tolerance", type=float, default=1e-4)
+    p.add_argument("--em-max-iters", type=int, default=10000)
+    p.add_argument("--em-accel", choices=("none", "squarem"), default="none")
+    p.add_argument("--x64", action="store_true", help="float64 EM")
+    # features of the JAX CLI that are refused until they are ported
+    p.add_argument("--bootstrap", type=int, default=0)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--pack-cache", nargs="?", const="auto", default=None)
+    p.add_argument("--probe-sample", type=int, default=0)
+    p.add_argument("--probe-stride", type=int, default=1)
+    p.add_argument("--data-shards", type=int, default=1)
+    p.add_argument("--index-shards", type=int, default=1)
+    return p
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from . import __version__
+
+    ap = argparse.ArgumentParser(
+        prog="seekmer_tpu_torch",
+        description="RNA-seq quantification (k-mer pseudoalignment + EM) "
+                    "on PyTorch/CUDA")
+    ap.add_argument("--version", action="version",
+                    version=f"seekmer_tpu_torch {__version__}")
+    sub = ap.add_subparsers(dest="command", required=True)
+    _add_index(sub)
+    _add_infer(sub)
+    fuse = sub.add_parser("fuse", help="fusion calling (not ported yet)")
+    fuse.add_argument("rest", nargs=argparse.REMAINDER)
+    return ap
+
+
+def _refuse_unported(args) -> None:
+    if args.bootstrap > 0:
+        raise NotPorted("--bootstrap", "Bootstrap")
+    if args.checkpoint:
+        raise NotPorted("--checkpoint", "Checkpoints")
+    if args.pack_cache is not None:
+        raise NotPorted("--pack-cache", "Pack cache")
+    if args.probe_sample >= 2:
+        raise NotPorted("--probe-sample (fast mode)", "Fast mode")
+    if args.probe_stride > 1:
+        raise NotPorted("--probe-stride > 1", "Strided mode")
+    if args.data_shards != 1 or args.index_shards != 1:
+        raise NotPorted("sharding", "Multi-GPU")
+    if args.mates and args.fragment_length is None:
+        raise NotPorted("fragment-length estimation from paired reads "
+                        "(give --fragment-length)", "FLD estimation")
+
+
+def kernel_launches() -> dict:
+    """Launch counts of the four kernel wrappers in this process."""
+    from .ops import accumulate_cuda, pack_cuda, probe_cuda, sig_cuda
+
+    return {"pack": pack_cuda.pack_canonical_2bit.launches,
+            "lookup": probe_cuda.lookup_ecs_aux.launches,
+            "signature": sig_cuda.read_signatures.launches,
+            "accumulate": accumulate_cuda.fold_batch.launches}
+
+
+def cmd_infer(args) -> int:
+    from seekmer_tpu.config import EMConfig, MapConfig, PipelineConfig
+    from seekmer_tpu.index.store import KMerIndex
+    from seekmer_tpu.io.writer import (write_abundance, write_gene_abundance,
+                                       write_h5, write_run_info)
+
+    import torch
+
+    from .map.driver import check_device
+    from .models.quantifier import Quantifier
+
+    _refuse_unported(args)
+    device = check_device(args.device)
+    start_time = time.strftime("%Y-%m-%dT%H:%M:%S")
+    index = KMerIndex.load(args.index)
+    cfg = PipelineConfig().replace(
+        map=MapConfig(batch_size=args.batch_size,
+                      max_ecs_per_read=args.max_ecs_per_read,
+                      sig_table_bits=args.sig_table_bits,
+                      paired_end=bool(args.mates)),
+        em=EMConfig(
+            mean_fragment_length=(200.0 if args.fragment_length is None
+                                  else args.fragment_length),
+            fragment_length_sd=(0.0 if args.fragment_sd is None
+                                else args.fragment_sd),
+            estimate_fld=False,
+            rel_tol=args.em_tolerance,
+            max_iters=args.em_max_iters,
+            accel=args.em_accel,
+            use_x64=args.x64),
+    )
+    q = Quantifier(index, cfg, device=device)
+    result = q.quantify_files(args.fastq, mate_paths=args.mates or None)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    out = os.path.join(args.output_dir, "abundance.tsv")
+    write_abundance(out, result.names, result.lengths, result.eff_length,
+                    result.est_counts, result.tpm)
+    if not write_h5(os.path.join(args.output_dir, "abundance.h5"),
+                    result.names, result.lengths, result.eff_length,
+                    result.est_counts,
+                    run_info={"total_reads": result.total_reads,
+                              "call": " ".join(sys.argv),
+                              "start_time": start_time}):
+        logging.warning("h5py not installed; abundance.h5 not written")
+    if index.genes is not None:
+        write_gene_abundance(
+            os.path.join(args.output_dir, "abundance.genes.tsv"),
+            index.genes, result.est_counts, result.tpm)
+    write_run_info(
+        os.path.join(args.output_dir, "run_info.json"),
+        {
+            "total_reads": result.total_reads,
+            "mapped": result.mapped,
+            "unmapped": result.unmapped,
+            "p_mapped": result.mapped / max(result.total_reads, 1),
+            "em_iterations": result.em_iterations,
+            "log_likelihood": result.log_likelihood,
+            "start_time": start_time,
+            "timings": result.timings,
+            "index": args.index,
+            "n_targets": int(index.num_transcripts),
+            "device": (str(device) if device.type != "cuda" else
+                       f"{device} ({torch.cuda.get_device_name(device)})"),
+            "kernel_launches": kernel_launches(),
+        },
+    )
+    logging.info("wrote %s (%d/%d reads mapped, %d EM iters)", out,
+                 result.mapped, result.total_reads, result.em_iterations)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if getattr(args, "verbose", False)
+        else logging.INFO,
+        format="[%(asctime)s %(levelname)s %(name)s] %(message)s")
+    np.set_printoptions(precision=4, suppress=True)
+    if args.command == "index":
+        return cmd_index(args)
+    if args.command == "infer":
+        return cmd_infer(args)
+    raise NotPorted("fuse", "Fusion mode")

@@ -1,0 +1,237 @@
+"""Per-read EC signatures and the signature count table, plain PyTorch.
+
+Counterpart of ``seekmer_tpu/map/signature.py``; the table keeps its field
+names, shapes and dtypes, so a JAX table carries over as numpy arrays
+(:func:`sig_table_from_numpy`). Reads are reduced to the sorted distinct EC
+ids of their k-mer hits (the signature), single-EC signatures count into an
+exact per-EC vector, and the rest count into an open-addressing table keyed
+by a 64-bit fingerprint of the row, in KB-slot buckets.
+
+The functions here are the plain versions: they run on CPU tensors in the
+mapper and on either device when the kernels of ``ops/sig_cuda.py`` and
+``ops/accumulate_cuda.py`` are held against them. Unlike JAX they update
+the table's tensors in place; each still returns the table.
+
+The plain claim reads the key table as int64 (a view of the same
+``int32[..., KB, 2]`` storage), so a claim writes the fingerprint as one
+element: a duplicate-index write then has one whole winner and cannot
+leave a key assembled from two lanes' halves.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.hash import (
+    sig_fingerprint_init,
+    sig_fingerprint_step,
+    sig_slot_hash,
+    to_i32,
+)
+
+SIG_PAD = 0x7FFFFFFF  # sorts after every real EC id (int32 max)
+KB = 8  # slots per key bucket
+
+
+class SigTable(NamedTuple):
+    """Signature -> count table; each array has a trailing dump row."""
+
+    key: torch.Tensor  # int32[S/KB + 1, KB, 2] fingerprints; (0, 0) = empty
+    count: torch.Tensor  # int32[S+1]
+    sig: torch.Tensor  # int32[S+1, C] claimed signature rows
+    overflow: torch.Tensor  # int32[] reads lost to probe overflow
+    collisions: torch.Tensor  # int32[] reads merged by a fingerprint collision
+    ec_count: torch.Tensor  # int32[E+1] direct single-EC counts; (1,) = off
+
+
+def make_sig_table(bits: int, max_ecs: int, num_ecs: int = 0,
+                   device="cpu") -> SigTable:
+    """``num_ecs`` > 0 enables the direct per-EC count vector."""
+    if not 3 <= bits <= 30:
+        raise ValueError("sig_table_bits must be in [3, 30]")
+    S = 1 << bits
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    return SigTable(
+        key=zeros(S // KB + 1, KB, 2),
+        count=zeros(S + 1),
+        sig=torch.full((S + 1, max_ecs), SIG_PAD, dtype=torch.int32,
+                       device=device),
+        overflow=zeros(),
+        collisions=zeros(),
+        ec_count=zeros(num_ecs + 1 if num_ecs > 0 else 1),
+    )
+
+
+def sig_table_from_numpy(fields: Mapping[str, np.ndarray],
+                         device) -> SigTable:
+    """A table from numpy arrays by field name, e.g. a JAX ``SigTable``'s
+    fields, carried onto ``device``."""
+    return SigTable(**{
+        f: torch.from_numpy(np.array(fields[f], dtype=np.int32)).to(device)
+        for f in SigTable._fields})
+
+
+def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int):
+    """Per-read sorted distinct EC ids, capped.
+
+    ecs int32[B, P] (-1 = miss), valid bool[B, P]. Returns (sig int32[B, C]
+    padded with SIG_PAD, mapped bool[B]); mapped is False for zero hits or
+    more than C distinct ids ("complex").
+    """
+    x = torch.where(valid & (ecs >= 0), ecs, SIG_PAD).to(torch.int32)
+    s = torch.sort(x, dim=1).values
+    prev = torch.cat([torch.full_like(s[:, :1], -1), s[:, :-1]], dim=1)
+    is_new = (s != prev) & (s != SIG_PAD)
+    n_distinct = is_new.sum(dim=1)
+    distinct = torch.where(is_new, s, SIG_PAD)
+    sig = torch.sort(distinct, dim=1).values[:, :max_ecs]
+    if sig.shape[1] < max_ecs:  # fewer windows than C
+        sig = torch.nn.functional.pad(sig, (0, max_ecs - sig.shape[1]),
+                                      value=SIG_PAD)
+    mapped = (n_distinct > 0) & (n_distinct <= max_ecs)
+    return sig.contiguous(), mapped
+
+
+def fingerprint(sig: torch.Tensor):
+    """64-bit fingerprint of each row as (fp1, fp2) int32[B]; the all-zero
+    pair is remapped to (1, 0) so (0, 0) can mean an empty slot."""
+    i1, i2 = sig_fingerprint_init()
+    B = sig.shape[0]
+    h1 = torch.full((B,), i1, dtype=torch.int64, device=sig.device)
+    h2 = torch.full((B,), i2, dtype=torch.int64, device=sig.device)
+    for c in range(sig.shape[1]):
+        h1, h2 = sig_fingerprint_step(h1, h2, sig[:, c])
+    fp1, fp2 = to_i32(h1), to_i32(h2)
+    fp1 = torch.where((fp1 == 0) & (fp2 == 0), 1, fp1).to(torch.int32)
+    return fp1, fp2
+
+
+def _weights(mapped, weights):
+    w = (torch.ones_like(mapped, dtype=torch.int32) if weights is None
+         else weights.to(torch.int32))
+    return torch.where(mapped, w, 0)
+
+
+def accumulate(table: SigTable, sig: torch.Tensor, mapped: torch.Tensor,
+               weights: torch.Tensor | None = None, sig_probe: int = 32,
+               audit: bool = True) -> SigTable:
+    """Fold one batch into the fingerprint table, round by round as
+    ``seekmer_tpu.map.signature.accumulate`` does: each active lane looks at
+    its cursor bucket, matches its fingerprint or claims the first empty
+    slot (the re-read tells who won), and moves to the next bucket only
+    when the bucket is full. At most ``sig_probe`` rounds; lanes still
+    active then count into ``overflow``. ``audit`` compares every resolved
+    lane's row with its slot's stored row and counts mismatches into
+    ``collisions``.
+    """
+    B, C = sig.shape
+    NBK = table.key.shape[0] - 1
+    fp1, fp2 = fingerprint(sig)
+    w = _weights(mapped, weights)
+    active0 = w > 0
+    home = sig_slot_hash(fp1, fp2) & (NBK - 1)
+    keyrow = torch.stack([fp1, fp2], dim=1).contiguous().view(torch.int64)[:, 0]
+    key64 = table.key.view(torch.int64)[..., 0]  # (NBK + 1, KB), shared storage
+
+    active = active0.clone()
+    cursor = home
+    res_slot = torch.full((B,), -1, dtype=torch.int64, device=sig.device)
+    won_any = torch.zeros_like(active0)
+    r = 0
+    while r < sig_probe and bool(active.any()):
+        rows = key64[cursor]
+        match = rows == keyrow[:, None]
+        is_empty = rows == 0
+        matched = active & match.any(dim=1)
+        slot_in = match.to(torch.int32).argmax(dim=1)
+        has_empty = is_empty.any(dim=1)
+        first_empty = is_empty.to(torch.int32).argmax(dim=1)
+        try_claim = active & ~matched & has_empty
+        won = torch.zeros_like(try_claim)
+        if bool(try_claim.any()):
+            c = try_claim.nonzero()[:, 0]
+            key64[cursor[c], first_empty[c]] = keyrow[c]
+            won = try_claim & (key64[cursor, first_empty] == keyrow)
+        resolved = matched | won
+        res_slot = torch.where(
+            resolved, cursor * KB + torch.where(matched, slot_in, first_empty),
+            res_slot)
+        won_any |= won
+        advance = active & ~resolved & ~has_empty
+        cursor = torch.where(advance, (cursor + 1) & (NBK - 1), cursor)
+        active &= ~resolved
+        r += 1
+
+    resolved = active0 & ~active
+    slots = res_slot[resolved]
+    table.count.index_add_(0, slots, w[resolved])
+    table.sig[res_slot[won_any]] = sig[won_any]
+    table.overflow.add_(w[active].sum().to(torch.int32))
+    if audit:
+        stored = table.sig[slots]
+        mismatch = (stored != sig[resolved]).any(dim=1)
+        table.collisions.add_(w[resolved][mismatch].sum().to(torch.int32))
+    return table
+
+
+def accumulate_direct(table: SigTable, sig: torch.Tensor,
+                      mapped: torch.Tensor,
+                      weights: torch.Tensor | None = None,
+                      sig_probe: int = 32, audit: bool = True) -> SigTable:
+    """Single-EC rows count into the exact per-EC vector; only multi-EC
+    rows fold through the fingerprint table."""
+    B, C = sig.shape
+    E1 = table.ec_count.shape[0]
+    w = _weights(mapped, weights)
+    single = (w > 0) & (sig[:, 0] != SIG_PAD)
+    if C > 1:
+        single &= sig[:, 1] == SIG_PAD
+    tgt = sig[single, 0].to(torch.int64)
+    keep = (tgt >= 0) & (tgt < E1 - 1)  # the last slot is the dump
+    table.ec_count.index_add_(0, tgt[keep], w[single][keep])
+    return accumulate(table, sig, mapped & ~single,
+                      weights=torch.where(single, 0, w),
+                      sig_probe=sig_probe, audit=audit)
+
+
+def fold_batch(table: SigTable, sig: torch.Tensor, mapped: torch.Tensor,
+               weights: torch.Tensor | None = None, sig_probe: int = 32,
+               audit: bool = True) -> SigTable:
+    """accumulate_direct when the table carries a per-EC vector, else the
+    plain fingerprint accumulate."""
+    fold = accumulate_direct if table.ec_count.shape[0] > 1 else accumulate
+    return fold(table, sig, mapped, weights=weights, sig_probe=sig_probe,
+                audit=audit)
+
+
+def direct_rows(ec_count: np.ndarray, C: int):
+    """Nonzero per-EC direct counts -> ([e, PAD...] rows, counts); the dump
+    (last) slot is excluded."""
+    ec = np.asarray(ec_count)
+    nz = np.flatnonzero(ec[:-1] > 0)
+    rows = np.full((nz.size, C), SIG_PAD, np.int32)
+    if nz.size:
+        rows[:, 0] = nz.astype(np.int32)
+    return rows, ec[nz].astype(np.int64)
+
+
+def table_to_host(table: SigTable):
+    """Occupied rows to the host: (sigs int32[U, C], counts int64[U]),
+    including the direct per-EC counts as single-EC rows. Only occupied
+    rows cross to the host."""
+    occ = table.count > 0
+    sigs = table.sig[occ].cpu().numpy()
+    counts = table.count[occ].cpu().numpy().astype(np.int64)
+    ec = table.ec_count.cpu().numpy()
+    if ec.shape[0] > 1:
+        drows, dcounts = direct_rows(ec, sigs.shape[1])
+        if drows.shape[0]:
+            sigs = np.concatenate([sigs, drows])
+            counts = np.concatenate([counts, dcounts])
+    return sigs, counts

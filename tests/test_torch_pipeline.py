@@ -1,0 +1,181 @@
+"""The port end to end on the CPU: Quantifier and the CLI against the JAX
+Quantifier and the float64 oracle, the refusal of features outside the
+port, and a run in a process where JAX cannot be imported."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from seekmer_tpu.config import EMConfig, MapConfig, PipelineConfig
+from seekmer_tpu.index.build import build_index_from_seqs
+from seekmer_tpu.io.writer import read_abundance
+from seekmer_tpu.models.quantifier import Quantifier as JQuantifier
+from seekmer_tpu.utils.simulate import (
+    random_transcriptome,
+    simulate_reads,
+    write_fasta,
+    write_fastq,
+)
+from seekmer_tpu_torch import cli
+from seekmer_tpu_torch.models.quantifier import Quantifier
+from tests.oracle import oracle
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_pipeline")
+    rng = np.random.default_rng(2024)
+    names, seqs = random_transcriptome(
+        rng, num_transcripts=40, min_len=300, max_len=1200,
+        shared_prefix_frac=0.5)
+    index = build_index_from_seqs(names, seqs)
+    sim = simulate_reads(rng, seqs, num_reads=600, read_len=100,
+                         error_rate=0.005)
+    pairs = simulate_reads(rng, seqs, num_reads=300, read_len=80,
+                           paired=True, mean_frag=220.0, error_rate=0.005)
+    files = {n: str(tmp / f"{n}.fq") for n in ("se", "r1", "r2")}
+    write_fastq(files["se"], sim.reads1)
+    write_fastq(files["r1"], pairs.reads1)
+    write_fastq(files["r2"], pairs.reads2)
+    fa, idx = str(tmp / "ref.fa"), str(tmp / "index.npz")
+    write_fasta(fa, names, seqs)
+    index.save(idx)
+    return tmp, index, sim, pairs, files, fa, idx
+
+
+# est_counts of float32 EM against the float64 oracle: the bound the JAX
+# package's own pipeline test holds its Quantifier to
+RTOL, ATOL = 5e-3, 5e-2
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_quantifier_matches_jax_and_oracle(world, paired):
+    _, index, sim, pairs, files, _, _ = world
+    map_cfg = MapConfig(batch_size=128, sig_table_bits=12,
+                        paired_end=paired)
+    em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000, estimate_fld=False,
+                      mean_fragment_length=220.0 if paired else 200.0)
+    cfg = PipelineConfig().replace(map=map_cfg, em=em_cfg)
+    fq = [files["r1"] if paired else files["se"]]
+    mates = [files["r2"]] if paired else None
+    want = JQuantifier(index, cfg).quantify_files(fq, mate_paths=mates)
+    got = Quantifier(index, cfg, device="cpu").quantify_files(
+        fq, mate_paths=mates)
+    assert (got.total_reads, got.mapped, got.unmapped) == (
+        want.total_reads, want.mapped, want.unmapped)
+    reads = pairs if paired else sim
+    o = oracle.quantify(reads.reads1, index, map_cfg, em_cfg,
+                        mates=reads.reads2 if paired else None)
+    assert got.unmapped == o["unmapped"]
+    np.testing.assert_allclose(got.est_counts, o["est_counts"], rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.est_counts, want.est_counts, rtol=RTOL,
+                               atol=ATOL)
+    assert got.em_iterations == want.em_iterations
+
+
+def test_quantifier_refuses_fld_estimation(world):
+    """Paired reads against an index with the FLD payload need a given
+    fragment length until FLD estimation is ported."""
+    _, index, _, _, files, _, _ = world
+    assert index.fld_tid is not None
+    q = Quantifier(index, PipelineConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="FLD estimation"):
+        q.quantify_files([files["r1"]], mate_paths=[files["r2"]])
+
+
+def test_cli_index_and_infer(world):
+    tmp, index, sim, _, files, fa, _ = world
+    idx, out = str(tmp / "cli_index.npz"), str(tmp / "cli_out")
+    assert cli.main(["index", fa, idx]) == 0
+    assert cli.main(["infer", idx, out, files["se"], "--device", "cpu",
+                     "--batch-size", "256", "--em-tolerance", "1e-6",
+                     "--em-max-iters", "2000"]) == 0
+    tab = read_abundance(os.path.join(out, "abundance.tsv"))
+    assert tab["target_id"].tolist() == index.names.tolist()
+    em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
+    o = oracle.quantify(sim.reads1, index, MapConfig(), em_cfg)
+    np.testing.assert_allclose(tab["est_counts"], o["est_counts"],
+                               rtol=RTOL, atol=ATOL)
+    info = json.load(open(os.path.join(out, "run_info.json")))
+    assert info["total_reads"] == len(sim.reads1)
+    assert info["unmapped"] == o["unmapped"]
+    assert info["device"] == "cpu"
+    assert set(info["kernel_launches"]) == {"pack", "lookup", "signature",
+                                            "accumulate"}
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--bootstrap", "4"], "Bootstrap"),
+    (["--checkpoint", "ck.npz"], "Checkpoints"),
+    (["--pack-cache"], "Pack cache"),
+    (["--probe-sample", "8"], "Fast mode"),
+    (["--probe-stride", "4"], "Strided mode"),
+    (["--data-shards", "2"], "Multi-GPU"),
+    (["--mates", "r2.fq"], "FLD estimation"),
+])
+def test_cli_refuses_unported(argv, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
+        cli.main(["infer", "index.npz", "out", "r1.fq", "--device", "cpu",
+                  *argv])
+
+
+def test_cli_refuses_fuse():
+    with pytest.raises(SystemExit, match="ROADMAP.md.*Fusion mode"):
+        cli.main(["fuse", "index.npz", "out", "r1.fq", "--mates", "r2.fq"])
+
+
+def test_cuda_requested_without_card_raises(world):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    _, index, _, _, files, _, idx = world
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Quantifier(index, PipelineConfig(), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["infer", idx, "out", files["se"]])  # --device cuda
+
+
+_NO_JAX = r"""
+import sys
+sys.modules["jax"] = None  # any import of JAX fails
+import numpy as np
+from seekmer_tpu_torch import cli
+from seekmer_tpu_torch.host import (random_transcriptome, simulate_reads,
+                                    write_fasta, write_fastq)
+work = sys.argv[1]
+rng = np.random.default_rng(3)
+names, seqs = random_transcriptome(rng, num_transcripts=30, min_len=200,
+                                   max_len=600, shared_prefix_frac=0.5)
+write_fasta(work + "/ref.fa", names, seqs)
+pairs = simulate_reads(rng, seqs, num_reads=200, read_len=80, paired=True,
+                       mean_frag=200.0)
+write_fastq(work + "/r1.fq", pairs.reads1)
+write_fastq(work + "/r2.fq", pairs.reads2)
+assert cli.main(["index", work + "/ref.fa", work + "/index.npz"]) == 0
+assert cli.main(["infer", work + "/index.npz", work + "/out", work + "/r1.fq",
+                 "--mates", work + "/r2.fq", "--fragment-length", "200",
+                 "--device", "cpu", "--batch-size", "64",
+                 "--sig-table-bits", "10"]) == 0
+assert sys.modules["jax"] is None
+print("NO_JAX_OK")
+"""
+
+
+def test_runs_with_jax_blocked(tmp_path):
+    """The port and the host code it shares never need JAX: index and a
+    paired infer run in a process where importing JAX fails."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _NO_JAX, str(tmp_path)],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO_JAX_OK" in r.stdout
+    info = json.load(open(tmp_path / "out" / "run_info.json"))
+    assert info["total_reads"] == 200 and info["mapped"] > 150
