@@ -5,31 +5,42 @@
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit, build the four kernels from
-   ``seekmer_tpu_torch/csrc`` with nvcc (sm_90a);
+1. print the card's name and power limit, build the five kernels from
+   ``seekmer_tpu_torch/csrc`` with nvcc (sm_90a, one nvcc per source);
 2. make two worlds from a seed and index them through the port's CLI: the
    config-1 world (1000 random transcripts, 4 x 65,536 single-end 100 bp
    reads) and the config-2 GENCODE-scale isoform world (20,000 genes,
-   4 x 65,536 read pairs of 100 bp, sig_table_bits=22);
-3. hold each kernel (K1 pack, K2 lookup, K3 signature, A1 accumulate)
-   against its plain PyTorch version on the card, at the shapes of one
-   paired config-2 batch, and time both with CUDA events;
+   4 x 65,536 read pairs of 100 bp, fragments 200 +- 20,
+   sig_table_bits=22);
+3. hold each kernel against its plain PyTorch version on the card and time
+   both with CUDA events: K1 pack, K2 lookup, K3 signature and A1
+   accumulate at the shapes of one paired config-2 batch; K4 dense EM at
+   the config-1 bootstrap shapes (the world's ECs, 100 resampled
+   replicates) and at R = 1, to convergence and for the same fixed
+   iteration count;
 4. run ``infer --device cuda`` of the port's CLI on both worlds with every
-   kernel's launch count set to 0 just before and read just after; check
-   the outputs (config-1 against the float64 oracle of tests/oracle) and
-   print the map and EM rates;
-5. trace the map stage (``Mapper.run`` fed as ``infer`` feeds it) and a
-   fixed 480-iteration EM on both worlds with ``torch.profiler``; print
-   each stage's wall time untraced and traced, its device busy time, and
-   the device time per kernel or copy.
+   kernel's launch count set to 0 just before and read just after:
+   config 1 with ``--bootstrap 100`` (the dense route, through K4; the
+   point estimate checked against the float64 oracle of tests/oracle),
+   config 2 paired with no fragment flags (the fragment-length estimate
+   checked against the simulated one) and ``--bootstrap 100`` (the
+   batched CSR route); check the outputs and print the stage rates;
+5. trace the map stage (``Mapper.run`` fed as ``infer`` feeds it), a
+   fixed 480-iteration EM and a fixed 480-iteration 100-replicate
+   bootstrap on both worlds with ``torch.profiler``; print each stage's
+   wall time untraced and traced, its device busy time, and the device
+   time per kernel or copy. On config 2, before its bootstrap is traced,
+   the card's batched CSR EM is held against the same call on the CPU.
 
-The JSON line of kernel results comes second to last; the last line is
-``{"ok": true, "device": {...}}``. JAX is blocked for the whole run: the
-port must not need it.
+The last three lines are the card's name and power limit, the JSON line of
+kernel results, and ``{"ok": true, "device": {...}}``. JAX is blocked for
+the whole run: the port must not need it. Float32 products run in full
+FP32 (TF32 off) for the plain versions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -294,16 +305,165 @@ def compare_kernels(work: Path, batch):
     return out
 
 
+def group_masses(alpha, M):
+    """Mass of each group of transcripts with identical EC membership,
+    [R, G]: such transcripts are EM-degenerate (any split among them is a
+    fixed point), so only the group's sum is determined."""
+    import torch
+
+    g = torch.unique(M.t(), dim=0, return_inverse=True)[1]
+    return torch.zeros((alpha.shape[0], int(g.max()) + 1), device=alpha.device,
+                       dtype=alpha.dtype).index_add_(1, g, alpha)
+
+
+def compare_em_kernel(work: Path):
+    """K4 against its plain version at the config-1 bootstrap shapes (the
+    world's ECs from the port's mapper, 100 replicates from the port's
+    resampler with a fixed generator) and at R = 1, under the EM settings
+    of the config-1 infer run. Returns (max_abs_err, ms, plain_ms) at
+    R = 100."""
+    import torch
+
+    from seekmer_tpu_torch import EMConfig, MapConfig
+    from seekmer_tpu_torch.em.bootstrap import resample_counts
+    from seekmer_tpu_torch.em.em import (build_ec_table, dense_membership,
+                                         effective_lengths)
+    from seekmer_tpu_torch.host import KMerIndex, batch_reads_native
+    from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
+    from seekmer_tpu_torch.ops import em_cuda, em_dense
+    from seekmer_tpu_torch.utils.prefetch import device_put_batches
+
+    dev = torch.device(DEVICE)
+    index = KMerIndex.load(str(work / "c1.npz"))
+    cfg_map = MapConfig(batch_size=B)
+    result = Mapper(index, cfg_map, device=dev).run(device_put_batches(
+        batch_reads_native([str(work / "c1.fq")], cfg_map), dev))
+    members, counts, _ = resolve_signatures(result, index)
+    T = index.num_transcripts
+    ec = build_ec_table(members, counts, T, device=dev)
+    M = dense_membership(ec)
+    cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
+    inv_eff = 1.0 / effective_lengths(index.lengths, cfg, torch.float32, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cmat = resample_counts(ec.counts, 100, gen)
+    out = None
+    for n in (cmat, ec.counts[None, :]):
+        R = n.shape[0]
+        alpha0 = (n.sum(dim=1, keepdim=True) / T).expand(R, T).contiguous()
+
+        def kernel():
+            return em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+
+        def plain():
+            return em_dense.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+
+        (got, it), (want, it_p) = kernel(), plain()
+        torch.cuda.synchronize()
+        check(abs(it - it_p) <= cfg.check_every,
+              f"K4 R={R}: {it} iterations, plain {it_p}")
+        gk, gp = group_masses(got, M), group_masses(want, M)
+        err = float((gk - gp).abs().max())
+        bad = float(((gk - gp).abs() - 1e-3 * gp.abs()).max())
+        check(bool(torch.isfinite(got).all()) and bad <= 1e-2,
+              f"K4 R={R} group masses disagree: max abs {err}")
+        # the same fixed count on both sides (rel_tol 0 never converges):
+        # they differ by float32 rounding alone, so the group masses agree
+        # within 1e-2 reads. The control, the plain version with TF32
+        # products, shows what that bound makes of lower precision.
+        fixed = dataclasses.replace(cfg, rel_tol=0.0, min_iters=it,
+                                    max_iters=it)
+        (fk, itk), (fp, itp) = (
+            em_cuda.em_fixed_point(M, n, inv_eff, alpha0, fixed),
+            em_dense.em_fixed_point(M, n, inv_eff, alpha0, fixed))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ft = em_dense.em_fixed_point(M, n, inv_eff, alpha0, fixed)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        gf = group_masses(fp, M)
+        tight = float((group_masses(fk, M) - gf).abs().max())
+        control = float((group_masses(ft, M) - gf).abs().max())
+        check(itk == itp == it and tight <= 1e-2,
+              f"K4 R={R}, fixed {it} iterations: group masses disagree by "
+              f"{tight} reads (kernel {itk}, plain {itp} iterations)")
+        ms = cuda_ms(kernel, 5)
+        plain_ms = cuda_ms(plain, 3)
+        log(f"[K4 em] E {ec.num_ecs}, T {T}, R {R}: iterations {it} "
+            f"(plain {it_p}); {gk.shape[1]} membership groups, max abs "
+            f"group-mass error {err:.6g} reads (bound 1e-3 relative + "
+            f"1e-2); fixed {it} iterations: {tight:.6g} reads (bound 1e-2), "
+            f"TF32 control {control:.6g} reads; kernel {ms:.6f} ms "
+            f"({ms / it * 1e3:.3f} us/it), plain {plain_ms:.6f} ms "
+            f"({plain_ms / it_p * 1e3:.3f} us/it)")
+        if out is None:
+            out = (err, ms, plain_ms)
+    return out
+
+
+def compare_batched_em(ec, lengths):
+    """The card's batched CSR EM (the config-2 bootstrap route) against the
+    same call on CPU tensors: 4 replicates resampled on the card with a
+    fixed generator, a fixed 480 iterations on both sides. The mass of each
+    group of transcripts with identical EC membership must agree within
+    1e-3 relative + 1e-2 reads: the two differ by float32 rounding in
+    another order (``index_add_`` adds with atomics on the card), while a
+    replicate mixed with another, or a bad resample row, moves groups by
+    whole reads."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch import EMConfig
+    from seekmer_tpu_torch.em.bootstrap import batched_em, resample_counts
+
+    gen = torch.Generator(device=ec.counts.device)
+    gen.manual_seed(SEED)
+    cmat = resample_counts(ec.counts, 4, gen)
+    cfg = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480)
+    walls, outs = [], []
+    for dev in (ec.counts.device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        alpha, it = batched_em(cmat.to(dev), ec.ec_ids.to(dev),
+                               ec.txp_ids.to(dev), lengths, ec.num_ecs,
+                               ec.num_transcripts, cfg)
+        outs.append(alpha.cpu().numpy().astype(np.float64))
+        walls.append(time.perf_counter() - t0)
+        check(it == 480, f"batched EM on {dev}: {it} iterations")
+    # group of a transcript: a random 64-bit key per EC, summed over its
+    # ECs (wrapping), so equal membership gives equal keys
+    ec_ids, txp = ec.ec_ids.cpu().numpy(), ec.txp_ids.cpu().numpy()
+    key = np.zeros(ec.num_transcripts, np.uint64)
+    np.add.at(key, txp, np.random.default_rng(SEED).integers(
+        0, 2**64, size=ec.num_ecs, dtype=np.uint64)[ec_ids])
+    g = np.unique(key, return_inverse=True)[1]
+    got, want = ([np.bincount(g, weights=a) for a in o] for o in outs)
+    got, want = np.stack(got), np.stack(want)
+    err = float(np.abs(got - want).max())
+    bad = float((np.abs(got - want) - 1e-3 * np.abs(want)).max())
+    apart = float(np.abs(want[1:] - want[:-1]).max())
+    check(bool(np.isfinite(got).all()) and bad <= 1e-2 and apart > 1.0,
+          f"batched EM, card against CPU: group masses disagree by {err} "
+          f"reads (replicates apart by {apart})")
+    log(f"[batched EM] {cmat.shape[0]} replicates, nnz {ec.ec_ids.numel()}, "
+        f"{ec.num_ecs} ECs, {g.max() + 1} membership groups, 480 iterations: "
+        f"card against CPU max abs group-mass error {err:.6g} reads (bound "
+        f"1e-3 relative + 1e-2), replicates apart by up to {apart:.6g}; "
+        f"card {walls[0]:.3f} s, CPU {walls[1]:.3f} s")
+
+
 def reset_launches():
-    from seekmer_tpu_torch.ops import (accumulate_cuda, pack_cuda, probe_cuda,
-                                       sig_cuda)
+    from seekmer_tpu_torch.ops import (accumulate_cuda, em_cuda, pack_cuda,
+                                       probe_cuda, sig_cuda)
 
     for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
-               sig_cuda.read_signatures, accumulate_cuda.fold_batch):
+               sig_cuda.read_signatures, accumulate_cuda.fold_batch,
+               em_cuda.em_fixed_point):
         fn.launches = 0
 
 
-def run_infer(work: Path, tag: str, argv):
+def run_infer(work: Path, tag: str, argv, unused=()):
+    """Run the CLI's infer; every kernel but those in ``unused`` must have
+    launched during it, and those in ``unused`` must not have."""
     from seekmer_tpu_torch import cli
 
     out = work / f"{tag}_out"
@@ -323,8 +483,32 @@ def run_infer(work: Path, tag: str, argv):
         f"{t['resolve_s']:.3f} s, quantifier {t['wall_s']:.3f} s, CLI wall "
         f"{wall:.1f} s, kernel launches {launches}")
     for name, n in launches.items():
-        check(n > 0, f"{tag}: kernel {name} was never launched")
+        if name in unused:
+            check(n == 0, f"{tag}: kernel {name} launched {n} times")
+        else:
+            check(n > 0, f"{tag}: kernel {name} was never launched")
     return out, info, launches
+
+
+def check_bootstrap(tag: str, out: Path, info, T: int):
+    """bootstrap.npz holds [100, T] replicates, each carrying the mapped
+    reads. The route is read from K4's launch count (``run_infer`` checked
+    it against the expected one)."""
+    import numpy as np
+
+    boot = np.load(out / "bootstrap.npz")["est_counts"]
+    check(boot.shape == (100, T), f"{tag} bootstrap shape {boot.shape}")
+    check(bool(np.isfinite(boot).all()), f"{tag} bootstrap non-finite")
+    mass = boot.sum(axis=1)
+    err = float(np.abs(mass - info["mapped"]).max() / info["mapped"])
+    check(err < 1e-3, f"{tag} bootstrap row mass off by {err:.3g}")
+    t = info["timings"]
+    k4 = info["kernel_launches"]["em"]
+    log(f"[{tag} bootstrap] {boot.shape[0]} x {boot.shape[1]}, route "
+        f"{'dense (K4)' if k4 else 'batched CSR'} (K4 launches {k4}), "
+        f"{int(t['bootstrap_iterations'])} "
+        f"iterations, stage wall {t['bootstrap_s']:.6f} s; row mass vs "
+        f"mapped {info['mapped']}: max relative error {err:.3g}")
 
 
 def end_to_end(work: Path, w):
@@ -336,8 +520,9 @@ def end_to_end(work: Path, w):
 
     out, info, l1 = run_infer(work, "c1", [
         str(work / "c1.fq"), "--em-tolerance", "1e-6", "--em-max-iters",
-        "2000"])
+        "2000", "--bootstrap", "100", "--seed", "1"])
     index = KMerIndex.load(str(work / "c1.npz"))
+    check_bootstrap("c1", out, info, index.num_transcripts)
     em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
     t0 = time.perf_counter()
     o = oracle.quantify(w["c1_reads"], index, MapConfig(), em_cfg)
@@ -359,11 +544,18 @@ def end_to_end(work: Path, w):
     check(tpm_err < 1e-5 * top and tpm_err_tsv < 2e-5 * top,
           "config-1 TPM error against the oracle")
 
+    # no fragment flags: the fragment-length distribution is estimated
     out2, info2, l2 = run_infer(work, "c2", [
         str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
-        "--fragment-length", "200", "--fragment-sd", "20",
-        "--sig-table-bits", "22"])
+        "--sig-table-bits", "22", "--bootstrap", "100"], unused=("em",))
+    fld = info2["fld"]
+    check(fld is not None, "config-2 FLD was not estimated")
+    log(f"[c2 fld] mean {fld['mean']:.6f} (simulated 200), sd "
+        f"{fld['sd']:.6f} (simulated 20), {fld['samples']} samples")
+    check(abs(fld["mean"] - 200.0) < 10.0 and abs(fld["sd"] - 20.0) < 10.0
+          and fld["samples"] > 1000, f"config-2 FLD estimate {fld}")
     tab2 = read_abundance(str(out2 / "abundance.tsv"))
+    check_bootstrap("c2", out2, info2, tab2["target_id"].size)
     check(info2["total_reads"] == BATCHES * B, "config-2 read count")
     check(info2["mapped"] > 0.8 * BATCHES * B,
           f"config-2 mapped only {info2['mapped']}")
@@ -458,11 +650,15 @@ def report_stage(name: str, run):
 
 
 def profile_stages(work: Path) -> None:
-    """Trace the map stage and a fixed 480-iteration EM on both worlds."""
+    """Trace the map stage, a fixed 480-iteration EM and a fixed
+    480-iteration 100-replicate bootstrap on both worlds; on the world that
+    takes the batched CSR bootstrap route, hold that route on the card
+    against the CPU first."""
     import torch
 
     from seekmer_tpu_torch import EMConfig, MapConfig
-    from seekmer_tpu_torch.em.em import build_ec_table, run_em
+    from seekmer_tpu_torch.em.bootstrap import run_bootstrap
+    from seekmer_tpu_torch.em.em import build_ec_table, run_em, use_dense
     from seekmer_tpu_torch.host import (KMerIndex, batch_read_pairs_native,
                                         batch_reads_native)
     from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
@@ -470,6 +666,8 @@ def profile_stages(work: Path) -> None:
 
     dev = torch.device(DEVICE)
     fixed = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480)
+    boot = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480,
+                    bootstrap_samples=100, bootstrap_seed=1)
     for tag, paired, bits in (("c1", False, 20), ("c2", True, 22)):
         index = KMerIndex.load(str(work / f"{tag}.npz"))
         cfg = MapConfig(batch_size=B, sig_table_bits=bits, paired_end=paired)
@@ -495,6 +693,13 @@ def profile_stages(work: Path) -> None:
         log(f"[profile {tag} em] nnz {ec.ec_ids.numel()}, {ec.num_ecs} ECs")
         report_stage(f"{tag} em", lambda trace: traced(lambda: (
             run_em(ec, index.lengths, fixed)[0].sum().item()), trace))
+        dense = use_dense(ec, boot, 100)
+        log(f"[profile {tag} bootstrap] 100 replicates, 480 iterations, "
+            f"{'dense (K4)' if dense else 'batched CSR'} route")
+        if not dense:
+            compare_batched_em(ec, index.lengths)
+        report_stage(f"{tag} bootstrap", lambda trace: traced(lambda: (
+            run_bootstrap(ec, index.lengths, boot)[0].sum().item()), trace))
 
 
 KERNELS = [
@@ -504,6 +709,8 @@ KERNELS = [
      "seekmer_tpu/ops/probe_pallas.py:45"),
     ("K3", "signature", "seekmer_tpu_torch/csrc/sig.cu",
      "seekmer_tpu/ops/sig_pallas.py:56"),
+    ("K4", "em", "seekmer_tpu_torch/csrc/em.cu",
+     "seekmer_tpu/ops/em_pallas.py:42"),
     ("A1", "accumulate", "seekmer_tpu_torch/csrc/accumulate.cu",
      "seekmer_tpu/map/signature.py:127"),
 ]
@@ -542,6 +749,7 @@ def main() -> int:
     try:
         w = make_worlds(work)
         timing = compare_kernels(work, w["c2_batch"])
+        timing["K4"] = compare_em_kernel(work)
         launches = end_to_end(work, w)
         profile_stages(work)
     finally:
@@ -554,8 +762,8 @@ def main() -> int:
                         "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms})
-    print(json.dumps({"kernels": kernels}))
     print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """seekmer_tpu_torch: the PyTorch/CUDA port of seekmer_tpu.
 
 The dense mapping path (canonical k-mer packing, bucket lookup with the
-stash, per-read EC signatures, signature-table accumulate) runs through
-hand-written CUDA kernels for Hopper (``csrc/``); single-run CSR EM runs on
-torch ops. Host code that never imports JAX (configuration, encoding, index
+stash, per-read EC signatures, signature-table accumulate) and the dense
+EM fixed point of the bootstrap run through hand-written CUDA kernels for
+Hopper (``csrc/``); single-run CSR EM, the batched CSR bootstrap EM and
+fragment-length estimation run on torch ops around them. Host code that never imports JAX (configuration, encoding, index
 build and storage, FASTQ ingest, the writer, the simulator) is imported from
 ``seekmer_tpu`` unchanged.
 

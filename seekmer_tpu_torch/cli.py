@@ -2,11 +2,12 @@
 ``seekmer_tpu.cli``, whose index build is host code) and ``infer`` on one
 device, ``--device cuda`` by default.
 
-``infer`` accepts the JAX CLI's flags for the features this port does not
-have yet (``--bootstrap``, ``--checkpoint``, ``--pack-cache``,
-``--probe-sample``, ``--probe-stride``, sharding) and refuses them with an
-error naming their ROADMAP.md item, as it does ``fuse`` and paired input
-without ``--fragment-length``.
+``infer`` estimates the fragment-length distribution of paired runs unless
+``--fragment-length`` or ``--fragment-sd`` is given, and runs ``--bootstrap``
+replicates. It accepts the JAX CLI's flags for the features this port does
+not have yet (``--checkpoint``, ``--pack-cache``, ``--probe-sample``,
+``--probe-stride``, sharding) and refuses them with an error naming their
+ROADMAP.md item, as it does ``fuse``.
 """
 
 from __future__ import annotations
@@ -45,17 +46,22 @@ def _add_infer(sub):
     p.add_argument("--max-ecs-per-read", type=int, default=16)
     p.add_argument("--sig-table-bits", type=int, default=20)
     p.add_argument("--fragment-length", type=float, default=None,
-                   help="fragment-length mean (required for paired-end "
-                        "runs; default 200 for single-end)")
+                   help="fragment-length mean (default: estimated from "
+                        "mapped pairs for paired-end runs, else 200)")
     p.add_argument("--fragment-sd", type=float, default=None,
                    help="fragment-length sd; > 0 switches the effective-"
-                        "length model to the truncated-normal expectation")
+                        "length model to the truncated-normal expectation "
+                        "(default: estimated from mapped pairs for "
+                        "paired-end runs, else 0)")
     p.add_argument("--em-tolerance", type=float, default=1e-4)
     p.add_argument("--em-max-iters", type=int, default=10000)
     p.add_argument("--em-accel", choices=("none", "squarem"), default="none")
+    p.add_argument("--bootstrap", type=int, default=0,
+                   help="number of bootstrap replicates")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the bootstrap resampling")
     p.add_argument("--x64", action="store_true", help="float64 EM")
     # features of the JAX CLI that are refused until they are ported
-    p.add_argument("--bootstrap", type=int, default=0)
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--pack-cache", nargs="?", const="auto", default=None)
     p.add_argument("--probe-sample", type=int, default=0)
@@ -83,8 +89,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.bootstrap > 0:
-        raise NotPorted("--bootstrap", "Bootstrap")
     if args.checkpoint:
         raise NotPorted("--checkpoint", "Checkpoints")
     if args.pack_cache is not None:
@@ -95,26 +99,25 @@ def _refuse_unported(args) -> None:
         raise NotPorted("--probe-stride > 1", "Strided mode")
     if args.data_shards != 1 or args.index_shards != 1:
         raise NotPorted("sharding", "Multi-GPU")
-    if args.mates and args.fragment_length is None:
-        raise NotPorted("fragment-length estimation from paired reads "
-                        "(give --fragment-length)", "FLD estimation")
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the four kernel wrappers in this process."""
-    from .ops import accumulate_cuda, pack_cuda, probe_cuda, sig_cuda
+    """Launch counts of the kernel wrappers in this process."""
+    from .ops import accumulate_cuda, em_cuda, pack_cuda, probe_cuda, sig_cuda
 
     return {"pack": pack_cuda.pack_canonical_2bit.launches,
             "lookup": probe_cuda.lookup_ecs_aux.launches,
             "signature": sig_cuda.read_signatures.launches,
-            "accumulate": accumulate_cuda.fold_batch.launches}
+            "accumulate": accumulate_cuda.fold_batch.launches,
+            "em": em_cuda.em_fixed_point.launches}
 
 
 def cmd_infer(args) -> int:
     from seekmer_tpu.config import EMConfig, MapConfig, PipelineConfig
     from seekmer_tpu.index.store import KMerIndex
-    from seekmer_tpu.io.writer import (write_abundance, write_gene_abundance,
-                                       write_h5, write_run_info)
+    from seekmer_tpu.io.writer import (write_abundance, write_bootstrap,
+                                       write_gene_abundance, write_h5,
+                                       write_run_info)
 
     import torch
 
@@ -135,10 +138,14 @@ def cmd_infer(args) -> int:
                                   else args.fragment_length),
             fragment_length_sd=(0.0 if args.fragment_sd is None
                                 else args.fragment_sd),
-            estimate_fld=False,
+            # explicit FLD flags override data-driven estimation
+            estimate_fld=(args.fragment_length is None
+                          and args.fragment_sd is None),
             rel_tol=args.em_tolerance,
             max_iters=args.em_max_iters,
             accel=args.em_accel,
+            bootstrap_samples=args.bootstrap,
+            bootstrap_seed=args.seed,
             use_x64=args.x64),
     )
     q = Quantifier(index, cfg, device=device)
@@ -150,11 +157,14 @@ def cmd_infer(args) -> int:
                     result.est_counts, result.tpm)
     if not write_h5(os.path.join(args.output_dir, "abundance.h5"),
                     result.names, result.lengths, result.eff_length,
-                    result.est_counts,
+                    result.est_counts, boot_counts=result.bootstrap_counts,
                     run_info={"total_reads": result.total_reads,
                               "call": " ".join(sys.argv),
                               "start_time": start_time}):
         logging.warning("h5py not installed; abundance.h5 not written")
+    if result.bootstrap_counts is not None:
+        write_bootstrap(os.path.join(args.output_dir, "bootstrap.npz"),
+                        result.names, result.bootstrap_counts)
     if index.genes is not None:
         write_gene_abundance(
             os.path.join(args.output_dir, "abundance.genes.tsv"),
@@ -168,6 +178,10 @@ def cmd_infer(args) -> int:
             "p_mapped": result.mapped / max(result.total_reads, 1),
             "em_iterations": result.em_iterations,
             "log_likelihood": result.log_likelihood,
+            "fld": (None if result.fld_mean is None else
+                    {"mean": result.fld_mean, "sd": result.fld_sd,
+                     "samples": result.fld_samples}),
+            "bootstrap_samples": args.bootstrap,
             "start_time": start_time,
             "timings": result.timings,
             "index": args.index,

@@ -1,5 +1,5 @@
 """EM transcript-abundance inference on torch tensors; counterpart of
-``seekmer_tpu/em/em.py``, single-run CSR form.
+``seekmer_tpu/em/em.py``.
 
 The EC membership is a flat CSR (``txp_ids[nnz]`` / ``ec_ids[nnz]``, sorted
 by EC), so one iteration is two segment sums (``index_add_``) and
@@ -11,11 +11,12 @@ elementwise work:
 
 The fixed point runs in blocks of ``check_every`` steps with one host read
 of the converged flag per block, the schedule of the JAX package and of the
-float64 oracle, so iteration counts match. The JAX chunked execution
+float64 oracle, so iteration counts match. ``EMConfig.backend="pallas"``
+runs the dense fixed point instead (``use_dense``): K4 on a card, its plain
+version on the CPU. The JAX chunked execution
 (``_use_chunked``/``_chunked_fixed_point``) worked around a TPU limit on
-execution time and has no counterpart; the dense Pallas EM kernel
-(``ops/em_pallas.py``) is not ported yet (ROADMAP.md, still to port, K4).
-On CUDA, ``index_add_`` adds with float atomics in no fixed order.
+execution time and has no counterpart. On CUDA, ``index_add_`` adds with
+float atomics in no fixed order.
 """
 
 from __future__ import annotations
@@ -92,13 +93,16 @@ def em_step(alpha, ec: ECTable, eff):
 def squarem_cycle(em_iter, alpha, eps=1e-30, step_cap=64.0):
     """One SQUAREM (S3) cycle: two EM steps give the secant pair, a
     steplength ``-clip(|r|/|v|, 1, step_cap)`` extrapolates, clamped at 0,
-    and a third EM step stabilizes. Same fixed points as plain EM."""
+    and a third EM step stabilizes. Same fixed points as plain EM. Works on
+    (T,) single runs and (T, B) replicate-major batches, with one
+    steplength per replicate."""
     a1 = em_iter(alpha)
     a2 = em_iter(a1)
     r = a1 - alpha
     v = (a2 - a1) - r
-    rn = torch.sqrt(torch.sum(r * r))
-    vn = torch.sqrt(torch.sum(v * v))
+    dims = (0,) if alpha.ndim == 2 else ()
+    rn = torch.sqrt(torch.sum(r * r, dim=dims))
+    vn = torch.sqrt(torch.sum(v * v, dim=dims))
     step = -torch.clamp(rn / torch.clamp(vn, min=eps), 1.0, step_cap)
     ext = torch.clamp(alpha - 2.0 * step * r + (step * step) * v, min=0.0)
     ext = torch.where(torch.isfinite(ext), ext, a2)
@@ -143,14 +147,59 @@ def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
     return it, converged, alpha
 
 
+def dense_membership(ec: ECTable) -> torch.Tensor:
+    """Dense EC-membership matrix float32[E, T] from the flat CSR."""
+    M = torch.zeros((ec.num_ecs, ec.num_transcripts), dtype=torch.float32,
+                    device=ec.counts.device)
+    M[ec.ec_ids, ec.txp_ids] = 1.0
+    return M
+
+
+def use_dense(ec: ECTable, cfg: EMConfig, replicates: int = 1) -> bool:
+    """Whether EM runs the dense fixed point (K4) rather than the CSR form:
+    the rule of the JAX ``_use_pallas``. x64 and ``backend="csr"`` take the
+    CSR form, as does ``auto`` for a single run; otherwise the dense route
+    when the system fits ``fits_dense``, and ``backend="pallas"`` on a
+    system that does not fit raises."""
+    from ..ops.em_dense import fits_dense
+
+    if cfg.use_x64 or cfg.backend == "csr":
+        return False
+    if cfg.backend == "auto" and replicates == 1:
+        return False
+    ok = fits_dense(ec.num_ecs, ec.num_transcripts, replicates)
+    if cfg.backend == "pallas" and not ok:
+        raise ValueError("system too large for the dense EM kernel (K4): "
+                         f"{ec.num_ecs} ECs x {ec.num_transcripts} "
+                         f"transcripts x {replicates} replicates")
+    return ok
+
+
 def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
            alpha_init=None, it_init: int = 0) -> Tuple[torch.Tensor, int]:
     """EM to convergence. Returns (alpha float[T], iterations).
     ``alpha_init``/``it_init`` warm-start the fixed point; max_iters counts
-    the total across restarts."""
+    the total across restarts. A fresh run under ``backend="pallas"``
+    takes the dense fixed point (K4 with R = 1, float32); a resumed one
+    (``it_init`` > 0) stays on the CSR form, whose budget counts from
+    ``it_init``."""
     dtype, device = ec.counts.dtype, ec.counts.device
-    eff = effective_lengths(lengths, cfg, dtype, device)
     T = ec.num_transcripts
+    if it_init == 0 and use_dense(ec, cfg):
+        from ..ops import em_cuda
+
+        f32 = torch.float32
+        inv_eff = 1.0 / effective_lengths(lengths, cfg, f32, device)
+        if alpha_init is None:
+            alpha0 = (ec.counts.sum() / T).to(f32).repeat(1, T)
+        else:
+            alpha0 = torch.as_tensor(np.asarray(alpha_init), dtype=f32,
+                                     device=device).reshape(1, T)
+        alpha, iters = em_cuda.em_fixed_point(
+            dense_membership(ec), ec.counts.to(f32).reshape(1, -1), inv_eff,
+            alpha0, cfg)
+        return alpha[0], iters
+    eff = effective_lengths(lengths, cfg, dtype, device)
     if alpha_init is None:
         alpha0 = (ec.counts.sum() / T).repeat(T)
     else:

@@ -54,6 +54,19 @@ def check_device(device) -> torch.device:
     return dev
 
 
+def to_device(x, device: torch.device):
+    """A batch array as a tensor on ``device``: numpy arrays are uploaded,
+    tensors must already be there; None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"batch tensor on {x.device}, expected "
+                             f"{device}")
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
 def check_map_config(cfg: MapConfig) -> None:
     """Raise on the mapping modes this port does not have yet."""
     if cfg.probe_sample >= 2:
@@ -193,21 +206,13 @@ class Mapper:
         self.total_reads = 0
         self._fed_batches = 0
 
-    def _upload(self, x):
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            if x.device != self.device:
-                raise ValueError(f"batch tensor on {x.device}, mapper on "
-                                 f"{self.device}")
-            return x
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
     def feed(self, batch: ReadBatch) -> None:
         n_real = batch.n_real
         if batch.pad_len is None:  # unpacked rows: pack on the host first
             batch = pack_batch_2bit(batch)
-        u = self._upload
+
+        def u(x):
+            return to_device(x, self.device)
         audit = audit_this_batch(self.cfg, self._fed_batches)
         self.table = map_step(
             self.device_index, self.cfg, self.table, u(batch.codes),
@@ -221,6 +226,15 @@ class Mapper:
         for b in batches:
             self.feed(b)
         return self.finalize()
+
+    def make_fld_estimator(self):
+        """Fragment-length estimator sharing this mapper's device table
+        (``map/fld.py``), or None when the index lacks the FLD payload."""
+        if self.index.fld_tid is None:
+            return None
+        from .fld import FLDEstimator
+
+        return FLDEstimator(self.index, self.device_index)
 
     def finalize(self) -> MapResult:
         sigs, counts = table_to_host(self.table)

@@ -1,10 +1,11 @@
 """Quantifier: the end-to-end pipeline (index -> pseudoalignment -> EM ->
-abundance table) on one device; counterpart of
+abundance table, with fragment-length estimation from paired reads and
+bootstrap replicates) on one device; counterpart of
 ``seekmer_tpu/models/quantifier.py``, single-device path only.
 
 Not ported yet, and refused with an error naming its ROADMAP.md item
-rather than skipped: meshes and sharding, the bootstrap, checkpoints, the
-pack cache and fragment-length estimation from paired reads.
+rather than skipped: meshes and sharding. Checkpoints and the pack cache
+have no entry here yet (the CLI refuses their flags).
 """
 
 from __future__ import annotations
@@ -12,12 +13,12 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from seekmer_tpu.config import PipelineConfig
+from seekmer_tpu.config import EMConfig, PipelineConfig
 from seekmer_tpu.index.store import KMerIndex
 from seekmer_tpu.io.fastq import (
     ReadBatch,
@@ -26,6 +27,7 @@ from seekmer_tpu.io.fastq import (
 )
 from seekmer_tpu.utils.metrics import Metrics
 
+from ..em.bootstrap import run_bootstrap
 from ..em.em import (
     build_ec_table,
     effective_lengths,
@@ -50,7 +52,14 @@ class QuantResult:
     mapped: int
     unmapped: int
     em_iterations: int
+    bootstrap_counts: Optional[np.ndarray] = None  # [B, T]
     timings: Optional[Dict[str, float]] = None
+    # fragment-length distribution estimated from mapped pairs (map/fld.py);
+    # None when not estimated (single-end, no FLD payload, or too few
+    # concordant unique-k-mer pairs)
+    fld_mean: Optional[float] = None
+    fld_sd: Optional[float] = None
+    fld_samples: Optional[int] = None
     log_likelihood: Optional[float] = None
 
 
@@ -60,10 +69,6 @@ def check_pipeline_config(cfg: PipelineConfig) -> None:
         raise NotImplementedError(
             "sharding is not ported yet: ROADMAP.md, still to port, "
             "'Multi-GPU'")
-    if cfg.em.bootstrap_samples > 0:
-        raise NotImplementedError(
-            "the bootstrap is not ported yet: ROADMAP.md, still to port, "
-            "'Bootstrap'")
 
 
 class Quantifier:
@@ -85,27 +90,15 @@ class Quantifier:
             batches = batch_reads_native(fastq_paths, self.cfg.map)
         return self.quantify_batches(batches)
 
-    def _refuse_fld(self, batches: Iterable[ReadBatch]):
-        """Paired reads against an index with the FLD payload would have
-        their fragment-length distribution estimated (map/fld.py); that is
-        not ported, so such a run must set the fragment length itself."""
-        needs = self.cfg.em.estimate_fld and self.index.fld_tid is not None
-        for b in batches:
-            if needs and b.codes2 is not None:
-                raise NotImplementedError(
-                    "fragment-length estimation from paired reads is not "
-                    "ported yet (ROADMAP.md, still to port, 'FLD "
-                    "estimation'): give the fragment length (EMConfig."
-                    "estimate_fld=False, --fragment-length)")
-            yield b
-
     def quantify_batches(self, batches: Iterable[ReadBatch],
                          mapper: Optional[Mapper] = None) -> QuantResult:
         metrics = Metrics()
         if mapper is None:
             mapper = Mapper(self.index, self.cfg.map, device=self.device)
-        batches = prefetch(device_put_batches(self._refuse_fld(batches),
-                                              self.device), depth=4)
+        batches = prefetch(device_put_batches(batches, self.device), depth=4)
+        self._fld_est = None
+        if self.cfg.em.estimate_fld and self.index.fld_tid is not None:
+            batches = self._tee_fld(batches, mapper)
         with metrics.timer("map"):
             result = mapper.run(batches)
         metrics.count("reads", result.total_reads)
@@ -117,12 +110,34 @@ class Quantifier:
                  result.collisions)
         return self._infer(result, metrics)
 
+    def _tee_fld(self, batches: Iterable[ReadBatch], mapper: Mapper):
+        """Pass batches through while sampling the first paired ones into a
+        fragment-length estimator (map/fld.py) that shares the mapper's
+        device table; it goes inert after its sampling batches."""
+        for b in batches:
+            if b.codes2 is not None and self._fld_est is None:
+                self._fld_est = mapper.make_fld_estimator()
+            if self._fld_est is not None and self._fld_est.active:
+                self._fld_est.feed(b)
+            yield b
+
+    def _fld_cfg(self, em_cfg: EMConfig) -> Tuple[EMConfig, Optional[Tuple]]:
+        """Apply the estimated FLD (if any) to the effective-length model."""
+        est = None if self._fld_est is None else self._fld_est.estimate()
+        if est is None:
+            return em_cfg, None
+        mean, sd, n = est
+        log.info("estimated fragment-length distribution from %d mapped "
+                 "pairs: mean %.1f, sd %.1f", n, mean, sd)
+        return dataclasses.replace(
+            em_cfg, mean_fragment_length=mean, fragment_length_sd=sd), est
+
     def _infer(self, result: MapResult, metrics: Metrics) -> QuantResult:
         t0 = time.perf_counter()
         member_lists, counts, dropped = resolve_signatures(result, self.index)
         t_resolve = time.perf_counter() - t0
 
-        em_cfg = self.cfg.em
+        em_cfg, fld_est = self._fld_cfg(self.cfg.em)
         dtype = torch.float64 if em_cfg.use_x64 else torch.float32
         T = self.index.num_transcripts
         lengths = self.index.lengths
@@ -137,6 +152,14 @@ class Quantifier:
         if iters >= em_cfg.max_iters:
             log.warning("EM stopped at max_iters=%d without meeting "
                         "rel_tol=%g", em_cfg.max_iters, em_cfg.rel_tol)
+        boot = None
+        if em_cfg.bootstrap_samples > 0:
+            with metrics.timer("bootstrap"):
+                boot_alpha, boot_iters = run_bootstrap(ec, lengths, em_cfg)
+                boot = boot_alpha.cpu().numpy()
+            metrics.count("bootstrap_iterations", boot_iters)
+            log.info("bootstrap: %d replicates in %.2fs",
+                     em_cfg.bootstrap_samples, metrics.timings["bootstrap"])
         timings = {"resolve_s": t_resolve, **metrics.snapshot()}
         metrics.log_summary()
         return QuantResult(
@@ -149,6 +172,10 @@ class Quantifier:
             mapped=result.mapped - dropped,
             unmapped=result.unmapped + dropped,
             em_iterations=int(iters),
+            bootstrap_counts=boot,
             timings=timings,
+            fld_mean=None if fld_est is None else fld_est[0],
+            fld_sd=None if fld_est is None else fld_est[1],
+            fld_samples=None if fld_est is None else fld_est[2],
             log_likelihood=ll,
         )

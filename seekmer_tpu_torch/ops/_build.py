@@ -1,12 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, into
-``build/seekmer_tpu_torch/`` at the repository root. The library's file
-name carries a hash of the sources and flags, so an edited source is never
-served by a stale build. It is loaded with ``ctypes``; every pointer and
-the stream are passed as ``c_void_p`` and every C entry returns
-``cudaGetLastError()``, which :func:`check` turns into an exception.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, at first use, into ``build/seekmer_tpu_torch/``
+at the repository root. One ``nvcc`` per source keeps the build as long
+as its slowest source rather than the sum of all, as sources are added
+under the fixed time limit of ``chip_smoke.py``, which builds them all.
+``-Xptxas -v`` writes each kernel's registers and spills to ``build.log``.
+The library's file name carries a hash of the sources and flags, so an
+edited source is never served by a stale build.
+It is loaded with ``ctypes``; every pointer and the stream are passed as
+``c_void_p``, integers as ``c_int64`` and floating-point parameters as
+``c_double``, and every C entry returns a CUDA error code (0 on success),
+which :func:`check` turns into an exception.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the build happens only when a CUDA tensor first reaches a kernel wrapper.
@@ -29,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "seekmer_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -55,6 +61,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libseekmer_kernels_{h.hexdigest()[:12]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; returns (log text, failed stderr)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    text, failed = [], []
+    for c, p in zip(cmds, procs):
+        so, se = p.communicate()
+        text.append(" ".join(c) + "\n" + so + se)
+        if p.returncode != 0:
+            failed.append(f"{' '.join(c)} ({p.returncode}):\n{se}")
+    return "".join(text), failed
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
     library path. The compiler's report (registers, spills) is kept in
@@ -64,16 +84,21 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, p.stem + ".o") for p in cu]
+        log, failed = _run_all(
+            [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(p)]
+             for p, o in zip(cu, objs)])
+        if not failed:
+            tmp = os.path.join(tmpdir, "lib.so")
+            link, failed = _run_all(
+                [[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+            log += link
+        (BUILD_DIR / "build.log").write_text(log)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        # atomic: a concurrent loader sees all or nothing
+        os.replace(tmp, out)
     return out
 
 
@@ -83,11 +108,13 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def function(name: str, n_ptr: int, n_int: int):
+def function(name: str, n_ptr: int, n_int: int, n_dbl: int = 0):
     """The C entry ``name`` taking ``n_ptr`` pointers (c_void_p, the stream
-    last among them), then ``n_int`` 64-bit integers, returning int."""
+    last among them), then ``n_int`` 64-bit integers, then ``n_dbl``
+    doubles, returning int."""
     fn = getattr(_lib(), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int
+                   + [ctypes.c_double] * n_dbl)
     fn.restype = ctypes.c_int
     return fn
 

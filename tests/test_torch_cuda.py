@@ -26,6 +26,8 @@ from seekmer_tpu_torch.map.driver import DeviceIndex, Mapper, merge_sig_rows
 from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
 from seekmer_tpu_torch.ops import (
     accumulate_cuda,
+    em_cuda,
+    em_dense,
     pack_cuda,
     probe_cuda,
     sig_cuda,
@@ -38,6 +40,9 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # full FP32 products in the plain versions, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -247,3 +252,121 @@ def test_quantifier_on_card_matches_cpu(dev, world, tmp_path):
     # float64 EM; only the atomics' summation order differs
     np.testing.assert_allclose(got.est_counts, want.est_counts, rtol=1e-9,
                                atol=1e-9)
+
+
+def _em_system(dev, T, E, R, seed):
+    """A random dense EM system on the card: M [E, T] with 1-5 members per
+    EC, counts n [R, E], inv_eff [T], alpha0 [R, T] (float32)."""
+    rng = np.random.default_rng(seed)
+    M = np.zeros((E, T), np.float32)
+    for e in range(E):
+        M[e, rng.choice(T, size=int(rng.integers(1, 6)), replace=False)] = 1
+    n = rng.integers(0, 500, size=(R, E)).astype(np.float32)
+    eff = rng.integers(50, 3000, size=T).astype(np.float32)
+    alpha0 = np.repeat(n.sum(axis=1, keepdims=True) / T, T, axis=1)
+    return [torch.from_numpy(a).to(dev) for a in
+            (M, n, (1.0 / eff).astype(np.float32), alpha0.astype(np.float32))]
+
+
+def _groups(M):
+    """Group id per transcript: transcripts with identical EC membership
+    are EM-degenerate, so only their summed mass is determined."""
+    return torch.unique(M.t(), dim=0, return_inverse=True)[1]
+
+
+@pytest.mark.parametrize("T,E,R", [(60, 150, 1), (60, 150, 8),
+                                   (1000, 1396, 1), (1000, 1396, 8),
+                                   (1000, 1396, 100)])
+def test_em_kernel(dev, T, E, R):
+    """K4 against its plain version (torch.matmul in FP32): iteration counts
+    within one check_every block, group masses within rtol 1e-3 (atol 1e-2
+    reads), every replicate's mass kept."""
+    from seekmer_tpu.config import EMConfig
+
+    M, n, inv_eff, alpha0 = _em_system(dev, T, E, R, seed=T + R)
+    cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
+    before = em_cuda.em_fixed_point.launches
+    got, it = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+    torch.cuda.synchronize()
+    assert em_cuda.em_fixed_point.launches == before + 1
+    want, it_p = em_dense.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+    assert got.shape == (R, T) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert abs(it - it_p) <= cfg.check_every and it % cfg.check_every == 0
+    g = _groups(M)
+    G = int(g.max()) + 1
+    gs = [torch.zeros((R, G), device=dev).index_add_(1, g, a)
+          for a in (got, want)]
+    torch.testing.assert_close(gs[0], gs[1], rtol=1e-3, atol=1e-2)
+    live = (M.sum(dim=1) > 0)[None, :]
+    mass = torch.where(live, n, 0.0).sum(dim=1)
+    torch.testing.assert_close(got.sum(dim=1), mass, rtol=1e-4, atol=1e-3)
+
+
+def test_em_kernel_deterministic_and_budgeted(dev):
+    """Two runs give the same bits; max_iters and min_iters bound the
+    count as in the plain version."""
+    from seekmer_tpu.config import EMConfig
+
+    M, n, inv_eff, alpha0 = _em_system(dev, 1000, 1396, 100, seed=3)
+    cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
+    a, ia = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+    b, ib = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+    assert ia == ib and torch.equal(a, b)
+    capped = EMConfig(rel_tol=0.0, max_iters=40, check_every=16)
+    _, it = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, capped)
+    assert it == em_dense.em_fixed_point(M, n, inv_eff, alpha0, capped)[1]
+    assert it == 48
+    loose = EMConfig(rel_tol=1.0, min_iters=100, check_every=7)
+    _, it = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, loose)
+    assert it == em_dense.em_fixed_point(M, n, inv_eff, alpha0, loose)[1]
+    assert it >= 100 and it % 7 == 0
+
+
+def test_em_kernel_never_falls_back(dev):
+    """What the kernel does not take raises on the card; nothing moves to
+    the plain version or the CPU."""
+    from seekmer_tpu.config import EMConfig
+
+    M, n, inv_eff, alpha0 = _em_system(dev, 60, 150, 8, seed=4)
+    cfg = EMConfig()
+    before = em_cuda.em_fixed_point.launches
+    with pytest.raises(ValueError, match="float32"):
+        em_cuda.em_fixed_point(M.double(), n.double(), inv_eff.double(),
+                               alpha0.double(), cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        em_cuda.em_fixed_point(M, n, inv_eff, alpha0.t().contiguous().t(),
+                               cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        em_cuda.em_fixed_point(M, n.cpu(), inv_eff, alpha0, cfg)
+    with pytest.raises(ValueError, match="shapes"):
+        em_cuda.em_fixed_point(M, n[:, :-1], inv_eff, alpha0, cfg)
+    assert em_cuda.em_fixed_point.launches == before
+
+
+def test_bootstrap_on_card_takes_k4(dev):
+    """run_bootstrap on a system under the dense gate launches K4 once;
+    each replicate keeps the resample's mass."""
+    from seekmer_tpu.config import EMConfig
+    from seekmer_tpu_torch.em.bootstrap import run_bootstrap
+    from seekmer_tpu_torch.em.em import build_ec_table
+
+    rng = np.random.default_rng(6)
+    T, E = 200, 400
+    members = [np.sort(rng.choice(T, size=int(rng.integers(1, 5)),
+                                  replace=False)).astype(np.int32)
+               for _ in range(E)]
+    counts = rng.integers(1, 300, size=E).astype(np.float64)
+    lengths = rng.integers(300, 3000, size=T).astype(np.int32)
+    ec = build_ec_table(members, counts, T, device=dev)
+    cfg = EMConfig(rel_tol=1e-5, bootstrap_samples=16, bootstrap_seed=2)
+    before = em_cuda.em_fixed_point.launches
+    boot, it = run_bootstrap(ec, lengths, cfg)
+    assert em_cuda.em_fixed_point.launches == before + 1
+    assert boot.shape == (16, T) and boot.device.type == "cuda"
+    torch.testing.assert_close(boot.sum(dim=1).cpu(),
+                               torch.full((16,), counts.sum(),
+                                          dtype=torch.float32),
+                               rtol=1e-4, atol=0.0)
+    again, _ = run_bootstrap(ec, lengths, cfg)
+    assert torch.equal(boot, again)

@@ -1,6 +1,7 @@
 """The port end to end on the CPU: Quantifier and the CLI against the JAX
-Quantifier and the float64 oracle, the refusal of features outside the
-port, and a run in a process where JAX cannot be imported."""
+Quantifier and the float64 oracle, bootstrap output, the refusal of
+features outside the port, and a run in a process where JAX cannot be
+imported."""
 
 import json
 import os
@@ -82,16 +83,6 @@ def test_quantifier_matches_jax_and_oracle(world, paired):
     assert got.em_iterations == want.em_iterations
 
 
-def test_quantifier_refuses_fld_estimation(world):
-    """Paired reads against an index with the FLD payload need a given
-    fragment length until FLD estimation is ported."""
-    _, index, _, _, files, _, _ = world
-    assert index.fld_tid is not None
-    q = Quantifier(index, PipelineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="FLD estimation"):
-        q.quantify_files([files["r1"]], mate_paths=[files["r2"]])
-
-
 def test_cli_index_and_infer(world):
     tmp, index, sim, _, files, fa, _ = world
     idx, out = str(tmp / "cli_index.npz"), str(tmp / "cli_out")
@@ -110,17 +101,40 @@ def test_cli_index_and_infer(world):
     assert info["unmapped"] == o["unmapped"]
     assert info["device"] == "cpu"
     assert set(info["kernel_launches"]) == {"pack", "lookup", "signature",
-                                            "accumulate"}
+                                            "accumulate", "em"}
+    assert info["fld"] is None and info["bootstrap_samples"] == 0
+    assert not os.path.exists(os.path.join(out, "bootstrap.npz"))
+
+
+def test_cli_bootstrap_writes_replicates(world):
+    """infer --bootstrap 4 writes bootstrap.npz of shape (4, T) whose rows
+    each carry the mapped reads, and abundance.h5 with the replicates."""
+    tmp, index, _, _, files, _, idx = world
+    out = str(tmp / "boot_out")
+    assert cli.main(["infer", idx, out, files["se"], "--device", "cpu",
+                     "--batch-size", "256", "--bootstrap", "4", "--seed",
+                     "3"]) == 0
+    info = json.load(open(os.path.join(out, "run_info.json")))
+    assert info["bootstrap_samples"] == 4
+    assert info["timings"]["bootstrap_s"] > 0
+    boot = np.load(os.path.join(out, "bootstrap.npz"))
+    assert boot["est_counts"].shape == (4, index.num_transcripts)
+    np.testing.assert_array_equal(boot["names"].astype(str), index.names)
+    np.testing.assert_allclose(boot["est_counts"].sum(axis=1),
+                               info["mapped"], rtol=1e-4)
+    h5py = pytest.importorskip("h5py")
+    with h5py.File(os.path.join(out, "abundance.h5")) as f:
+        assert int(f["aux/num_bootstrap"][0]) == 4
+        np.testing.assert_array_equal(f["bootstrap/bs3"][:],
+                                      boot["est_counts"][3])
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--bootstrap", "4"], "Bootstrap"),
     (["--checkpoint", "ck.npz"], "Checkpoints"),
     (["--pack-cache"], "Pack cache"),
     (["--probe-sample", "8"], "Fast mode"),
     (["--probe-stride", "4"], "Strided mode"),
     (["--data-shards", "2"], "Multi-GPU"),
-    (["--mates", "r2.fq"], "FLD estimation"),
 ])
 def test_cli_refuses_unported(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
@@ -155,14 +169,14 @@ rng = np.random.default_rng(3)
 names, seqs = random_transcriptome(rng, num_transcripts=30, min_len=200,
                                    max_len=600, shared_prefix_frac=0.5)
 write_fasta(work + "/ref.fa", names, seqs)
-pairs = simulate_reads(rng, seqs, num_reads=200, read_len=80, paired=True,
+pairs = simulate_reads(rng, seqs, num_reads=600, read_len=80, paired=True,
                        mean_frag=200.0)
 write_fastq(work + "/r1.fq", pairs.reads1)
 write_fastq(work + "/r2.fq", pairs.reads2)
 assert cli.main(["index", work + "/ref.fa", work + "/index.npz"]) == 0
 assert cli.main(["infer", work + "/index.npz", work + "/out", work + "/r1.fq",
-                 "--mates", work + "/r2.fq", "--fragment-length", "200",
-                 "--device", "cpu", "--batch-size", "64",
+                 "--mates", work + "/r2.fq", "--bootstrap", "2",
+                 "--device", "cpu", "--batch-size", "256",
                  "--sig-table-bits", "10"]) == 0
 assert sys.modules["jax"] is None
 print("NO_JAX_OK")
@@ -171,11 +185,15 @@ print("NO_JAX_OK")
 
 def test_runs_with_jax_blocked(tmp_path):
     """The port and the host code it shares never need JAX: index and a
-    paired infer run in a process where importing JAX fails."""
+    paired infer, with fragment-length estimation and a bootstrap, run in
+    a process where importing JAX fails."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", _NO_JAX, str(tmp_path)],
                        capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NO_JAX_OK" in r.stdout
     info = json.load(open(tmp_path / "out" / "run_info.json"))
-    assert info["total_reads"] == 200 and info["mapped"] > 150
+    assert info["total_reads"] == 600 and info["mapped"] > 450
+    assert info["fld"] is not None and info["bootstrap_samples"] == 2
+    boot = np.load(tmp_path / "out" / "bootstrap.npz")["est_counts"]
+    assert boot.shape == (2, 30)
