@@ -13,15 +13,22 @@ Phases; any failure exits non-zero:
    4 x 65,536 read pairs of 100 bp, fragments 200 +- 20,
    sig_table_bits=22);
 3. hold each kernel against its plain PyTorch version on the card and time
-   both with CUDA events: K1 pack, K2 lookup, K3 signature and A1
-   accumulate at the shapes of one paired config-2 batch; K4 dense EM at
-   the config-1 bootstrap shapes (the world's ECs, 100 resampled
-   replicates) and at R = 1, to convergence and for the same fixed
-   iteration count;
+   both with CUDA events, beside the least time the card could take for
+   the same work (bytes over 3.35 TB/s, or FP32 operations over 67
+   TFLOP/s; for K4 the operations on M's nonzeros): K1 pack, K2 lookup,
+   K3 signature and A1 accumulate at the shapes of one paired config-2
+   batch; K4 dense EM at the config-1 bootstrap shapes (the world's ECs,
+   100 resampled replicates) and at R = 1, to convergence and for the same
+   fixed iteration count (with a TF32 control of the plain version that
+   must miss the bound, and a rerun that must give the same bits), then
+   on two systems at the dense gate's edge, E-deep and T-deep, that walk
+   their depth in chunks;
 4. run ``infer --device cuda`` of the port's CLI on both worlds with every
    kernel's launch count set to 0 just before and read just after:
    config 1 with ``--bootstrap 100`` (the dense route, through K4; the
-   point estimate checked against the float64 oracle of tests/oracle),
+   mapped count and the point estimate checked against the port's plain
+   path on the CPU with float64 EM, which the CPU tests hold against the
+   JAX package and its float64 oracle),
    config 2 paired with no fragment flags (the fragment-length estimate
    checked against the simulated one) and ``--bootstrap 100`` (the
    batched CSR route); check the outputs and print the stage rates;
@@ -33,9 +40,10 @@ Phases; any failure exits non-zero:
    the card's batched CSR EM is held against the same call on the CPU.
 
 The last three lines are the card's name and power limit, the JSON line of
-kernel results, and ``{"ok": true, "device": {...}}``. JAX is blocked for
-the whole run: the port must not need it. Float32 products run in full
-FP32 (TF32 off) for the plain versions.
+kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
+package ``seekmer_tpu`` are blocked for the whole run: the port must not
+need them. Float32 products run in full FP32 (TF32 off) for the plain
+versions.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import time
 from pathlib import Path
 
 sys.modules["jax"] = None  # any import of JAX now fails
+sys.modules["seekmer_tpu"] = None  # and of the JAX package
 
 REPO = Path(__file__).resolve().parent
 B = 65536  # reads (pairs) per batch, the CLI default
@@ -59,6 +68,10 @@ SEED = 0
 C1_TRANSCRIPTS = 1000
 C2_GENES = 20000
 DEVICE = "cuda"
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
+HBM_BYTES_S = 3.35e12
+FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 
 class SmokeFailure(RuntimeError):
@@ -90,24 +103,23 @@ def reads_from_codes(codes):
 
 def make_worlds(work: Path):
     """Write both worlds' FASTA and FASTQ files and index them with the
-    port's CLI. Returns a dict of paths and the config-1 reads."""
+    port's CLI. Returns one paired config-2 batch (both mates' codes)."""
     import numpy as np
 
     from seekmer_tpu_torch import cli
-    from seekmer_tpu_torch.host import (
+    from seekmer_tpu_torch.utils.simulate import (
         isoform_transcriptome, random_transcriptome, simulate_packed_batches,
         simulate_packed_pairs, write_fasta, write_fastq)
 
     rng = np.random.default_rng(SEED)
-    w = {}
     t0 = time.perf_counter()
     names, seqs = random_transcriptome(rng, num_transcripts=C1_TRANSCRIPTS,
                                        min_len=300, max_len=3000,
                                        shared_prefix_frac=0.5)
     write_fasta(str(work / "c1.fa"), names, seqs)
     codes, _ = simulate_packed_batches(rng, seqs, BATCHES, B, READ_LEN)
-    w["c1_reads"] = reads_from_codes(codes.reshape(-1, READ_LEN))
-    write_fastq(str(work / "c1.fq"), w["c1_reads"])
+    write_fastq(str(work / "c1.fq"),
+                reads_from_codes(codes.reshape(-1, READ_LEN)))
     check(cli.main(["index", str(work / "c1.fa"), str(work / "c1.npz")]) == 0,
           "config-1 index build")
     log(f"[setup] config-1 world: {C1_TRANSCRIPTS} transcripts, "
@@ -122,7 +134,7 @@ def make_worlds(work: Path):
     for name, codes in (("c2_1.fq", c1), ("c2_2.fq", c2)):
         write_fastq(str(work / name),
                     reads_from_codes(codes.reshape(-1, READ_LEN)))
-    w["c2_batch"] = (c1[0], c2[0])
+    batch = (c1[0], c2[0])
     t_sim = time.perf_counter() - t0
     t0 = time.perf_counter()
     check(cli.main(["index", str(work / "c2.fa"), str(work / "c2.npz")]) == 0,
@@ -131,7 +143,7 @@ def make_worlds(work: Path):
         f"genes, "
         f"{BATCHES * B} pairs; simulate {t_sim:.1f} s, index build + save "
         f"{time.perf_counter() - t0:.1f} s")
-    return w
+    return batch
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -176,19 +188,36 @@ def max_abs_diff(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def record(err, ms, plain_ms, bound_s, bound_by, library_ms=None) -> dict:
+    """One kernel's line in the kernels JSON; ``bound_s`` is the least time
+    the card could take for the same work, in seconds."""
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def compare_kernels(work: Path, batch):
     """Each kernel against its plain version at one paired config-2 batch's
-    shapes. Returns {name: (max_abs_err, ms, plain_ms)}."""
+    shapes, with the bytes each must move at the least (each input read
+    once, each output written once; for the table kernels, the rows this
+    batch touches). No single PyTorch call computes any of these
+    functions, so none has a library time. Returns {name: record}."""
     import numpy as np
     import torch
 
     from seekmer_tpu_torch import MapConfig
-    from seekmer_tpu_torch.host import KMerIndex, pack_codes_2bit
+    from seekmer_tpu_torch.encoding import pack_codes_2bit
+    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.map.driver import (DeviceIndex, map_step,
                                               merge_sig_rows)
     from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
     from seekmer_tpu_torch.ops import (accumulate_cuda, pack_cuda, probe_cuda,
                                        sig_cuda)
+    from seekmer_tpu_torch.ops.hash import hash_kmer
 
     dev = torch.device(DEVICE)
     index = KMerIndex.load(str(work / "c2.npz"))
@@ -209,11 +238,13 @@ def compare_kernels(work: Path, batch):
     got = pack_cuda.pack_canonical_2bit(p, bd, ln, L, k)
     ref = pack_cuda.plain(p, bd, ln, L, k)
     err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
-    out["K1"] = (
+    out["K1"] = record(
         err, cuda_ms(lambda: pack_cuda.pack_canonical_2bit(p, bd, ln, L, k), 50),
-        cuda_ms(lambda: pack_cuda.plain(p, bd, ln, L, k), 10))
+        cuda_ms(lambda: pack_cuda.plain(p, bd, ln, L, k), 10),
+        nbytes(p, bd, ln, *got) / HBM_BYTES_S, "bytes")
     log(f"[K1 pack] [{B}, {L}] k={k}: max_abs_err {err}, kernel "
-        f"{out['K1'][1]:.4f} ms, plain {out['K1'][2]:.4f} ms")
+        f"{out['K1']['ms']:.4f} ms, plain {out['K1']['plain_ms']:.4f} ms, "
+        f"bound {out['K1']['bound_ms']:.4f} ms")
 
     packs = [pack_cuda.pack_canonical_2bit(*m, L, k) for m in mates]
     hi = torch.cat([packs[0][0], packs[1][0]], dim=1)
@@ -225,23 +256,33 @@ def compare_kernels(work: Path, batch):
     err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
     hits = float((got[0] >= 0).float().mean())
     check(hits > 0.3, f"K2 hit fraction {hits:.3f} is implausibly low")
-    out["K2"] = (
+    # each distinct home bucket row touched: its hi, lo and ecaux slabs
+    # (3 x 128 B); stash probes (keys absent from a full bucket) not counted
+    homes = hash_kmer(hi[valid], lo[valid]) & (index.main_slots // di.bucket
+                                               - 1)
+    rows = int(torch.unique(homes).numel())
+    out["K2"] = record(
         err, cuda_ms(lambda: probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo), 20),
-        cuda_ms(lambda: probe_cuda.plain(hi, lo, valid, *geo), 3))
+        cuda_ms(lambda: probe_cuda.plain(hi, lo, valid, *geo), 3),
+        (nbytes(hi, lo, valid, *got) + rows * 3 * 4 * di.bucket)
+        / HBM_BYTES_S, "bytes")
     log(f"[K2 lookup] {hi.numel()} lanes against {index.num_kmers} k-mers "
-        f"(hit fraction {hits:.4f}): max_abs_err {err}, kernel "
-        f"{out['K2'][1]:.4f} ms, plain {out['K2'][2]:.4f} ms")
+        f"(hit fraction {hits:.4f}, {rows} distinct home rows): max_abs_err "
+        f"{err}, kernel {out['K2']['ms']:.4f} ms, plain "
+        f"{out['K2']['plain_ms']:.4f} ms, bound {out['K2']['bound_ms']:.4f} ms")
 
     ecs = got[0]
     C = 16
     got = sig_cuda.read_signatures(ecs, valid, C)
     ref = sig_cuda.plain(ecs, valid, C)
     err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
-    out["K3"] = (
+    out["K3"] = record(
         err, cuda_ms(lambda: sig_cuda.read_signatures(ecs, valid, C), 50),
-        cuda_ms(lambda: sig_cuda.plain(ecs, valid, C), 10))
+        cuda_ms(lambda: sig_cuda.plain(ecs, valid, C), 10),
+        nbytes(ecs, valid, *got) / HBM_BYTES_S, "bytes")
     log(f"[K3 signature] [{B}, {ecs.shape[1]}] C={C}: max_abs_err {err}, "
-        f"kernel {out['K3'][1]:.4f} ms, plain {out['K3'][2]:.4f} ms")
+        f"kernel {out['K3']['ms']:.4f} ms, plain {out['K3']['plain_ms']:.4f} "
+        f"ms, bound {out['K3']['bound_ms']:.4f} ms")
 
     sig, mapped = got
     weights = torch.ones(B, dtype=torch.int32, device=dev)
@@ -270,11 +311,22 @@ def compare_kernels(work: Path, batch):
     def fresh():
         return make_sig_table(22, C, num_ecs=index.num_ecs, device=dev)
 
-    out["A1"] = (err,
-                 cuda_ms_each(fresh, lambda t: accumulate_cuda.fold_batch(
-                     t, sig, mapped, weights=weights), 20),
-                 cuda_ms_each(fresh, lambda t: accumulate_cuda.plain(
-                     t, sig, mapped, weights=weights), 5))
+    # inputs, the per-read slot written, and each claimed table row (key,
+    # count and signature row) written once; single-EC reads add their
+    # direct counter
+    multi_rows = int(torch.unique(sig[mapped & (sig[:, 1] != 0x7FFFFFFF)],
+                                  dim=0).shape[0])
+    single = int(torch.unique(sig[mapped & (sig[:, 1] == 0x7FFFFFFF), 0])
+                 .numel())
+    a1_bytes = (nbytes(sig, mapped, weights) + 4 * B
+                + multi_rows * (8 + 4 + 4 * C) + single * 4)
+    out["A1"] = record(
+        err,
+        cuda_ms_each(fresh, lambda t: accumulate_cuda.fold_batch(
+            t, sig, mapped, weights=weights), 20),
+        cuda_ms_each(fresh, lambda t: accumulate_cuda.plain(
+            t, sig, mapped, weights=weights), 5),
+        a1_bytes / HBM_BYTES_S, "bytes")
     # steady state: the batch's signatures are already in both tables, so
     # every lane takes the matching path and none claims a slot
     steady = (cuda_ms(lambda: accumulate_cuda.fold_batch(
@@ -284,11 +336,13 @@ def compare_kernels(work: Path, batch):
     log(f"[A1 accumulate] {B} reads ({multi} multi-EC) at sig_table_bits=22: "
         f"{mk.sigs.shape[0]} merged signatures, overflow {mk.overflow}, "
         f"collisions {mk.collisions}; max_abs_err {err}; empty table "
-        f"(claims): kernel {out['A1'][1]:.4f} ms, plain "
-        f"{out['A1'][2]:.4f} ms; steady state (matching path only): kernel "
+        f"(claims): kernel {out['A1']['ms']:.4f} ms, plain "
+        f"{out['A1']['plain_ms']:.4f} ms, bound {out['A1']['bound_ms']:.4f} "
+        f"ms; steady state (matching path only): kernel "
         f"{steady[0]:.4f} ms, plain {steady[1]:.4f} ms")
-    for name, (e, _, _) in out.items():
-        check(e == 0, f"{name} disagrees with its plain version: {e}")
+    for name, r in out.items():
+        check(r["max_abs_err"] == 0,
+              f"{name} disagrees with its plain version: {r['max_abs_err']}")
 
     # the whole device map step on one pre-uploaded paired batch (K1 x 2,
     # the mate concatenation, K2, K3, A1 with the audit): the device's
@@ -316,19 +370,118 @@ def group_masses(alpha, M):
                        dtype=alpha.dtype).index_add_(1, g, alpha)
 
 
+def check_em_kernel(tag, M, n, inv_eff, alpha0, cfg, control: bool):
+    """K4 against its plain version on one system: converged iteration
+    counts within one check_every block and group masses within 1e-3
+    relative + 1e-2 reads; at a fixed iteration count (the converged
+    run's) group masses within 1e-2 reads and equal bits from two runs;
+    with ``control``, the plain version with TF32 products must miss that
+    bound. Returns (iterations, converged group-mass error)."""
+    import torch
+
+    from seekmer_tpu_torch.ops import em_cuda, em_dense
+
+    R, T = alpha0.shape
+    (got, it), (want, it_p) = (em_cuda.em_fixed_point(M, n, inv_eff, alpha0,
+                                                      cfg),
+                               em_dense.em_fixed_point(M, n, inv_eff, alpha0,
+                                                       cfg))
+    torch.cuda.synchronize()
+    check(abs(it - it_p) <= cfg.check_every,
+          f"K4 {tag}: {it} iterations, plain {it_p}")
+    gk, gp = group_masses(got, M), group_masses(want, M)
+    err = float((gk - gp).abs().max())
+    bad = float(((gk - gp).abs() - 1e-3 * gp.abs()).max())
+    check(bool(torch.isfinite(got).all()) and bad <= 1e-2,
+          f"K4 {tag} group masses disagree: max abs {err}")
+    # the same fixed count on both sides (rel_tol 0 never converges): they
+    # differ by float32 rounding alone, so the group masses agree within
+    # 1e-2 reads. The control, the plain version with TF32 products, shows
+    # what that bound makes of lower precision.
+    fixed = dataclasses.replace(cfg, rel_tol=0.0, min_iters=it, max_iters=it)
+    (fk, itk), (fk2, _), (fp, itp) = (
+        em_cuda.em_fixed_point(M, n, inv_eff, alpha0, fixed),
+        em_cuda.em_fixed_point(M, n, inv_eff, alpha0, fixed),
+        em_dense.em_fixed_point(M, n, inv_eff, alpha0, fixed))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ft = em_dense.em_fixed_point(M, n, inv_eff, alpha0, fixed)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    gf = group_masses(fp, M)
+    tight = float((group_masses(fk, M) - gf).abs().max())
+    tf32 = float((group_masses(ft, M) - gf).abs().max())
+    check(itk == itp == it and tight <= 1e-2,
+          f"K4 {tag}, fixed {it} iterations: group masses disagree by "
+          f"{tight} reads (kernel {itk}, plain {itp} iterations)")
+    check(torch.equal(fk, fk2), f"K4 {tag}: two runs differ in their bits")
+    if control:
+        check(tf32 > 1e-2, f"K4 {tag}: the TF32 control reads {tf32}, "
+              "inside the bound that should reject it")
+    log(f"[K4 {tag}] plan {em_cuda.plan(M.shape[0], T, R, M.device)}; "
+        f"iterations {it} (plain {it_p}); {gk.shape[1]} membership groups, "
+        f"max abs group-mass error {err:.6g} reads (bound 1e-3 relative + "
+        f"1e-2); fixed {it} iterations: {tight:.6g} reads (bound 1e-2), "
+        f"equal bits on a rerun, TF32 control {tf32:.6g} reads")
+    return it, err
+
+
+def time_em_kernel(tag, M, n, inv_eff, alpha0, cfg, it):
+    """Kernel and plain time of the converged run (``it`` iterations) beside
+    its bound: the larger of the bytes it must move (M, n, inv_eff and
+    alpha0 read once, alpha written once) and the FP32 operations its
+    iterations need on M's nonzeros (each of the two products 2 nnz R, the
+    elementwise steps R (E + 2 T)). The library time is the two FP32
+    torch.matmul products of an iteration, run ``it`` times (context only:
+    the port never calls them, and they skip the elementwise steps)."""
+    from seekmer_tpu_torch.ops import em_cuda, em_dense
+
+    R, T = alpha0.shape
+    E = M.shape[0]
+    ms = cuda_ms(lambda: em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg),
+                 5)
+    plain_ms = cuda_ms(lambda: em_dense.em_fixed_point(M, n, inv_eff, alpha0,
+                                                       cfg), 3)
+    x = alpha0 * inv_eff
+    r = n.clone()
+    Mt = M.t()
+
+    def products():
+        for _ in range(it):
+            x @ Mt, r @ M
+
+    mm_ms = cuda_ms(products, 3)
+    nnz = int((M != 0).sum())
+    ops_s = it * (4.0 * nnz * R + R * (E + 2.0 * T)) / FP32_FLOPS
+    bytes_s = (nbytes(M, n, inv_eff, alpha0) + 4 * R * T) / HBM_BYTES_S
+    bound_s = max(ops_s, bytes_s)
+    dense_tf32_us = 2 * 4.0 * R * E * T / TF32_FLOPS * 1e6
+    log(f"[K4 {tag}] kernel {ms:.6f} ms ({ms / it * 1e3:.3f} us/it), plain "
+        f"{plain_ms:.6f} ms ({plain_ms / it * 1e3:.3f} us/it); bound "
+        f"{bound_s * 1e3:.6f} ms (nnz {nnz}: operations "
+        f"{ops_s * 1e3:.6f} ms, bytes {bytes_s * 1e3:.6f} ms; share "
+        f"{bound_s * 1e3 / ms:.6f}); the dense split TF32 products alone "
+        f"{dense_tf32_us:.3f} us/it at the TF32 peak; two FP32 torch.matmul "
+        f"x {it} iterations {mm_ms:.6f} ms")
+    return record(None, ms, plain_ms, bound_s,
+                  "operations" if ops_s >= bytes_s else "bytes", mm_ms)
+
+
 def compare_em_kernel(work: Path):
     """K4 against its plain version at the config-1 bootstrap shapes (the
     world's ECs from the port's mapper, 100 replicates from the port's
     resampler with a fixed generator) and at R = 1, under the EM settings
-    of the config-1 infer run. Returns (max_abs_err, ms, plain_ms) at
-    R = 100."""
+    of the config-1 infer run; then on two systems at the dense gate's
+    edge that walk their depth in chunks. Returns the R = 100 record."""
+    import numpy as np
     import torch
 
     from seekmer_tpu_torch import EMConfig, MapConfig
     from seekmer_tpu_torch.em.bootstrap import resample_counts
     from seekmer_tpu_torch.em.em import (build_ec_table, dense_membership,
                                          effective_lengths)
-    from seekmer_tpu_torch.host import KMerIndex, batch_reads_native
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.io.fastq import batch_reads_native
     from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
     from seekmer_tpu_torch.ops import em_cuda, em_dense
     from seekmer_tpu_torch.utils.prefetch import device_put_batches
@@ -351,53 +504,39 @@ def compare_em_kernel(work: Path):
     for n in (cmat, ec.counts[None, :]):
         R = n.shape[0]
         alpha0 = (n.sum(dim=1, keepdim=True) / T).expand(R, T).contiguous()
-
-        def kernel():
-            return em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
-
-        def plain():
-            return em_dense.em_fixed_point(M, n, inv_eff, alpha0, cfg)
-
-        (got, it), (want, it_p) = kernel(), plain()
-        torch.cuda.synchronize()
-        check(abs(it - it_p) <= cfg.check_every,
-              f"K4 R={R}: {it} iterations, plain {it_p}")
-        gk, gp = group_masses(got, M), group_masses(want, M)
-        err = float((gk - gp).abs().max())
-        bad = float(((gk - gp).abs() - 1e-3 * gp.abs()).max())
-        check(bool(torch.isfinite(got).all()) and bad <= 1e-2,
-              f"K4 R={R} group masses disagree: max abs {err}")
-        # the same fixed count on both sides (rel_tol 0 never converges):
-        # they differ by float32 rounding alone, so the group masses agree
-        # within 1e-2 reads. The control, the plain version with TF32
-        # products, shows what that bound makes of lower precision.
-        fixed = dataclasses.replace(cfg, rel_tol=0.0, min_iters=it,
-                                    max_iters=it)
-        (fk, itk), (fp, itp) = (
-            em_cuda.em_fixed_point(M, n, inv_eff, alpha0, fixed),
-            em_dense.em_fixed_point(M, n, inv_eff, alpha0, fixed))
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            ft = em_dense.em_fixed_point(M, n, inv_eff, alpha0, fixed)[0]
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        gf = group_masses(fp, M)
-        tight = float((group_masses(fk, M) - gf).abs().max())
-        control = float((group_masses(ft, M) - gf).abs().max())
-        check(itk == itp == it and tight <= 1e-2,
-              f"K4 R={R}, fixed {it} iterations: group masses disagree by "
-              f"{tight} reads (kernel {itk}, plain {itp} iterations)")
-        ms = cuda_ms(kernel, 5)
-        plain_ms = cuda_ms(plain, 3)
-        log(f"[K4 em] E {ec.num_ecs}, T {T}, R {R}: iterations {it} "
-            f"(plain {it_p}); {gk.shape[1]} membership groups, max abs "
-            f"group-mass error {err:.6g} reads (bound 1e-3 relative + "
-            f"1e-2); fixed {it} iterations: {tight:.6g} reads (bound 1e-2), "
-            f"TF32 control {control:.6g} reads; kernel {ms:.6f} ms "
-            f"({ms / it * 1e3:.3f} us/it), plain {plain_ms:.6f} ms "
-            f"({plain_ms / it_p * 1e3:.3f} us/it)")
+        tag = f"config-1 E {ec.num_ecs} T {T} R {R}"
+        it, err = check_em_kernel(tag, M, n, inv_eff, alpha0, cfg,
+                                  control=R > 1)
+        rec = time_em_kernel(tag, M, n, inv_eff, alpha0, cfg, it)
         if out is None:
-            out = (err, ms, plain_ms)
+            out = dict(rec, max_abs_err=err)
+
+    # at the gate's edge, both ways: E-deep, E x T pads to 7,680 x 256 =
+    # 1.97M of the gate's 2M entries; T-deep, 128 x 14,464 = 1.85M, the
+    # widest T the gate admits at R = 8. Neither system's depth fits in
+    # shared memory, so each phase gathers it in chunks. Every transcript
+    # is in some EC. The TF32 control is asked of the E-deep system only.
+    cfg2 = EMConfig(rel_tol=1e-6, max_iters=400)
+    rng = np.random.default_rng(SEED)
+    for E2, T2, R2 in ((7600, 250, 8), (100, 14400, 8)):
+        check(em_dense.fits_dense(E2, T2, R2),
+              f"near-gate system E {E2} T {T2} R {R2} over the gate")
+        plan = em_cuda.plan(E2, T2, R2, dev)
+        check(0 < plan["KC"] < plan["cluster"] * max(plan["SE"], plan["ST"]),
+              f"near-gate system does not take the chunked path: {plan}")
+        M2 = np.zeros((E2, T2), np.float32)
+        for e in range(E2):
+            M2[e, rng.choice(T2, size=int(rng.integers(1, 6)),
+                             replace=False)] = 1
+        M2[rng.integers(0, E2, size=T2), np.arange(T2)] = 1
+        n2 = rng.integers(0, 50, size=(R2, E2)).astype(np.float32)
+        inv2 = (1.0 / rng.integers(50, 3000, size=T2)).astype(np.float32)
+        a2 = np.repeat(n2.sum(axis=1, keepdims=True) / T2, T2, axis=1)
+        sys2 = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                for a in (M2, n2, inv2, a2)]
+        tag = f"near gate E {E2} T {T2} R {R2}"
+        it, _ = check_em_kernel(tag, *sys2, cfg2, control=E2 > T2)
+        time_em_kernel(tag, *sys2, cfg2, it)
     return out
 
 
@@ -511,12 +650,12 @@ def check_bootstrap(tag: str, out: Path, info, T: int):
         f"mapped {info['mapped']}: max relative error {err:.3g}")
 
 
-def end_to_end(work: Path, w):
+def end_to_end(work: Path):
     import numpy as np
 
-    from seekmer_tpu_torch import EMConfig, MapConfig
-    from seekmer_tpu_torch.host import KMerIndex, read_abundance
-    from tests.oracle import oracle
+    from seekmer_tpu_torch import EMConfig
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.io.writer import read_abundance
 
     out, info, l1 = run_infer(work, "c1", [
         str(work / "c1.fq"), "--em-tolerance", "1e-6", "--em-max-iters",
@@ -525,24 +664,26 @@ def end_to_end(work: Path, w):
     check_bootstrap("c1", out, info, index.num_transcripts)
     em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
     t0 = time.perf_counter()
-    o = oracle.quantify(w["c1_reads"], index, MapConfig(), em_cfg)
+    ref = cpu_reference(work, index, em_cfg)
     tab = read_abundance(str(out / "abundance.tsv"))
-    check(info["unmapped"] == o["unmapped"],
-          f"config-1 unmapped {info['unmapped']} != oracle {o['unmapped']}")
-    tpm_err_tsv = float(np.abs(tab["tpm"] - o["tpm"]).max())
-    # bench.py's metric: the port's float32 EM on the card against the
-    # float64 oracle EM, on the same equivalence classes
-    tpm_err = em_tpm_error(index, o, em_cfg)
-    top = float(o["tpm"].max())
-    log(f"[c1 oracle] unmapped {info['unmapped']} == oracle; TPM max-abs "
-        f"error, f32 EM on the card vs f64 oracle: {tpm_err:.6g}; "
-        f"abundance.tsv (6 significant digits) vs oracle: "
-        f"{tpm_err_tsv:.6g}; largest TPM {top:.6g} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    check(info["unmapped"] == ref["unmapped"]
+          and info["mapped"] == ref["mapped"],
+          f"config-1 mapped {info['mapped']} / unmapped {info['unmapped']} "
+          f"!= CPU reference {ref['mapped']} / {ref['unmapped']}")
+    tpm_err_tsv = float(np.abs(tab["tpm"] - ref["tpm"]).max())
+    # bench.py's metric: the port's float32 EM on the card against float64
+    # EM, on the same equivalence classes
+    tpm_err = em_tpm_error(index, ref, em_cfg)
+    top = float(ref["tpm"].max())
+    log(f"[c1 reference] mapped {info['mapped']}, unmapped "
+        f"{info['unmapped']} == the plain path on the CPU; TPM max-abs "
+        f"error, f32 EM on the card vs f64 EM on the CPU: {tpm_err:.6g}; "
+        f"abundance.tsv (6 significant digits) vs f64: {tpm_err_tsv:.6g}; "
+        f"largest TPM {top:.6g} ({time.perf_counter() - t0:.1f} s)")
     # float32 EM to rel_tol 1e-6 stays orders of magnitude inside 1e-5 of
     # the largest TPM; the table's 6 significant digits add up to 5e-6
     check(tpm_err < 1e-5 * top and tpm_err_tsv < 2e-5 * top,
-          "config-1 TPM error against the oracle")
+          "config-1 TPM error against float64 EM")
 
     # no fragment flags: the fragment-length distribution is estimated
     out2, info2, l2 = run_infer(work, "c2", [
@@ -570,15 +711,43 @@ def end_to_end(work: Path, w):
     return {k: l1[k] + l2[k] for k in l1}
 
 
-def em_tpm_error(index, o, em_cfg) -> float:
+def cpu_reference(work: Path, index, em_cfg) -> dict:
+    """The config-1 run on the CPU through the port's plain versions (which
+    the CPU tests hold against the JAX package and its float64 oracle):
+    mapped and unmapped reads, the ECs, and float64 EM to the TPM."""
+    import dataclasses
+
+    import torch
+
+    from seekmer_tpu_torch import MapConfig
+    from seekmer_tpu_torch.em.em import build_ec_table, run_em, tpm_from_alpha
+    from seekmer_tpu_torch.io.fastq import batch_reads_native
+    from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
+    from seekmer_tpu_torch.utils.prefetch import device_put_batches
+
+    cfg = MapConfig(batch_size=B)
+    result = Mapper(index, cfg, device="cpu").run(device_put_batches(
+        batch_reads_native([str(work / "c1.fq")], cfg), "cpu"))
+    # as the Quantifier counts them: reads whose signature resolves to no
+    # transcript are dropped from the mapped
+    members, counts, dropped = resolve_signatures(result, index)
+    x64 = dataclasses.replace(em_cfg, use_x64=True)
+    ec = build_ec_table(members, counts, index.num_transcripts,
+                        dtype=torch.float64, device="cpu")
+    alpha, _ = run_em(ec, index.lengths, x64)
+    return {"mapped": result.mapped - dropped,
+            "unmapped": result.total_reads - result.mapped + dropped,
+            "members": members, "counts": counts,
+            "tpm": tpm_from_alpha(alpha, index.lengths, x64).numpy()}
+
+
+def em_tpm_error(index, ref, em_cfg) -> float:
     import numpy as np
 
     from seekmer_tpu_torch import EMConfig
     from seekmer_tpu_torch.em.em import build_ec_table, run_em, tpm_from_alpha
-    from tests.oracle import oracle
 
-    members, counts, _ = oracle.resolve_signatures(o["sig_counts"], index)
-    ec = build_ec_table(members, counts, index.num_transcripts,
+    ec = build_ec_table(ref["members"], ref["counts"], index.num_transcripts,
                         device=DEVICE)
     alpha, _ = run_em(ec, index.lengths, em_cfg)
     tpm = tpm_from_alpha(alpha, index.lengths, em_cfg).cpu().numpy()
@@ -590,9 +759,7 @@ def em_tpm_error(index, o, em_cfg) -> float:
     dt = time.perf_counter() - t0
     log(f"[c1 EM steady] 2000 iterations, nnz {ec.ec_ids.numel()}, "
         f"{ec.num_ecs} ECs: {dt:.3f} s, {2000 / dt:.1f} it/s")
-    o_alpha, _ = oracle.run_em(members, counts, index.lengths, em_cfg)
-    o_tpm = oracle.tpm_from_alpha(o_alpha, index.lengths, em_cfg)
-    return float(np.abs(tpm - o_tpm).max())
+    return float(np.abs(tpm - ref["tpm"]).max())
 
 
 def device_busy(prof):
@@ -659,8 +826,9 @@ def profile_stages(work: Path) -> None:
     from seekmer_tpu_torch import EMConfig, MapConfig
     from seekmer_tpu_torch.em.bootstrap import run_bootstrap
     from seekmer_tpu_torch.em.em import build_ec_table, run_em, use_dense
-    from seekmer_tpu_torch.host import (KMerIndex, batch_read_pairs_native,
-                                        batch_reads_native)
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.io.fastq import (batch_read_pairs_native,
+                                            batch_reads_native)
     from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
     from seekmer_tpu_torch.utils.prefetch import device_put_batches, prefetch
 
@@ -741,27 +909,24 @@ def main() -> int:
     lib = _build.build()
     log(f"[build] {lib.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             log(f"[build] {line.strip()}")
 
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "build"))
     try:
-        w = make_worlds(work)
-        timing = compare_kernels(work, w["c2_batch"])
+        timing = compare_kernels(work, make_worlds(work))
         timing["K4"] = compare_em_kernel(work)
-        launches = end_to_end(work, w)
+        launches = end_to_end(work)
         profile_stages(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
     for kid, name, src, replaces in KERNELS:
-        err, ms, plain_ms = timing[kid]
         kernels.append({"name": f"{kid} {name}", "route": "cuda",
                         "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "launches": launches[name], **timing[kid]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

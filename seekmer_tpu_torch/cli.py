@@ -1,6 +1,7 @@
-"""Command-line interface of the port: ``index`` (delegated to
-``seekmer_tpu.cli``, whose index build is host code) and ``infer`` on one
-device, ``--device cuda`` by default.
+"""Command-line interface of the port: ``index`` (the host index build,
+``_add_index`` and ``cmd_index`` copied from ``seekmer_tpu/cli.py``; the
+file loads in either package) and ``infer`` on one device, ``--device
+cuda`` by default.
 
 ``infer`` estimates the fragment-length distribution of paired runs unless
 ``--fragment-length`` or ``--fragment-sd`` is given, and runs ``--bootstrap``
@@ -20,8 +21,6 @@ import time
 
 import numpy as np
 
-from seekmer_tpu.cli import _add_index, cmd_index
-
 
 class NotPorted(SystemExit):
     """A requested feature is not in the port yet (exit status 2)."""
@@ -29,6 +28,34 @@ class NotPorted(SystemExit):
     def __init__(self, what: str, item: str):
         super().__init__(f"seekmer_tpu_torch: {what} is not ported yet "
                          f"(ROADMAP.md, still to port: {item})")
+
+
+def _add_index(sub):
+    p = sub.add_parser("index",
+                       help="build a k-mer index from a transcriptome")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("fasta", help="transcriptome FASTA (.fa/.fa.gz)")
+    p.add_argument("output", help="output index file (.npz)")
+    p.add_argument("--gtf", default=None, help="GTF for transcript->gene map")
+    p.add_argument("--kmer-length", type=int, default=25)
+    p.add_argument("--load-factor", type=float, default=0.5)
+    return p
+
+
+def cmd_index(args) -> int:
+    from .config import IndexConfig
+    from .index.build import build_index
+
+    cfg = IndexConfig(k=args.kmer_length, load_factor=args.load_factor)
+    t0 = time.perf_counter()
+    index = build_index(args.fasta, gtf_path=args.gtf, cfg=cfg)
+    index.save(args.output)
+    logging.info(
+        "indexed %d transcripts / %d k-mers / %d ECs in %.1fs -> %s",
+        index.num_transcripts, index.num_kmers, index.num_ecs,
+        time.perf_counter() - t0, args.output,
+    )
+    return 0
 
 
 def _add_infer(sub):
@@ -113,14 +140,12 @@ def kernel_launches() -> dict:
 
 
 def cmd_infer(args) -> int:
-    from seekmer_tpu.config import EMConfig, MapConfig, PipelineConfig
-    from seekmer_tpu.index.store import KMerIndex
-    from seekmer_tpu.io.writer import (write_abundance, write_bootstrap,
-                                       write_gene_abundance, write_h5,
-                                       write_run_info)
-
     import torch
 
+    from .config import EMConfig, MapConfig, PipelineConfig
+    from .index.store import KMerIndex
+    from .io.writer import (write_abundance, write_bootstrap,
+                            write_gene_abundance, write_h5, write_run_info)
     from .map.driver import check_device
     from .models.quantifier import Quantifier
 

@@ -19,8 +19,7 @@ import logging
 
 import torch
 
-from seekmer_tpu.config import EMConfig
-
+from ..config import EMConfig
 from .em import (
     ECTable,
     accel_schedule,

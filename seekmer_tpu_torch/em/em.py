@@ -27,7 +27,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from seekmer_tpu.config import EMConfig
+from ..config import EMConfig
 
 
 class ECTable(NamedTuple):
@@ -42,8 +42,9 @@ class ECTable(NamedTuple):
 
 def build_ec_table(member_lists: List[np.ndarray], counts: np.ndarray,
                    num_transcripts: int, dtype=torch.float32,
-                   device="cpu") -> ECTable:
-    """Flatten per-EC member lists into the CSR."""
+                   device="cuda") -> ECTable:
+    """Flatten per-EC member lists into the CSR on ``device`` (the card
+    unless the caller names the CPU, as every entry point of the port)."""
     E = len(member_lists)
     ec_ids = np.repeat(np.arange(E, dtype=np.int64),
                        [m.size for m in member_lists])
@@ -60,7 +61,7 @@ def build_ec_table(member_lists: List[np.ndarray], counts: np.ndarray,
 
 
 def effective_lengths(lengths, cfg: EMConfig, dtype=torch.float32,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """Effective transcript lengths: ``max(len - mean + 1, 1)`` when
     ``fragment_length_sd`` is 0, else the truncated-normal expectation
     ``E_f[len - f + 1 | f <= len]`` over f in [1, mean + 5 sd]."""

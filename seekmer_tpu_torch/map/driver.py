@@ -29,10 +29,9 @@ from typing import Iterable, List, Tuple
 import numpy as np
 import torch
 
-from seekmer_tpu.config import MapConfig
-from seekmer_tpu.index.store import KMerIndex
-from seekmer_tpu.io.fastq import ReadBatch, pack_batch_2bit
-
+from ..config import MapConfig
+from ..index.store import KMerIndex
+from ..io.fastq import ReadBatch, pack_batch_2bit
 from ..ops import accumulate_cuda, pack_cuda, probe_cuda, sig_cuda
 from ..ops.probe import device_table_layout
 from .signature import SIG_PAD, SigTable, make_sig_table, table_to_host
@@ -249,7 +248,7 @@ def _group_member_lists(flat: np.ndarray, lens: np.ndarray,
     by identical content, summing counts; the 128-bit fingerprint grouping
     of the index builder. Returns (member_lists, counts). Copied from
     ``seekmer_tpu.map.driver``, which imports JAX."""
-    from seekmer_tpu.index.build import _M1, _M2, _M3, _mix64
+    from ..index.build import _M1, _M2, _M3, _mix64
 
     G = lens.size
     offs = np.zeros(G + 1, np.int64)

@@ -29,9 +29,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from seekmer_tpu.index.store import KMerIndex
-from seekmer_tpu.io.fastq import pack_batch_2bit
-
+from ..index.store import KMerIndex
+from ..io.fastq import pack_batch_2bit
 from ..ops import pack_cuda
 from ..ops.hash import hash_kmer
 

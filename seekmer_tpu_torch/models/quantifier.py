@@ -3,9 +3,10 @@ abundance table, with fragment-length estimation from paired reads and
 bootstrap replicates) on one device; counterpart of
 ``seekmer_tpu/models/quantifier.py``, single-device path only.
 
-Not ported yet, and refused with an error naming its ROADMAP.md item
-rather than skipped: meshes and sharding. Checkpoints and the pack cache
-have no entry here yet (the CLI refuses their flags).
+Meshes and sharding have no configuration in the port yet (its
+``PipelineConfig`` has no ``shard``); checkpoints and the pack cache have
+no entry here yet. The CLI refuses their flags with an error naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -18,15 +19,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from seekmer_tpu.config import EMConfig, PipelineConfig
-from seekmer_tpu.index.store import KMerIndex
-from seekmer_tpu.io.fastq import (
-    ReadBatch,
-    batch_read_pairs_native,
-    batch_reads_native,
-)
-from seekmer_tpu.utils.metrics import Metrics
-
+from ..config import EMConfig, PipelineConfig
 from ..em.bootstrap import run_bootstrap
 from ..em.em import (
     build_ec_table,
@@ -35,7 +28,10 @@ from ..em.em import (
     run_em,
     tpm_from_alpha,
 )
+from ..index.store import KMerIndex
+from ..io.fastq import ReadBatch, batch_read_pairs_native, batch_reads_native
 from ..map.driver import Mapper, MapResult, check_device, resolve_signatures
+from ..utils.metrics import Metrics
 from ..utils.prefetch import device_put_batches, prefetch
 
 log = logging.getLogger(__name__)
@@ -63,18 +59,9 @@ class QuantResult:
     log_likelihood: Optional[float] = None
 
 
-def check_pipeline_config(cfg: PipelineConfig) -> None:
-    """Raise on pipeline features this port does not have yet."""
-    if cfg.shard.data_axis != 1 or cfg.shard.index_axis != 1:
-        raise NotImplementedError(
-            "sharding is not ported yet: ROADMAP.md, still to port, "
-            "'Multi-GPU'")
-
-
 class Quantifier:
     def __init__(self, index: KMerIndex,
                  cfg: PipelineConfig = PipelineConfig(), device="cuda"):
-        check_pipeline_config(cfg)
         self.device = check_device(device)
         self.index = index
         self.cfg = cfg

@@ -26,8 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from seekmer_tpu.config import EMConfig
-
+from ..config import EMConfig
 from ..em.em import run_blocked_fixed_point
 
 # The VMEM byte budget of ``em_pallas.VMEM_BUDGET_BYTES``.

@@ -1,29 +1,54 @@
-"""The 32-bit mixing hashes of ``seekmer_tpu.ops.hash`` on torch tensors.
+"""The 32-bit mixing hashes of the k-mer table and the signature table, in
+two forms that agree bit for bit: numpy uint32 for the host (the index
+build) and torch for the device (lookup, signatures). The port's copy of
+``seekmer_tpu/ops/hash.py`` (murmur3 fmix32 and the same constants), whose
+numpy forms are the ``*_np`` functions here.
 
-torch's ``uint32`` supports neither ``>>`` nor ``+`` on the CPU, so uint32
-arithmetic is emulated in int64 tensors holding values in ``[0, 2**32)``:
-every result is masked back to 32 bits, and multiplications by a 32-bit
-constant are split into 16-bit halves so no intermediate leaves int64.
-Inputs may be int32 (reinterpreted as uint32) or int64 already in range;
-outputs are int64 in ``[0, 2**32)``. The constants are the numpy ones of
-``seekmer_tpu.ops.hash``, so host index build and device lookup agree bit
-for bit.
+torch's ``uint32`` supports neither ``>>`` nor ``+`` on the CPU, so the
+torch forms emulate uint32 arithmetic in int64 tensors holding values in
+``[0, 2**32)``: every result is masked back to 32 bits, and multiplications
+by a 32-bit constant are split into 16-bit halves so no intermediate leaves
+int64. Inputs may be int32 (reinterpreted as uint32) or int64 already in
+range; outputs are int64 in ``[0, 2**32)``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from seekmer_tpu.ops.hash import (
-    _C1,
-    _C2,
-    _GOLDEN,
-    _SIG_SEED1,
-    _SIG_SEED2,
-    _STASH_SALT,
-)
+# murmur3 fmix32 constants
+_C1 = np.uint32(0x85EBCA6B)
+_C2 = np.uint32(0xC2B2AE35)
+_GOLDEN = np.uint32(0x9E3779B9)
+_STASH_SALT = np.uint32(0x7FEB352D)
+_SIG_SEED1 = np.uint32(0x2545F491)
+_SIG_SEED2 = np.uint32(0x8F1BBCDC)
 
 MASK32 = 0xFFFFFFFF
+
+
+def mix32_np(h):
+    """murmur3 fmix32 on numpy uint32; wrap-around is the defined
+    behaviour, so numpy's overflow warning is silenced."""
+    with np.errstate(over="ignore"):
+        h = h ^ (h >> 16)
+        h = h * _C1
+        h = h ^ (h >> 13)
+        h = h * _C2
+        return h ^ (h >> 16)
+
+
+def hash_kmer_np(hi, lo):
+    """Main-table slot hash of (hi, lo) k-mer keys, numpy uint32."""
+    with np.errstate(over="ignore"):
+        return mix32_np(hi ^ mix32_np(lo + _GOLDEN))
+
+
+def hash_kmer_stash_np(hi, lo):
+    """Stash-table hash of (hi, lo) k-mer keys, numpy uint32."""
+    with np.errstate(over="ignore"):
+        return mix32_np(lo ^ mix32_np(hi + _STASH_SALT))
 
 
 def as_u32(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Canonical k-mer extraction over read batches, plain PyTorch.
 
 Counterpart of ``seekmer_tpu/ops/kmer_pack.py``. Keys use the dual-lane
-int32 layout of ``seekmer_tpu.encoding``: hi = first ``k//2`` bases, lo =
+int32 layout of ``encoding``: hi = first ``k//2`` bases, lo =
 the rest, big-endian 2 bits per base; canonical = lexicographic minimum of
 the forward and reverse-complement lanes. These are the plain versions that
 CPU tensors use and that the pack kernel (``ops/pack_cuda.py``) is held
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from seekmer_tpu.encoding import n_hi_lo
+from ..encoding import n_hi_lo
 
 
 def unpack_codes_2bit(packed: torch.Tensor, bad: torch.Tensor,

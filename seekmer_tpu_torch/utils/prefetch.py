@@ -1,16 +1,22 @@
-"""Upload read batches ahead of the map loop; counterpart of
-``seekmer_tpu/utils/prefetch.device_put_batches``. ``prefetch`` (the
-bounded background-thread queue) is JAX-free and imported as it is."""
+"""Upload read batches ahead of the map loop: counterpart of
+``seekmer_tpu/utils/prefetch.device_put_batches``, and ``prefetch``, the
+bounded background-thread queue, copied from that module."""
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+from typing import Iterable, Iterator, TypeVar
 
 import numpy as np
 import torch
 
-from seekmer_tpu.io.fastq import pack_batch_2bit
-from seekmer_tpu.utils.prefetch import prefetch  # noqa: F401
+from ..io.fastq import pack_batch_2bit
+
+T = TypeVar("T")
+
+_SENTINEL = object()
 
 
 def _put(a, device: torch.device):
@@ -45,3 +51,29 @@ def device_put_batches(batches, device):
             bad2=_put(b.bad2, device),
             n_real_cached=n_real,
         )
+
+
+def prefetch(items: Iterable[T], depth: int = 4) -> Iterator[T]:
+    """Iterate ``items`` on a daemon thread, buffering up to ``depth``;
+    an exception of the producer is raised in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    error = []
+
+    def worker():
+        try:
+            for item in items:
+                q.put(item)
+        except BaseException as e:  # propagate into the consumer
+            error.append(e)
+        finally:
+            q.put(_SENTINEL)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is _SENTINEL:
+            if error:
+                raise error[0]
+            return
+        yield item

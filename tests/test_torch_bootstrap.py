@@ -13,10 +13,12 @@ import torch
 from seekmer_tpu.config import EMConfig
 from seekmer_tpu.em import bootstrap as jbs
 from seekmer_tpu.em import em as jem
+from seekmer_tpu_torch.config import EMConfig as TEMConfig
 from seekmer_tpu_torch.em import bootstrap as tbs
 from seekmer_tpu_torch.em import em as tem
 from seekmer_tpu_torch.ops import em_cuda
 from tests.test_torch_em_dense import _system, group_sums
+from tests.test_torch_self_contained import port_config
 
 torch.set_num_threads(1)
 
@@ -41,9 +43,10 @@ def test_batched_em_matches_jax(accel):
     j_alpha, j_it = jbs.batched_em(jnp.asarray(cmat), jnp.float32,
                                    jec.ec_ids, jec.txp_ids,
                                    jnp.asarray(lengths), jec.num_ecs, T, cfg)
-    ec = tem.build_ec_table(members, counts, T)
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
     alpha, it = tbs.batched_em(torch.from_numpy(cmat), ec.ec_ids,
-                               ec.txp_ids, lengths, ec.num_ecs, T, cfg)
+                               ec.txp_ids, lengths, ec.num_ecs, T,
+                               port_config(cfg))
     assert alpha.shape == (B, T) and alpha.dtype == torch.float32
     assert abs(it - int(j_it)) <= cfg.check_every, (it, int(j_it))
     np.testing.assert_allclose(group_sums(alpha.numpy(), members, T),
@@ -85,12 +88,13 @@ def test_run_bootstrap_route_matches_jax(monkeypatch, case):
     cfg = dataclasses.replace(EMConfig(rel_tol=1e-5, max_iters=400,
                                        bootstrap_samples=B,
                                        bootstrap_seed=5), **over)
-    ec = tem.build_ec_table(members, counts, T)
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
     want = jem._use_pallas(jem.build_ec_table(members, counts, T), cfg,
                            replicates=B)
-    assert tem.use_dense(ec, cfg, replicates=B) == want
+    tcfg = port_config(cfg)
+    assert tem.use_dense(ec, tcfg, replicates=B) == want
     calls = _spy(monkeypatch)
-    boot, it = tbs.run_bootstrap(ec, lengths, cfg)
+    boot, it = tbs.run_bootstrap(ec, lengths, tcfg)
     assert calls == ([(B, ec.num_ecs)] if want else [])
     assert boot.shape == (B, T) and boot.dtype == torch.float32
     assert 0 < it <= cfg.max_iters
@@ -102,8 +106,8 @@ def test_run_bootstrap_seeded():
     """The same seed gives the same replicates; another seed others."""
     members, counts, lengths = _system(seed=25)
     T = lengths.size
-    cfg = EMConfig(rel_tol=1e-5, bootstrap_samples=4, bootstrap_seed=7)
-    ec = tem.build_ec_table(members, counts, T)
+    cfg = TEMConfig(rel_tol=1e-5, bootstrap_samples=4, bootstrap_seed=7)
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
     a, _ = tbs.run_bootstrap(ec, lengths, cfg)
     b, _ = tbs.run_bootstrap(ec, lengths, cfg)
     c, _ = tbs.run_bootstrap(ec, lengths,

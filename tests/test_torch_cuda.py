@@ -6,22 +6,18 @@ them. Run on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the tests directory's conftest sets up JAX, which the
-card's machine does not have). This file imports nothing of JAX.
+card's machine does not have). This file imports nothing of JAX nor of
+``seekmer_tpu``: the reference on the card is the port's own plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from seekmer_tpu import encoding as enc
-from seekmer_tpu.config import IndexConfig, MapConfig
-from seekmer_tpu.index.build import build_index_from_seqs
-from seekmer_tpu.io.fastq import ReadBatch
-from seekmer_tpu.utils.simulate import (
-    random_transcriptome,
-    simulate_packed_batches,
-    simulate_packed_pairs,
-)
+from seekmer_tpu_torch import encoding as enc
+from seekmer_tpu_torch.config import EMConfig, IndexConfig, MapConfig
+from seekmer_tpu_torch.index.build import build_index_from_seqs
+from seekmer_tpu_torch.io.fastq import ReadBatch
 from seekmer_tpu_torch.map.driver import DeviceIndex, Mapper, merge_sig_rows
 from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
 from seekmer_tpu_torch.ops import (
@@ -31,6 +27,11 @@ from seekmer_tpu_torch.ops import (
     pack_cuda,
     probe_cuda,
     sig_cuda,
+)
+from seekmer_tpu_torch.utils.simulate import (
+    random_transcriptome,
+    simulate_packed_batches,
+    simulate_packed_pairs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -233,9 +234,9 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
 def test_quantifier_on_card_matches_cpu(dev, world, tmp_path):
     """The library entry point end to end (ingest, pinned upload, kernels,
     EM on the card) against the same run on the CPU."""
-    from seekmer_tpu.config import EMConfig, PipelineConfig
-    from seekmer_tpu.utils.simulate import simulate_reads, write_fastq
+    from seekmer_tpu_torch.config import PipelineConfig
     from seekmer_tpu_torch.models.quantifier import Quantifier
+    from seekmer_tpu_torch.utils.simulate import simulate_reads, write_fastq
 
     rng, seqs, idx = world
     sim = simulate_reads(rng, seqs, num_reads=3000, read_len=100,
@@ -281,8 +282,6 @@ def test_em_kernel(dev, T, E, R):
     """K4 against its plain version (torch.matmul in FP32): iteration counts
     within one check_every block, group masses within rtol 1e-3 (atol 1e-2
     reads), every replicate's mass kept."""
-    from seekmer_tpu.config import EMConfig
-
     M, n, inv_eff, alpha0 = _em_system(dev, T, E, R, seed=T + R)
     cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
     before = em_cuda.em_fixed_point.launches
@@ -306,8 +305,6 @@ def test_em_kernel(dev, T, E, R):
 def test_em_kernel_deterministic_and_budgeted(dev):
     """Two runs give the same bits; max_iters and min_iters bound the
     count as in the plain version."""
-    from seekmer_tpu.config import EMConfig
-
     M, n, inv_eff, alpha0 = _em_system(dev, 1000, 1396, 100, seed=3)
     cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
     a, ia = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
@@ -323,11 +320,36 @@ def test_em_kernel_deterministic_and_budgeted(dev):
     assert it >= 100 and it % 7 == 0
 
 
+@pytest.mark.parametrize("E,T,R", [(7600, 250, 8), (100, 14400, 8)])
+def test_em_kernel_near_gate_walks_depth_chunks(dev, E, T, R):
+    """Systems at the dense gate's edge, E-deep (7,600 x 250 pads to 1.97M
+    of the gate's 2M entries) and T-deep (100 x 14,400 pads to 128 x
+    14,464, the widest T the gate admits at R 8), every transcript in
+    some EC, whose depth does not fit in shared memory: K4 walks it in
+    chunks, holds the plain version's iteration count and group masses,
+    and gives the same bits twice."""
+    assert em_dense.fits_dense(E, T, R)
+    plan = em_cuda.plan(E, T, R, dev)
+    assert 0 < plan["KC"] < plan["cluster"] * max(plan["SE"], plan["ST"])
+    M, n, inv_eff, alpha0 = _em_system(dev, T, E, R, seed=7)
+    cols = np.random.default_rng(7).integers(0, E, size=T)
+    M[torch.from_numpy(cols).to(dev), torch.arange(T, device=dev)] = 1.0
+    cfg = EMConfig(rel_tol=1e-6, max_iters=400)
+    got, it = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+    again, it2 = em_cuda.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+    assert it == it2 and torch.equal(got, again)
+    want, it_p = em_dense.em_fixed_point(M, n, inv_eff, alpha0, cfg)
+    assert abs(it - it_p) <= cfg.check_every
+    g = _groups(M)
+    G = int(g.max()) + 1
+    gs = [torch.zeros((R, G), device=dev).index_add_(1, g, a)
+          for a in (got, want)]
+    torch.testing.assert_close(gs[0], gs[1], rtol=1e-3, atol=1e-2)
+
+
 def test_em_kernel_never_falls_back(dev):
     """What the kernel does not take raises on the card; nothing moves to
     the plain version or the CPU."""
-    from seekmer_tpu.config import EMConfig
-
     M, n, inv_eff, alpha0 = _em_system(dev, 60, 150, 8, seed=4)
     cfg = EMConfig()
     before = em_cuda.em_fixed_point.launches
@@ -347,7 +369,6 @@ def test_em_kernel_never_falls_back(dev):
 def test_bootstrap_on_card_takes_k4(dev):
     """run_bootstrap on a system under the dense gate launches K4 once;
     each replicate keeps the resample's mass."""
-    from seekmer_tpu.config import EMConfig
     from seekmer_tpu_torch.em.bootstrap import run_bootstrap
     from seekmer_tpu_torch.em.em import build_ec_table
 

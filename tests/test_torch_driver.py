@@ -13,8 +13,10 @@ from seekmer_tpu.index.build import build_index_from_seqs
 from seekmer_tpu.io.fastq import batch_read_pairs, batch_reads, pack_batch_2bit
 from seekmer_tpu.map.driver import Mapper as JMapper
 from seekmer_tpu.utils.simulate import random_transcriptome, simulate_reads
+from seekmer_tpu_torch.config import MapConfig as TMapConfig
 from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
 from seekmer_tpu.map.driver import resolve_signatures as j_resolve
+from tests.test_torch_self_contained import port_config, port_index
 
 torch.set_num_threads(1)
 
@@ -60,7 +62,7 @@ def test_mapper_matches_jax(world, paired, packed):
                     sig_backend="pallas", collision_audit_every=2)
     mates = r2 if paired else None
     want = JMapper(index, cfg).run(_batches(r1, mates, cfg, packed))
-    got = Mapper(index, cfg, device="cpu").run(
+    got = Mapper(port_index(index), port_config(cfg), device="cpu").run(
         _batches(r1, mates, cfg, packed))
     np.testing.assert_array_equal(got.sigs, want.sigs)
     np.testing.assert_array_equal(got.sig_counts, want.sig_counts)
@@ -69,7 +71,7 @@ def test_mapper_matches_jax(world, paired, packed):
     assert got.total_reads == len(r1) and 0 < got.mapped < len(r1)
     # host finalize (copied numpy code) resolves identically
     m_w, c_w, d_w = j_resolve(want, index)
-    m_g, c_g, d_g = resolve_signatures(got, index)
+    m_g, c_g, d_g = resolve_signatures(got, port_index(index))
     assert d_g == d_w
     np.testing.assert_array_equal(c_g, c_w)
     for a, b in zip(m_g, m_w):
@@ -81,7 +83,7 @@ def test_mapper_refuses_unported_modes(world):
     for cfg in (MapConfig(probe_sample=4), MapConfig(probe_stride=2),
                 MapConfig(paired_end=True, fusion_pairs=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Mapper(index, cfg, device="cpu")
+            Mapper(port_index(index), port_config(cfg), device="cpu")
 
 
 def test_mapper_cuda_without_card_raises(world):
@@ -89,4 +91,4 @@ def test_mapper_cuda_without_card_raises(world):
         pytest.skip("a CUDA card is present")
     index, _, _ = world
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Mapper(index, MapConfig(), device="cuda")
+        Mapper(port_index(index), TMapConfig(), device="cuda")

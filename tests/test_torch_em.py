@@ -7,7 +7,9 @@ import torch
 
 from seekmer_tpu.config import EMConfig
 from seekmer_tpu.em import em as jem
+from seekmer_tpu_torch.config import EMConfig as TEMConfig
 from seekmer_tpu_torch.em import em as tem
+from tests.test_torch_self_contained import port_config, port_index
 from tests.oracle import oracle
 
 torch.set_num_threads(1)
@@ -34,17 +36,18 @@ def test_em_x64_matches_oracle(accel, sd):
                    fragment_length_sd=sd)
     o_alpha, o_it = oracle.run_em(members, counts, lengths, cfg)
     ec = tem.build_ec_table(members, counts, lengths.size,
-                            dtype=torch.float64)
-    alpha, it = tem.run_em(ec, lengths, cfg)
+                            dtype=torch.float64, device="cpu")
+    tcfg = port_config(cfg)
+    alpha, it = tem.run_em(ec, lengths, tcfg)
     assert it == o_it
     np.testing.assert_allclose(alpha.numpy(), o_alpha, rtol=1e-9, atol=1e-9)
-    eff = tem.effective_lengths(lengths, cfg, torch.float64)
+    eff = tem.effective_lengths(lengths, tcfg, torch.float64, "cpu")
     np.testing.assert_allclose(eff.numpy(), oracle.effective_lengths(
         lengths, cfg), rtol=1e-12)
     ll = float(tem.log_likelihood(ec, alpha, eff))
     o_ll = oracle.log_likelihood(members, counts, o_alpha, eff.numpy())
     assert ll == pytest.approx(o_ll, rel=1e-9)
-    tpm = tem.tpm_from_alpha(alpha, lengths, cfg).numpy()
+    tpm = tem.tpm_from_alpha(alpha, lengths, tcfg).numpy()
     # absolute floor: SQUAREM leaves some transcripts at ~1e-12, where the
     # summation order decides every digit
     np.testing.assert_allclose(tpm, oracle.tpm_from_alpha(o_alpha, lengths,
@@ -66,10 +69,11 @@ def test_em_f32_within_twice_the_jax_error():
     j_alpha, j_it = jem.run_em(jec, lengths, cfg)
     j_err = np.abs(np.asarray(jem.tpm_from_alpha(j_alpha, lengths, cfg))
                    - o_tpm).max()
-    ec = tem.build_ec_table(members, counts, lengths.size)
-    alpha, it = tem.run_em(ec, lengths, cfg)
+    ec = tem.build_ec_table(members, counts, lengths.size, device="cpu")
+    tcfg = port_config(cfg)
+    alpha, it = tem.run_em(ec, lengths, tcfg)
     assert alpha.dtype == torch.float32
-    err = np.abs(tem.tpm_from_alpha(alpha, lengths, cfg).numpy()
+    err = np.abs(tem.tpm_from_alpha(alpha, lengths, tcfg).numpy()
                  - o_tpm).max()
     assert it == int(j_it)
     assert err <= 2 * j_err, (err, j_err)
@@ -77,12 +81,12 @@ def test_em_f32_within_twice_the_jax_error():
 
 def test_em_warm_start_counts_total_iterations():
     members, counts, lengths = _system(seed=9)
-    cfg = EMConfig(rel_tol=1e-8, max_iters=64, min_iters=0, use_x64=True)
+    cfg = TEMConfig(rel_tol=1e-8, max_iters=64, min_iters=0, use_x64=True)
     ec = tem.build_ec_table(members, counts, lengths.size,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     a32, it32 = tem.run_em(ec, lengths,
-                           EMConfig(rel_tol=0.0, max_iters=32,
-                                    use_x64=True))
+                           TEMConfig(rel_tol=0.0, max_iters=32,
+                                     use_x64=True))
     alpha, it = tem.run_em(ec, lengths, cfg, alpha_init=a32.numpy(),
                            it_init=it32)
     full, it_full = tem.run_em(ec, lengths, cfg)

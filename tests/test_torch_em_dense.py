@@ -13,9 +13,11 @@ import torch
 from seekmer_tpu.config import EMConfig
 from seekmer_tpu.em import em as jem
 from seekmer_tpu.ops import em_pallas
+from seekmer_tpu_torch.config import EMConfig as TEMConfig
 from seekmer_tpu_torch.em import em as tem
 from seekmer_tpu_torch.ops import em_cuda, em_dense
 from tests.oracle import oracle
+from tests.test_torch_self_contained import port_config
 
 torch.set_num_threads(1)
 
@@ -76,7 +78,7 @@ def test_dense_em_matches_jax_kernel(R):
         jnp.asarray(alpha0), cfg, T, interpret=True)
     alpha, it = em_dense.em_fixed_point(
         torch.from_numpy(M), torch.from_numpy(n), torch.from_numpy(inv_eff),
-        torch.from_numpy(alpha0), cfg)
+        torch.from_numpy(alpha0), port_config(cfg))
     assert alpha.dtype == torch.float32 and alpha.shape == (R, T)
     assert abs(it - int(j_it)) <= cfg.check_every
     np.testing.assert_allclose(group_sums(alpha.numpy(), members, T),
@@ -87,7 +89,7 @@ def test_dense_em_matches_jax_kernel(R):
     before = em_cuda.em_fixed_point.launches
     alpha_w, it_w = em_cuda.em_fixed_point(
         torch.from_numpy(M), torch.from_numpy(n), torch.from_numpy(inv_eff),
-        torch.from_numpy(alpha0), cfg)
+        torch.from_numpy(alpha0), port_config(cfg))
     assert em_cuda.em_fixed_point.launches == before
     assert it_w == it and torch.equal(alpha_w, alpha)
 
@@ -106,7 +108,8 @@ def test_dense_em_x64_matches_oracle(sd):
         torch.from_numpy(_dense(members, T).astype(np.float64)),
         torch.from_numpy(counts[None, :]),
         torch.from_numpy(1.0 / eff),
-        torch.full((1, T), counts.sum() / T, dtype=torch.float64), cfg)
+        torch.full((1, T), counts.sum() / T, dtype=torch.float64),
+        port_config(cfg))
     assert it == o_it
     np.testing.assert_allclose(alpha[0].numpy(), o_alpha, rtol=1e-9,
                                atol=1e-9)
@@ -128,10 +131,11 @@ def test_run_em_pallas_backend_matches_jax():
     members, counts, lengths = _system(seed=14)
     T = lengths.size
     cfg = EMConfig(rel_tol=1e-6, max_iters=2000, backend="pallas")
-    ec = tem.build_ec_table(members, counts, T)
-    assert tem.use_dense(ec, cfg)
-    assert not tem.use_dense(ec, dataclasses.replace(cfg, backend="auto"))
-    alpha, it = tem.run_em(ec, lengths, cfg)
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
+    tcfg = port_config(cfg)
+    assert tem.use_dense(ec, tcfg)
+    assert not tem.use_dense(ec, dataclasses.replace(tcfg, backend="auto"))
+    alpha, it = tem.run_em(ec, lengths, tcfg)
     j_alpha, j_it = jem.run_em(jem.build_ec_table(members, counts, T),
                                lengths, cfg)
     assert alpha.dtype == torch.float32 and alpha.shape == (T,)
@@ -150,8 +154,8 @@ def test_run_em_pallas_backend_resume_stays_on_csr():
     total iterations, under backend="pallas" too."""
     members, counts, lengths = _system(seed=15)
     T = lengths.size
-    cfg = EMConfig(rel_tol=0.0, max_iters=64, backend="pallas")
-    ec = tem.build_ec_table(members, counts, T)
+    cfg = TEMConfig(rel_tol=0.0, max_iters=64, backend="pallas")
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
     a32, _ = tem.run_em(ec, lengths, dataclasses.replace(
         cfg, max_iters=32, backend="csr"))
     _, it = tem.run_em(ec, lengths, cfg, alpha_init=a32.numpy(), it_init=32)
@@ -168,11 +172,12 @@ def test_run_em_pallas_backend_too_large_raises():
     cfg = EMConfig(backend="pallas", max_iters=16)
     assert not em_dense.fits_dense(E, T)
     with pytest.raises(ValueError, match="too large"):
-        tem.run_em(tem.build_ec_table(members, counts, T), lengths, cfg)
+        tem.run_em(tem.build_ec_table(members, counts, T, device="cpu"),
+                   lengths, port_config(cfg))
     with pytest.raises(ValueError, match="too large"):
         jem.run_em(jem.build_ec_table(members, counts, T), lengths, cfg)
-    ec = tem.build_ec_table(members, counts, T)
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
     for backend in ("auto", "csr"):
-        assert not tem.use_dense(ec, dataclasses.replace(cfg,
+        assert not tem.use_dense(ec, dataclasses.replace(port_config(cfg),
                                                          backend=backend),
                                  replicates=8)

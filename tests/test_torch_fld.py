@@ -29,6 +29,7 @@ from seekmer_tpu_torch.map import fld
 from seekmer_tpu_torch.map.driver import DeviceIndex, Mapper
 from seekmer_tpu_torch.models.quantifier import Quantifier
 from tests.oracle import oracle as orc
+from tests.test_torch_self_contained import port_config, port_index
 
 torch.set_num_threads(1)
 MEAN, SD, L = 250.0, 25.0, 100
@@ -60,9 +61,11 @@ def test_estimator_hist_equals_jax_and_oracle(setup):
     index, _, seqs, c1, c2 = setup
     assert int((index.stash[:, 0] >= 0).sum()) == 0, "fixture grew a stash"
     want = jfld.FLDEstimator(index, JDeviceIndex.from_host(index))
-    mapper = Mapper(index, MapConfig(paired_end=True), device="cpu")
+    tindex = port_index(index)
+    mapper = Mapper(tindex, port_config(MapConfig(paired_end=True)),
+                    device="cpu")
     assert mapper.make_fld_estimator().device_index is mapper.device_index
-    got = fld.FLDEstimator(index, mapper.device_index)
+    got = fld.FLDEstimator(tindex, mapper.device_index)
     # the fixture's batches, repeated up to the estimator's sampling depth
     batches = _batches(c1, c2)
     fed = [batches[i % len(batches)] for i in range(fld.SAMPLE_BATCHES)]
@@ -109,7 +112,7 @@ def test_fld_step_ragged_mates_equals_jax(setup):
                          jnp.asarray(codes1), jnp.asarray(len1),
                          jnp.asarray(codes2), jnp.asarray(len2),
                          index.k, index.main_slots, index.bucket)
-    tdi = DeviceIndex.from_host(index, "cpu")
+    tdi = DeviceIndex.from_host(port_index(index), "cpu")
     p1, b1 = (torch.from_numpy(a) for a in enc.pack_codes_2bit(codes1))
     p2, b2 = (torch.from_numpy(a) for a in enc.pack_codes_2bit(codes2))
     got = fld.fld_step(
@@ -124,17 +127,18 @@ def test_fld_step_ragged_mates_equals_jax(setup):
 
 def test_estimator_needs_payload_and_pairs(setup):
     index, _, _, c1, _ = setup
-    tdi = DeviceIndex.from_host(index, "cpu")
-    est = fld.FLDEstimator(index, tdi)
+    tindex = port_index(index)
+    tdi = DeviceIndex.from_host(tindex, "cpu")
+    est = fld.FLDEstimator(tindex, tdi)
     B = c1.shape[1]
     est.feed(ReadBatch(codes=c1[0], lengths=np.full(B, L, np.int32),
                        weights=np.ones(B, np.int32)))  # single-end: ignored
     assert est.active and int(est.hist.sum()) == 0 and est.estimate() is None
-    no_payload = type(index)(**{**index.__dict__, "fld_tid": None,
-                                "fld_pos": None})
+    no_payload = type(tindex)(**{**tindex.__dict__, "fld_tid": None,
+                                 "fld_pos": None})
     with pytest.raises(ValueError, match="FLD payload"):
         fld.FLDEstimator(no_payload, tdi)
-    assert Mapper(no_payload, MapConfig(), device="cpu"
+    assert Mapper(no_payload, port_config(MapConfig()), device="cpu"
                   ).make_fld_estimator() is None
 
 
@@ -147,7 +151,8 @@ def test_quantifier_estimates_fld_as_jax(setup):
         map=MapConfig(batch_size=2048, sig_table_bits=14, paired_end=True),
         em=EMConfig(estimate_fld=True, rel_tol=1e-6, max_iters=3000))
     want = JQuantifier(index, cfg).quantify_batches(iter(_batches(c1, c2)))
-    got = Quantifier(index, cfg, device="cpu").quantify_batches(
+    got = Quantifier(port_index(index), port_config(cfg),
+                     device="cpu").quantify_batches(
         iter(_batches(c1, c2)))
     assert got.fld_mean is not None
     assert (got.fld_mean, got.fld_sd, got.fld_samples) == (

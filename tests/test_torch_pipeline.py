@@ -25,6 +25,7 @@ from seekmer_tpu.utils.simulate import (
 from seekmer_tpu_torch import cli
 from seekmer_tpu_torch.models.quantifier import Quantifier
 from tests.oracle import oracle
+from tests.test_torch_self_contained import port_config, port_index
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,7 +69,8 @@ def test_quantifier_matches_jax_and_oracle(world, paired):
     fq = [files["r1"] if paired else files["se"]]
     mates = [files["r2"]] if paired else None
     want = JQuantifier(index, cfg).quantify_files(fq, mate_paths=mates)
-    got = Quantifier(index, cfg, device="cpu").quantify_files(
+    got = Quantifier(port_index(index), port_config(cfg),
+                     device="cpu").quantify_files(
         fq, mate_paths=mates)
     assert (got.total_reads, got.mapped, got.unmapped) == (
         want.total_reads, want.mapped, want.unmapped)
@@ -152,7 +154,8 @@ def test_cuda_requested_without_card_raises(world):
         pytest.skip("a CUDA card is present")
     _, index, _, _, files, _, idx = world
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Quantifier(index, PipelineConfig(), device="cuda")
+        Quantifier(port_index(index), port_config(PipelineConfig()),
+                   device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["infer", idx, "out", files["se"]])  # --device cuda
 
@@ -162,8 +165,8 @@ import sys
 sys.modules["jax"] = None  # any import of JAX fails
 import numpy as np
 from seekmer_tpu_torch import cli
-from seekmer_tpu_torch.host import (random_transcriptome, simulate_reads,
-                                    write_fasta, write_fastq)
+from seekmer_tpu_torch.utils.simulate import (
+    random_transcriptome, simulate_reads, write_fasta, write_fastq)
 work = sys.argv[1]
 rng = np.random.default_rng(3)
 names, seqs = random_transcriptome(rng, num_transcripts=30, min_len=200,

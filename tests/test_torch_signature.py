@@ -19,6 +19,7 @@ from seekmer_tpu.map.driver import Mapper as JMapper
 from seekmer_tpu.utils.simulate import simulate_packed_batches
 from seekmer_tpu_torch.map.driver import Mapper, merge_sig_rows
 from seekmer_tpu_torch.ops import accumulate_cuda
+from tests.test_torch_self_contained import port_config, port_index
 
 torch.set_num_threads(1)
 PAD = tsig.SIG_PAD
@@ -156,7 +157,7 @@ def test_sig_table_from_numpy_mid_run():
     jm.feed(batches[0])
     fields = {f: np.asarray(getattr(jm.table, f))
               for f in jm.table._fields}
-    tm = Mapper(index, cfg, device="cpu")
+    tm = Mapper(port_index(index), port_config(cfg), device="cpu")
     tm.table = tsig.sig_table_from_numpy(fields, "cpu")
     tm.total_reads, tm._fed_batches = jm.total_reads, jm._fed_batches
     for b in batches[1:]:
