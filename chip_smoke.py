@@ -15,10 +15,12 @@ Phases; any failure exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card and time
    both with CUDA events, beside the least time the card could take for
    the same work (bytes over 3.35 TB/s, or FP32 operations over 67
-   TFLOP/s; for K4 the operations on M's nonzeros): K1 pack, K2 lookup,
-   K3 signature and A1 accumulate at the shapes of one paired config-2
-   batch; K4 dense EM at the config-1 bootstrap shapes (the world's ECs,
-   100 resampled replicates) and at R = 1, to convergence and for the same
+   TFLOP/s; for K4 the operations on M's nonzeros): K1 pack (one mate,
+   and both mates into one output), K2 lookup, K3 signature and A1
+   accumulate at the shapes of one paired config-2 batch, K2 also on one
+   config-1 batch (a table that mostly sits in L2); K4 dense EM at the
+   config-1 bootstrap shapes (the world's ECs, 100 resampled replicates)
+   and at R = 1, to convergence and for the same
    fixed iteration count (with a TF32 control of the plain version that
    must miss the bound, and a rerun that must give the same bits), then
    on two systems at the dense gate's edge, E-deep and T-deep, that walk
@@ -103,7 +105,8 @@ def reads_from_codes(codes):
 
 def make_worlds(work: Path):
     """Write both worlds' FASTA and FASTQ files and index them with the
-    port's CLI. Returns one paired config-2 batch (both mates' codes)."""
+    port's CLI. Returns the first config-1 batch and the first paired
+    config-2 batch (both mates' codes)."""
     import numpy as np
 
     from seekmer_tpu_torch import cli
@@ -120,6 +123,7 @@ def make_worlds(work: Path):
     codes, _ = simulate_packed_batches(rng, seqs, BATCHES, B, READ_LEN)
     write_fastq(str(work / "c1.fq"),
                 reads_from_codes(codes.reshape(-1, READ_LEN)))
+    batch1 = codes[0]
     check(cli.main(["index", str(work / "c1.fa"), str(work / "c1.npz")]) == 0,
           "config-1 index build")
     log(f"[setup] config-1 world: {C1_TRANSCRIPTS} transcripts, "
@@ -134,7 +138,7 @@ def make_worlds(work: Path):
     for name, codes in (("c2_1.fq", c1), ("c2_2.fq", c2)):
         write_fastq(str(work / name),
                     reads_from_codes(codes.reshape(-1, READ_LEN)))
-    batch = (c1[0], c2[0])
+    batch2 = (c1[0], c2[0])
     t_sim = time.perf_counter() - t0
     t0 = time.perf_counter()
     check(cli.main(["index", str(work / "c2.fa"), str(work / "c2.npz")]) == 0,
@@ -143,7 +147,7 @@ def make_worlds(work: Path):
         f"genes, "
         f"{BATCHES * B} pairs; simulate {t_sim:.1f} s, index build + save "
         f"{time.perf_counter() - t0:.1f} s")
-    return batch
+    return batch1, batch2
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -200,77 +204,139 @@ def record(err, ms, plain_ms, bound_s, bound_by, library_ms=None) -> dict:
             "library_ms": library_ms}
 
 
-def compare_kernels(work: Path, batch):
-    """Each kernel against its plain version at one paired config-2 batch's
-    shapes, with the bytes each must move at the least (each input read
-    once, each output written once; for the table kernels, the rows this
-    batch touches). No single PyTorch call computes any of these
-    functions, so none has a library time. Returns {name: record}."""
+def upload_mate(codes, L, dev):
+    """One mate's [B, READ_LEN] codes padded to L, 2-bit packed, on the
+    card: (packed, bad, lengths)."""
     import numpy as np
     import torch
 
-    from seekmer_tpu_torch import MapConfig
     from seekmer_tpu_torch.encoding import pack_codes_2bit
-    from seekmer_tpu_torch.index.store import KMerIndex
-    from seekmer_tpu_torch.map.driver import (DeviceIndex, map_step,
-                                              merge_sig_rows)
-    from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
-    from seekmer_tpu_torch.ops import (accumulate_cuda, pack_cuda, probe_cuda,
-                                       sig_cuda)
+
+    padded = np.full((codes.shape[0], L), 4, np.uint8)
+    padded[:, :READ_LEN] = codes
+    packed, bad = pack_codes_2bit(padded)
+    return (torch.from_numpy(packed).to(dev), torch.from_numpy(bad).to(dev),
+            torch.full((codes.shape[0],), READ_LEN, dtype=torch.int32,
+                       device=dev))
+
+
+def check_lookup(tag, index, di, hi, lo, valid):
+    """K2 against its plain version on one batch's lanes, timed; returns
+    its record. The bound counts what the function must read of the table
+    at the card's 32-byte sector grain: the hi slab (4 G bytes) of each
+    distinct home row of a valid key, and the lo and ecaux sectors (2 x 32
+    bytes) of each distinct key found; stash probes (keys absent from a
+    full row) are not counted. PR 1-3 counted three whole slabs (hi, lo,
+    ecaux) of each distinct home row; that figure is printed beside it."""
+    import torch
+
+    from seekmer_tpu_torch.ops import probe_cuda
     from seekmer_tpu_torch.ops.hash import hash_kmer
 
-    dev = torch.device(DEVICE)
-    index = KMerIndex.load(str(work / "c2.npz"))
-    di = DeviceIndex.from_host(index, dev)
-    L, k = 128, index.k  # 100 bp reads sit in the 128 length bucket
-    out = {}
-
-    mates = []
-    for codes in batch:
-        padded = np.full((B, L), 4, np.uint8)
-        padded[:, :READ_LEN] = codes
-        packed, bad = pack_codes_2bit(padded)
-        mates.append((torch.from_numpy(packed).to(dev),
-                      torch.from_numpy(bad).to(dev),
-                      torch.full((B,), READ_LEN, dtype=torch.int32,
-                                 device=dev)))
-    p, bd, ln = mates[0]
-    got = pack_cuda.pack_canonical_2bit(p, bd, ln, L, k)
-    ref = pack_cuda.plain(p, bd, ln, L, k)
-    err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
-    out["K1"] = record(
-        err, cuda_ms(lambda: pack_cuda.pack_canonical_2bit(p, bd, ln, L, k), 50),
-        cuda_ms(lambda: pack_cuda.plain(p, bd, ln, L, k), 10),
-        nbytes(p, bd, ln, *got) / HBM_BYTES_S, "bytes")
-    log(f"[K1 pack] [{B}, {L}] k={k}: max_abs_err {err}, kernel "
-        f"{out['K1']['ms']:.4f} ms, plain {out['K1']['plain_ms']:.4f} ms, "
-        f"bound {out['K1']['bound_ms']:.4f} ms")
-
-    packs = [pack_cuda.pack_canonical_2bit(*m, L, k) for m in mates]
-    hi = torch.cat([packs[0][0], packs[1][0]], dim=1)
-    lo = torch.cat([packs[0][1], packs[1][1]], dim=1)
-    valid = torch.cat([packs[0][2], packs[1][2]], dim=1)
     geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
     got = probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo)
     ref = probe_cuda.plain(hi, lo, valid, *geo)
     err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
     hits = float((got[0] >= 0).float().mean())
-    check(hits > 0.3, f"K2 hit fraction {hits:.3f} is implausibly low")
-    # each distinct home bucket row touched: its hi, lo and ecaux slabs
-    # (3 x 128 B); stash probes (keys absent from a full bucket) not counted
+    check(hits > 0.3, f"K2 {tag} hit fraction {hits:.3f} is implausibly low")
     homes = hash_kmer(hi[valid], lo[valid]) & (index.main_slots // di.bucket
                                                - 1)
     rows = int(torch.unique(homes).numel())
-    out["K2"] = record(
-        err, cuda_ms(lambda: probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo), 20),
+    found = got[0] >= 0
+    keys = int(torch.unique((hi[found].to(torch.int64) << 32)
+                            | (lo[found].to(torch.int64) & 0xFFFFFFFF))
+               .numel())
+    io = nbytes(hi, lo, valid, *got)
+    slab = 4 * di.bucket
+    rec = record(
+        err, cuda_ms(lambda: probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo),
+                     20),
         cuda_ms(lambda: probe_cuda.plain(hi, lo, valid, *geo), 3),
-        (nbytes(hi, lo, valid, *got) + rows * 3 * 4 * di.bucket)
-        / HBM_BYTES_S, "bytes")
-    log(f"[K2 lookup] {hi.numel()} lanes against {index.num_kmers} k-mers "
-        f"(hit fraction {hits:.4f}, {rows} distinct home rows): max_abs_err "
-        f"{err}, kernel {out['K2']['ms']:.4f} ms, plain "
-        f"{out['K2']['plain_ms']:.4f} ms, bound {out['K2']['bound_ms']:.4f} ms")
+        (io + rows * slab + keys * 64) / HBM_BYTES_S, "bytes")
+    slabs3_ms = (io + rows * 3 * slab) / HBM_BYTES_S * 1e3
+    # what the kernel itself reads, lane by lane with no reuse: the hi slab
+    # of every valid key, and the lo and ecaux sectors of every found one
+    # (at 32 bytes each, or at the 64-byte grain of a device-memory access)
+    n_valid, n_found = int(valid.sum()), int(found.sum())
+    own = [(io + n_valid * slab + n_found * 2 * grain) / HBM_BYTES_S * 1e3
+           for grain in (32, 64)]
+    log(f"[K2 lookup {tag}] {hi.numel()} lanes ({n_valid} valid, {n_found} "
+        f"found) against {index.num_kmers} k-mers (hit fraction {hits:.4f}, "
+        f"{rows} distinct home rows, {keys} distinct keys found): "
+        f"max_abs_err {err}, kernel {rec['ms']:.6f} ms, plain "
+        f"{rec['plain_ms']:.6f} ms, bound {rec['bound_ms']:.6f} ms (share "
+        f"{rec['bound_ms'] / rec['ms']:.6f}; three slabs a row, as PR 1-3 "
+        f"counted: {slabs3_ms:.6f} ms); the kernel's own reads, lane by "
+        f"lane: {own[0]:.6f} ms at 32-byte sectors (kernel x"
+        f"{rec['ms'] / own[0]:.3f}), {own[1]:.6f} ms at 64-byte accesses "
+        f"(x{rec['ms'] / own[1]:.3f})")
+    return rec, got
 
+
+def compare_kernels(work: Path, batches):
+    """Each kernel against its plain version at one paired config-2 batch's
+    shapes, with the bytes each must move at the least (each input read
+    once, each output written once; for the table kernels, what this
+    batch needs of the table); K2 also on one config-1 batch, whose table
+    mostly sits in L2. No single PyTorch call computes any of these
+    functions, so none has a library time. Returns {name: record}."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch import MapConfig
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.map.driver import (DeviceIndex, map_step,
+                                              merge_sig_rows)
+    from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
+    from seekmer_tpu_torch.ops import accumulate_cuda, pack_cuda, sig_cuda
+
+    dev = torch.device(DEVICE)
+    L = 128  # 100 bp reads sit in the 128 length bucket
+    out = {}
+
+    # K2 on config 1 first: its table leaves the card before config 2's
+    index = KMerIndex.load(str(work / "c1.npz"))
+    di = DeviceIndex.from_host(index, dev)
+    c1_lanes = pack_cuda.pack_canonical_2bit(
+        *upload_mate(batches[0], L, dev), L, index.k)
+    c1 = check_lookup("config 1", index, di, *c1_lanes)[0]
+    del di, c1_lanes
+
+    index = KMerIndex.load(str(work / "c2.npz"))
+    di = DeviceIndex.from_host(index, dev)
+    k = index.k
+    mates = [upload_mate(codes, L, dev) for codes in batches[1]]
+    p, bd, ln = mates[0]
+    got = pack_cuda.pack_canonical_2bit(p, bd, ln, L, k)
+    ref = pack_cuda.plain(p, bd, ln, L, k)
+    err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
+    out["K1"] = record(
+        err, cuda_ms(lambda: pack_cuda.pack_canonical_2bit(p, bd, ln, L, k),
+                     200),
+        cuda_ms(lambda: pack_cuda.plain(p, bd, ln, L, k), 10),
+        nbytes(p, bd, ln, *got) / HBM_BYTES_S, "bytes")
+    log(f"[K1 pack] [{B}, {L}] k={k}: max_abs_err {err}, kernel "
+        f"{out['K1']['ms']:.6f} ms, plain {out['K1']['plain_ms']:.6f} ms, "
+        f"bound {out['K1']['bound_ms']:.6f} ms (share "
+        f"{out['K1']['bound_ms'] / out['K1']['ms']:.6f})")
+
+    # both mates into one (B, 2P) output, as the map step packs them
+    P = L - k + 1
+    joined = tuple(torch.empty((B, 2 * P), dtype=dt, device=dev)
+                   for dt in (torch.int32, torch.int32, torch.bool))
+    for i, m in enumerate(mates):
+        pack_cuda.pack_canonical_2bit(*m, L, k, out=joined, offset=i * P)
+    apart = [pack_cuda.plain(*m, L, k) for m in mates]
+    err = max(max_abs_diff(j, torch.cat([a, b], dim=1))
+              for j, a, b in zip(joined, *apart))
+    out["K1"]["max_abs_err"] = max(out["K1"]["max_abs_err"], err)
+    log(f"[K1 pack] both mates into one [{B}, {2 * P}] output: max_abs_err "
+        f"{err} against the plain versions' concatenation")
+
+    hi, lo, valid = joined
+    out["K2"], got = check_lookup("config 2", index, di, hi, lo, valid)
+    check(c1["max_abs_err"] == 0, "K2 disagrees with its plain version on "
+          f"config 1: {c1['max_abs_err']}")
     ecs = got[0]
     C = 16
     got = sig_cuda.read_signatures(ecs, valid, C)
@@ -344,15 +410,15 @@ def compare_kernels(work: Path, batch):
         check(r["max_abs_err"] == 0,
               f"{name} disagrees with its plain version: {r['max_abs_err']}")
 
-    # the whole device map step on one pre-uploaded paired batch (K1 x 2,
-    # the mate concatenation, K2, K3, A1 with the audit): the device's
-    # share of the map stage, without ingest or upload
+    # the whole device map step on one pre-uploaded paired batch (K1 x 2
+    # into one output, K2, K3, A1 with the audit): the device's share of
+    # the map stage, without ingest or upload
     cfg = MapConfig(batch_size=B, sig_table_bits=22, paired_end=True)
     step_ms = cuda_ms(lambda: map_step(
         di, cfg, tables[0], mates[0][0], mates[0][2], weights,
         codes2=mates[1][0], lengths2=mates[1][2], bad=mates[0][1],
         bad2=mates[1][1], pad_len=L, audit=True), 20)
-    log(f"[map step] one paired batch on the card: {step_ms:.4f} ms, "
+    log(f"[map step] one paired batch on the card: {step_ms:.6f} ms, "
         f"{B / step_ms * 1e3:.0f} pairs/s of device time")
     del di
     torch.cuda.empty_cache()

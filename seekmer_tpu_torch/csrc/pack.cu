@@ -7,58 +7,179 @@
 // never written to device memory.
 //
 // What bounds it on Hopper: per window it writes 9 bytes (hi, lo, valid)
-// and reads k 2-bit bases; neighbouring threads read overlapping bytes of
-// one row, which L1 serves. The output's device-memory floor is 61 MB for
-// 65,536 x 104 windows, about 18 us at 3.35 TB/s, but the kernel measures
-// about 20x that: it is bound by its per-window loop of k byte loads and
-// bit operations (one thread per window, no reuse between neighbouring
-// windows). A rolling form that shifts one base in per window is the
-// later optimisation.
+// and reads a quarter byte; 65,536 x 104 windows write 61 MB, about 18 us
+// at 3.35 TB/s. The first form (one thread per window, a loop of k byte
+// loads and a dozen bit operations per base, ~350 operations a window) was
+// bound by instructions at ~20x that. This form does each window in closed
+// form, with no loop over k:
+//
+//   - a block stages a tile of rows' packed and bad bytes in shared memory
+//     with 16-byte loads, at their global alignment so the interior moves
+//     as int4 for any row stride (any L), and its rows' lengths;
+//   - a thread takes 4 consecutive windows of a row, consecutive threads
+//     the next 4, so the stores of hi, lo and valid are coalesced 16-, 16-
+//     and 4-byte stores where the output's layout allows;
+//   - base j sits at bit 2j of the row read as little-endian words, so the
+//     32 bases from the quad's first window are W, a funnel shift of three
+//     32-bit words, and window q of the quad is W >> 2q masked to 2k bits
+//     (2k <= 58); the quad's k + 3 bad bits are a funnel shift of two
+//     words of the bitmask, spread to 2-bit groups and cleared from W (bad
+//     bases pack as A, as the plain version packs them);
+//   - W holds base i at bits 2i, which is where the reverse complement
+//     wants base i complemented: R = ~(W >> 2q) & mask(2k). The forward
+//     value F (base 0 in the top group) reverses the 2-bit groups: with
+//     Bs = __brevll(W with the bits of each pair swapped), computed once a
+//     quad, F = (Bs << 2q) >> (64 - 2k);
+//   - canonical = min(F, R) as 2k-bit integers, which is the plain
+//     version's (hi, lo) lexicographic rule since hi is the top
+//     2 * (k / 2) bits; hi = canon >> 2 n_lo, lo = the low 2 n_lo bits.
+//
+// That is ~30 operations a window, the quad's loads and reversal shared.
+//
+// Paired batches write both mates into one [B, W] output: the kernel takes
+// the output's row stride and a column offset, so the map step needs no
+// concatenation of the mates.
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void pack_kernel(const uint8_t* __restrict__ packed,
-                            const uint8_t* __restrict__ bad,
-                            const int32_t* __restrict__ lengths,
-                            int32_t* __restrict__ hi_out,
-                            int32_t* __restrict__ lo_out,
-                            uint8_t* __restrict__ valid_out, int64_t B,
-                            int64_t L, int64_t P, int k) {
-  int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * P) return;
-  int64_t b = idx / P;
-  int p = (int)(idx - b * P);
-  const uint8_t* prow = packed + b * ((L + 3) / 4);
-  const uint8_t* brow = bad + b * ((L + 7) / 8);
-  const int n_hi = k / 2;
-  const int n_lo = k - n_hi;
-  uint32_t hf = 0, lf = 0, hr = 0, lr = 0;
-  bool any_bad = false;
-  for (int i = 0; i < k; ++i) {
-    int j = p + i;
-    uint32_t c = (prow[j >> 2] >> (2 * (j & 3))) & 3u;
-    bool is_bad = (brow[j >> 3] >> (j & 7)) & 1u;
-    any_bad |= is_bad;
-    uint32_t s = is_bad ? 0u : c;  // invalid bases pack as A, like the jnp form
-    if (i < n_hi) {
-      hf |= s << (2 * (n_hi - 1 - i));
+constexpr int kThreads = 256;
+// Windows a block takes: its rows are as many as fill this, 1 to 1024.
+constexpr int kWindowsPerBlock = 4096;
+
+__host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
+
+// Bytes of a shared region holding `n` bytes staged at an offset of up to 15
+// (see `stage`), plus the 12 bytes the window reads may run past their row
+// (whatever they find there is masked off).
+__host__ __device__ inline int region(int n) { return round16(15 + n + 16); }
+
+// Copies the n bytes at src into dst (16-byte aligned shared memory) at
+// offset a = src & 15, so 16-byte aligned global chunks land on 16-byte
+// aligned shared ones: the interior moves as int4, the two edge chunks
+// byte by byte so nothing outside [src, src + n) is read. Returns a.
+__device__ __forceinline__ int stage(uint8_t* dst, const uint8_t* src, int n) {
+  const int a = (int)((uintptr_t)src & 15);
+  const int chunks = (a + n + 15) >> 4;
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    if (c > 0 && c < chunks - 1) {
+      reinterpret_cast<int4*>(dst)[c] =
+          __ldg(reinterpret_cast<const int4*>(src - a) + c);
     } else {
-      lf |= s << (2 * (n_lo - 1 - (i - n_hi)));
-    }
-    int r = k - 1 - i;  // reverse-complement base r reads position i
-    uint32_t rc = 3u - s;
-    if (r < n_hi) {
-      hr |= rc << (2 * (n_hi - 1 - r));
-    } else {
-      lr |= rc << (2 * (n_lo - 1 - (r - n_hi)));
+      for (int b = 0; b < 16; ++b) {
+        int i = c * 16 + b - a;
+        if (i >= 0 && i < n) dst[c * 16 + b] = src[i];
+      }
     }
   }
-  bool use_f = (hf < hr) || (hf == hr && lf <= lr);
-  hi_out[idx] = (int32_t)(use_f ? hf : hr);
-  lo_out[idx] = (int32_t)(use_f ? lf : lr);
-  valid_out[idx] = (p + k <= lengths[b]) && !any_bad;
+  return a;
+}
+
+// Bit i of x moves to bit 2i.
+__device__ __forceinline__ uint64_t spread2(uint32_t x) {
+  uint64_t v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  return (v | (v << 1)) & 0x5555555555555555ull;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad,
+            const int32_t* __restrict__ lengths, int32_t* __restrict__ hi_out,
+            int32_t* __restrict__ lo_out, uint8_t* __restrict__ valid_out,
+            int64_t B, int L, int k, int rows_per_block, int64_t out_stride,
+            int64_t out_col, bool vec) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int P = L - k + 1;
+  const int Q = (P + 3) >> 2;   // quads of windows a row
+  const int Sp = (L + 3) >> 2;  // packed bytes a row
+  const int Sb = (L + 7) >> 3;  // bad-bitmask bytes a row
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int R = (int)min((long long)rows_per_block, (long long)(B - r0));
+
+  uint8_t* s_pk = smem;
+  uint8_t* s_bd = s_pk + region(rows_per_block * Sp);
+  int32_t* s_len =
+      reinterpret_cast<int32_t*>(s_bd + region(rows_per_block * Sb));
+  const int a_pk = stage(s_pk, packed + r0 * Sp, R * Sp);
+  const int a_bd = stage(s_bd, bad + r0 * Sb, R * Sb);
+  for (int i = threadIdx.x; i < R; i += blockDim.x) s_len[i] = lengths[r0 + i];
+  __syncthreads();
+
+  const uint32_t* pw = reinterpret_cast<const uint32_t*>(s_pk);
+  const uint32_t* bw = reinterpret_cast<const uint32_t*>(s_bd);
+  const int lo_bits = 2 * (k - k / 2);
+  const uint64_t mask2k = (1ull << (2 * k)) - 1;
+  const uint32_t maskk = (1u << k) - 1;
+  const uint32_t mask_quad = 0xffffffffu >> (29 - k);  // k + 3 bad bits
+
+  // a thread takes the 4 windows p0..p0+3 of row r: quad t of the tile is
+  // (row t / Q, p0 = 4 (t % Q)), kept incrementally
+  int r = threadIdx.x / Q, p0 = 4 * (threadIdx.x % Q);
+  const int dr = kThreads / Q, dp = 4 * (kThreads % Q);
+  for (int t = threadIdx.x; t < R * Q; t += kThreads) {
+    // the 32 bases from p0 (byte p0 / 4 of the row) and their k + 3 bad
+    // bits, which cover the quad's windows
+    const uint32_t X = 8u * (a_pk + r * Sp + (p0 >> 2));
+    const uint32_t i = X >> 5, s = X & 31;
+    const uint32_t w0 = pw[i], w1 = pw[i + 1], w2 = pw[i + 2];
+    uint64_t W = (uint64_t)__funnelshift_r(w1, w2, s) << 32 |
+                 __funnelshift_r(w0, w1, s);
+    const uint32_t Y = 8u * (a_bd + r * Sb) + p0;
+    const uint32_t j = Y >> 5;
+    const uint32_t nb =
+        __funnelshift_r(bw[j], bw[j + 1], Y & 31) & mask_quad;
+    const uint64_t g = spread2(nb);
+    W &= ~(g | (g << 1));  // bad bases pack as A
+    // the forward strand of window q is the bit reversal of W's 2-bit
+    // groups from q on: with Bs = brev(W, pairs swapped), the top 2k bits
+    // of Bs << 2q
+    uint64_t Bs =
+        ((W >> 1) & 0x5555555555555555ull) | ((W & 0x5555555555555555ull) << 1);
+    Bs = __brevll(Bs);
+    const int len = s_len[r];
+
+    int32_t h[4], l[4];
+    uint8_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint64_t Rc = ~(W >> (2 * q)) & mask2k;  // reverse complement
+      const uint64_t F = (Bs << (2 * q)) >> (64 - 2 * k);
+      const uint64_t canon = F <= Rc ? F : Rc;
+      h[q] = (int32_t)(canon >> lo_bits);
+      l[q] = (int32_t)(canon & ((1ull << lo_bits) - 1));
+      v[q] = (p0 + q + k <= len) && ((nb >> q) & maskk) == 0;
+    }
+
+    const int64_t o = (r0 + r) * out_stride + out_col + p0;
+    if (vec && p0 + 4 <= P) {
+      *reinterpret_cast<int4*>(hi_out + o) = make_int4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<int4*>(lo_out + o) = make_int4(l[0], l[1], l[2], l[3]);
+      *reinterpret_cast<uchar4*>(valid_out + o) =
+          make_uchar4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (p0 + q < P) {
+          hi_out[o + q] = h[q];
+          lo_out[o + q] = l[q];
+          valid_out[o + q] = v[q];
+        }
+      }
+    }
+
+    r += dr;
+    p0 += dp;
+    if (p0 >= 4 * Q) {
+      p0 -= 4 * Q;
+      ++r;
+    }
+  }
 }
 
 }  // namespace
@@ -67,15 +188,30 @@ extern "C" int seekmer_pack_canonical(const void* packed, const void* bad,
                                       const void* lengths, void* hi, void* lo,
                                       void* valid, void* stream,
                                       int64_t device, int64_t B, int64_t L,
-                                      int64_t k) {
+                                      int64_t k, int64_t out_stride,
+                                      int64_t out_col) {
   cudaSetDevice((int)device);
-  int64_t P = L - k + 1;
-  if (B * P > 0) {
-    const int threads = 256;
-    pack_kernel<<<seekmer::grid_for(B * P, threads), threads, 0,
-                  (cudaStream_t)stream>>>(
-        (const uint8_t*)packed, (const uint8_t*)bad, (const int32_t*)lengths,
-        (int32_t*)hi, (int32_t*)lo, (uint8_t*)valid, B, L, P, (int)k);
+  const int64_t P = L - k + 1;
+  if (B <= 0 || P <= 0) return (int)cudaGetLastError();
+  const int rows =
+      (int)std::max<int64_t>(1, std::min<int64_t>(1024, kWindowsPerBlock / P));
+  // 16-byte stores of a quad's hi and lo, 4 of its valid bytes, where
+  // every quad of the output starts on such a boundary
+  const bool vec = out_stride % 4 == 0 && out_col % 4 == 0 &&
+                   (uintptr_t)hi % 16 == 0 && (uintptr_t)lo % 16 == 0 &&
+                   (uintptr_t)valid % 4 == 0;
+  const int Sp = (int)((L + 3) / 4), Sb = (int)((L + 7) / 8);
+  const size_t smem =
+      (size_t)region(rows * Sp) + region(rows * Sb) + 4 * (size_t)rows;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  pack_kernel<<<seekmer::grid_for(B, rows), kThreads, smem,
+                (cudaStream_t)stream>>>(
+      (const uint8_t*)packed, (const uint8_t*)bad, (const int32_t*)lengths,
+      (int32_t*)hi, (int32_t*)lo, (uint8_t*)valid, B, (int)L, (int)k, rows,
+      out_stride, out_col, vec);
   return (int)cudaGetLastError();
 }

@@ -110,21 +110,24 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
              bad2=None, pad_len: int | None = None,
              audit: bool | None = None) -> SigTable:
     """One dense mapping step on 2-bit packed reads (``pad_len`` is the
-    unpacked padded length). Paired reads concatenate both mates' windows
-    into one lookup and take the union of their EC hits."""
+    unpacked padded length). Paired reads pack both mates' windows side by
+    side into one (B, 2P) lookup and take the union of their EC hits."""
     check_map_config(cfg)
     if pad_len is None:
         raise ValueError("map_step takes 2-bit packed reads (pad_len set)")
     if audit is None:
         audit = cfg.collision_audit
-    hi, lo, valid = pack_cuda.pack_canonical_2bit(codes, bad, lengths,
-                                                  pad_len, di.k)
+    out, P = None, max(pad_len - di.k + 1, 0)
     if codes2 is not None:
-        hi2, lo2, valid2 = pack_cuda.pack_canonical_2bit(
-            codes2, bad2, lengths2, pad_len, di.k)
-        hi = torch.cat([hi, hi2], dim=1)
-        lo = torch.cat([lo, lo2], dim=1)
-        valid = torch.cat([valid, valid2], dim=1)
+        shape = (codes.shape[0], 2 * P)
+        out = (torch.empty(shape, dtype=torch.int32, device=codes.device),
+               torch.empty(shape, dtype=torch.int32, device=codes.device),
+               torch.empty(shape, dtype=torch.bool, device=codes.device))
+    hi, lo, valid = pack_cuda.pack_canonical_2bit(codes, bad, lengths,
+                                                  pad_len, di.k, out=out)
+    if codes2 is not None:
+        pack_cuda.pack_canonical_2bit(codes2, bad2, lengths2, pad_len, di.k,
+                                      out=out, offset=P)
     ecs = probe_cuda.lookup_ecs(hi, lo, valid, di.table, di.main_slots,
                                 di.stash, di.stash_slots, di.bucket)
     sig, mapped = sig_cuda.read_signatures(ecs, valid, cfg.max_ecs_per_read)

@@ -6,9 +6,13 @@ and ``lookup_ecs_pallas``). The JAX form is shaped by what Mosaic could not
 do: the transposed ``(128, NC)`` lane layout, the masked-reduction column
 extraction, the ``(N, 128)`` gathered rows round-tripping device memory,
 and the block-compacted stash rounds of ``probe._lookup_flat``. The kernel
-drops all of it: one warp per key hashes, reads its home row coalesced,
-matches across the warp, and probes the stash itself. It is bounded by
-random 128-byte row reads from a table far larger than L2.
+drops all of it. A warp owns 32 consecutive lanes: each lane hashes its own
+key, the warp loads the hi slabs of its 32 home rows in 16-byte vectors
+with all loads in flight before any compare, decides from them which slots
+match the key's hi and whether the row has an empty slot, and reads lo and
+ecaux only of the hi-matching slots; a key absent from a full row probes
+its stash row the same way. It is bounded by random row reads from a table
+far larger than L2.
 """
 
 from __future__ import annotations
@@ -27,9 +31,9 @@ def lookup_ecs_aux(hi, lo, valid, table, main_slots: int, stash,
     if hi.device.type == "cpu":
         return plain(hi, lo, valid, table, main_slots, stash, stash_slots,
                      bucket)
-    if bucket > 32:
-        raise ValueError(f"the lookup kernel takes buckets of <= 32 slots, "
-                         f"got {bucket}")
+    if not 1 <= bucket <= 32 or bucket & (bucket - 1):
+        raise ValueError(f"the lookup kernel takes buckets of a power of two "
+                         f"<= 32 slots, got {bucket}")
     if table.shape[1] != 4 * bucket or stash.shape[1] != 4 * bucket:
         raise ValueError("tables must be in the (n_buckets, 4*bucket) slab "
                          "layout (probe.device_table_layout)")
@@ -40,6 +44,9 @@ def lookup_ecs_aux(hi, lo, valid, table, main_slots: int, stash,
     lo_f = lo.reshape(-1)
     v_f = valid.reshape(-1).to(torch.bool)
     _build.require_cuda("lookup_ecs_aux", hi_f, lo_f, v_f, table, stash)
+    if table.data_ptr() % 16 or stash.data_ptr() % 16:
+        raise ValueError("tables must start on a 16-byte boundary (the "
+                         "kernel reads their rows as 16-byte vectors)")
     N = hi_f.shape[0]
     ec = torch.empty(N, dtype=torch.int32, device=hi.device)
     aux = torch.empty_like(ec)

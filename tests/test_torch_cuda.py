@@ -28,11 +28,14 @@ from seekmer_tpu_torch.ops import (
     probe_cuda,
     sig_cuda,
 )
+from seekmer_tpu_torch.ops.probe import device_table_layout
 from seekmer_tpu_torch.utils.simulate import (
     random_transcriptome,
     simulate_packed_batches,
     simulate_packed_pairs,
 )
+from tests.synthetic_buckets import (check_expected, hi_collision_tables,
+                                     query_lanes)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,24 +68,51 @@ def _eq(a, b):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("k,L", [(25, 128), (29, 70), (21, 512)])
-def test_pack_kernel(dev, k, L):
-    r = np.random.default_rng(k)
-    B = 3000
+def _pack_inputs(dev, B, L, k, seed):
+    r = np.random.default_rng(seed)
     codes = r.integers(0, 4, size=(B, L)).astype(np.uint8)
     codes[r.random((B, L)) < 0.02] = 4
-    lengths = r.integers(k - 2, L + 1, size=B).astype(np.int32)
+    lengths = r.integers(max(k - 2, 0), L + 1, size=B).astype(np.int32)
     for i, n in enumerate(lengths):
         codes[i, n:] = 4
     packed, bad = (torch.from_numpy(a).to(dev)
                    for a in enc.pack_codes_2bit(codes))
-    ln = torch.from_numpy(lengths).to(dev)
+    return packed, bad, torch.from_numpy(lengths).to(dev)
+
+
+# L = 70, 101 and 37 are not multiples of 8 (nor 70 and 37 of 4): rows
+# start off 16-byte boundaries, which the kernel's staging must handle
+@pytest.mark.parametrize("k,L", [(25, 128), (29, 70), (21, 512), (25, 101),
+                                 (3, 37), (1, 9)])
+def test_pack_kernel(dev, k, L):
+    packed, bad, ln = _pack_inputs(dev, 3000, L, k, seed=k)
     before = pack_cuda.pack_canonical_2bit.launches
     got = pack_cuda.pack_canonical_2bit(packed, bad, ln, L, k)
     torch.cuda.synchronize()
     assert pack_cuda.pack_canonical_2bit.launches == before + 1
     for g, w in zip(got, pack_cuda.plain(packed, bad, ln, L, k)):
         _eq(g, w)
+
+
+@pytest.mark.parametrize("k,L", [(25, 128), (25, 101), (3, 37)])
+def test_pack_kernel_out_and_offset(dev, k, L):
+    """Two mates written into one (B, 2P) output equal the plain version
+    filling the same slices, and the concatenation of separate calls."""
+    B, P = 2999, L - k + 1
+    mates = [_pack_inputs(dev, B, L, k, seed=s) for s in (1, 2)]
+    outs = []
+    for fn in (pack_cuda.pack_canonical_2bit, pack_cuda.plain):
+        out = (torch.full((B, 2 * P), 7, dtype=torch.int32, device=dev),
+               torch.full((B, 2 * P), 7, dtype=torch.int32, device=dev),
+               torch.zeros((B, 2 * P), dtype=torch.bool, device=dev))
+        for i, m in enumerate(mates):
+            assert fn(*m, L, k, out=out, offset=i * P) is out
+        outs.append(out)
+    apart = [pack_cuda.pack_canonical_2bit(*m, L, k) for m in mates]
+    torch.cuda.synchronize()
+    for g, w, a, b in zip(*outs, *apart):
+        _eq(g, w)
+        _eq(g, torch.cat([a, b], dim=1))
 
 
 @pytest.mark.parametrize("which", ["default", "stash"])
@@ -120,6 +150,26 @@ def test_lookup_kernel(dev, world, which):
         _eq(got[1], want[1])
     if which == "stash":
         assert index.stash[:, 0].max() >= 0  # stash keys were exercised
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+def test_lookup_kernel_hi_collisions(dev, G):
+    """Synthetic buckets whose slots share a key's hi but not its lo (the
+    true key behind two such slots, a full row sending the key to the
+    stash, a row with an empty slot keeping it MISS though the stash holds
+    it), at every bucket size the kernel takes."""
+    table, stash, queries = hi_collision_tables(G, seed=G)
+    hi, lo, valid = (torch.from_numpy(a).to(dev) for a in query_lanes(queries))
+    geo = (torch.from_numpy(device_table_layout(table, G)).to(dev),
+           table.shape[0],
+           torch.from_numpy(device_table_layout(stash, G)).to(dev),
+           stash.shape[0], G)
+    got = probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo)
+    want = probe_cuda.plain(hi, lo, valid, *geo)
+    torch.cuda.synchronize()
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    check_expected(queries, got[0].cpu().numpy(), got[1].cpu().numpy())
 
 
 @pytest.mark.parametrize("B,P,C", [(4099, 208, 16), (1000, 976, 16),
