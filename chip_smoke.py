@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (seekmer_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--keep-inputs PATH]
+
+(``--keep-inputs`` also writes K3's inputs of the config-2 batch to PATH,
+for ``python -m seekmer_tpu_torch.utils.kernel_ab``.)
 
 Phases; any failure exits non-zero:
 
@@ -18,7 +21,13 @@ Phases; any failure exits non-zero:
    TFLOP/s; for K4 the operations on M's nonzeros): K1 pack (one mate,
    and both mates into one output), K2 lookup, K3 signature and A1
    accumulate at the shapes of one paired config-2 batch, K2 also on one
-   config-1 batch (a table that mostly sits in L2); K4 dense EM at the
+   config-1 batch (a table that mostly sits in L2); K3 also on the rows of
+   ``tests/synthetic_signatures.py`` (both of its paths), with the
+   run-head histogram of both batches; A1 also on a table pre-seeded with
+   a colliding key, timed as claim alone and claim plus audit, empty
+   table and steady state, beside an empty launch of its grid and its
+   host enqueue (K3's and A1's device times with the card kept busy while
+   the host enqueues, ``utils/kernel_ab.py``); K4 dense EM at the
    config-1 bootstrap shapes (the world's ECs, 100 resampled replicates)
    and at R = 1, to convergence and for the same
    fixed iteration count (with a TF32 control of the plain version that
@@ -273,7 +282,76 @@ def check_lookup(tag, index, di, hi, lo, valid):
     return rec, got
 
 
-def compare_kernels(work: Path, batches):
+def log_heads(tag, ecs, valid) -> None:
+    """K3's run-head histogram of one batch: the share of reads it serves
+    from one 32-wide sort of their heads, and the largest head count."""
+    from seekmer_tpu_torch.utils import kernel_ab
+
+    h = kernel_ab.head_summary(ecs, valid)
+    log(f"[K3 heads {tag}] {h['reads']} reads of {ecs.shape[1]} windows: "
+        f"{h['share_le_32']:.6f} with <= 32 run heads (one 32-wide sort), "
+        f"largest {h['max']}, mean {h['mean']:.3f}")
+
+
+def check_sig_rows(dev) -> int:
+    """K3 against its plain version on the rows of
+    tests/synthetic_signatures.py (32 and 33 run heads, every window a head,
+    ids recurring after a miss, ...) at W 256 and 1,024 and at P 101 (one
+    window a load); returns the largest difference."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch.ops import sig_cuda
+    from tests.synthetic_signatures import adversarial_rows
+
+    err = 0
+    for P in (208, 976, 101):
+        ecs, valid = adversarial_rows(P, 16, seed=P)
+        reps = 2048 // ecs.shape[0] + 1
+        e = torch.from_numpy(np.tile(ecs, (reps, 1))).to(dev)
+        v = torch.from_numpy(np.tile(valid, (reps, 1))).to(dev)
+        got = sig_cuda.read_signatures(e, v, 16)
+        ref = sig_cuda.plain(e, v, 16)
+        err = max(err, *(max_abs_diff(g, r) for g, r in zip(got, ref)))
+    return err
+
+
+def check_forced_collision(sig, mapped, weights, num_ecs) -> int:
+    """A1 against its plain version on tables pre-seeded with a colliding
+    key for one multi-EC signature of the batch (another row stored under
+    its fingerprint), folded twice with the audit on: the collisions must
+    agree and be > 0. Returns the largest difference after the merge."""
+    import numpy as np
+
+    from seekmer_tpu_torch.map.driver import merge_sig_rows
+    from seekmer_tpu_torch.map.signature import (SIG_PAD, make_sig_table,
+                                                 table_to_host)
+    from seekmer_tpu_torch.ops import accumulate_cuda
+    from tests.synthetic_signatures import seed_collision
+
+    x = sig[mapped & (sig[:, 1] != SIG_PAD)][0]
+    merged = []
+    for fold in (accumulate_cuda.fold_batch, accumulate_cuda.plain):
+        t = make_sig_table(22, sig.shape[1], num_ecs=num_ecs,
+                           device=sig.device)
+        seed_collision(t, x)
+        for _ in range(2):
+            fold(t, sig, mapped, weights=weights)
+        s, c = table_to_host(t)
+        merged.append(merge_sig_rows(s, c, 0, int(t.overflow),
+                                     int(t.collisions)))
+    mk, mp = merged
+    check(np.array_equal(mk.sigs, mp.sigs), "A1 merged signatures differ "
+          "on the colliding table")
+    check(mk.collisions > 0, "A1: the seeded collision was not counted")
+    log(f"[A1 accumulate] pre-seeded colliding table, two folds: collisions "
+        f"{mk.collisions} (plain {mp.collisions})")
+    return max(int(np.abs(mk.sig_counts - mp.sig_counts).max(initial=0)),
+               abs(mk.collisions - mp.collisions),
+               abs(mk.overflow - mp.overflow))
+
+
+def compare_kernels(work: Path, batches, keep_inputs=None):
     """Each kernel against its plain version at one paired config-2 batch's
     shapes, with the bytes each must move at the least (each input read
     once, each output written once; for the table kernels, what this
@@ -289,6 +367,7 @@ def compare_kernels(work: Path, batches):
                                               merge_sig_rows)
     from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
     from seekmer_tpu_torch.ops import accumulate_cuda, pack_cuda, sig_cuda
+    from seekmer_tpu_torch.utils import kernel_ab
 
     dev = torch.device(DEVICE)
     L = 128  # 100 bp reads sit in the 128 length bucket
@@ -299,8 +378,9 @@ def compare_kernels(work: Path, batches):
     di = DeviceIndex.from_host(index, dev)
     c1_lanes = pack_cuda.pack_canonical_2bit(
         *upload_mate(batches[0], L, dev), L, index.k)
-    c1 = check_lookup("config 1", index, di, *c1_lanes)[0]
-    del di, c1_lanes
+    c1, c1_got = check_lookup("config 1", index, di, *c1_lanes)
+    log_heads("config 1", c1_got[0], c1_lanes[2])
+    del di, c1_lanes, c1_got
 
     index = KMerIndex.load(str(work / "c2.npz"))
     di = DeviceIndex.from_host(index, dev)
@@ -339,16 +419,25 @@ def compare_kernels(work: Path, batches):
           f"config 1: {c1['max_abs_err']}")
     ecs = got[0]
     C = 16
+    if keep_inputs:
+        torch.save({"ecs": ecs.cpu(), "valid": valid.cpu(), "max_ecs": C,
+                    "num_ecs": index.num_ecs}, keep_inputs)
+    log_heads("config 2", ecs, valid)
     got = sig_cuda.read_signatures(ecs, valid, C)
     ref = sig_cuda.plain(ecs, valid, C)
     err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
+    err = max(err, check_sig_rows(dev))
+    k3 = kernel_ab.time_k3(ecs, valid, C)
     out["K3"] = record(
-        err, cuda_ms(lambda: sig_cuda.read_signatures(ecs, valid, C), 50),
-        cuda_ms(lambda: sig_cuda.plain(ecs, valid, C), 10),
+        err, k3["ms"], cuda_ms(lambda: sig_cuda.plain(ecs, valid, C), 10),
         nbytes(ecs, valid, *got) / HBM_BYTES_S, "bytes")
-    log(f"[K3 signature] [{B}, {ecs.shape[1]}] C={C}: max_abs_err {err}, "
-        f"kernel {out['K3']['ms']:.4f} ms, plain {out['K3']['plain_ms']:.4f} "
-        f"ms, bound {out['K3']['bound_ms']:.4f} ms")
+    log(f"[K3 signature] [{B}, {ecs.shape[1]}] C={C}: max_abs_err {err} "
+        f"(this batch and the adversarial rows), kernel "
+        f"{out['K3']['ms']:.6f} ms (device time; back to back "
+        f"{cuda_ms(lambda: sig_cuda.read_signatures(ecs, valid, C), 50):.6f}"
+        f" ms), host enqueue {k3['host_us']:.3f} us, plain "
+        f"{out['K3']['plain_ms']:.6f} ms, bound {out['K3']['bound_ms']:.6f} ms"
+        f" (share {out['K3']['bound_ms'] / out['K3']['ms']:.6f})")
 
     sig, mapped = got
     weights = torch.ones(B, dtype=torch.int32, device=dev)
@@ -386,26 +475,40 @@ def compare_kernels(work: Path, batches):
                  .numel())
     a1_bytes = (nbytes(sig, mapped, weights) + 4 * B
                 + multi_rows * (8 + 4 + 4 * C) + single * 4)
+    err = max(err, check_forced_collision(sig, mapped, weights,
+                                          index.num_ecs))
+    a1 = kernel_ab.time_a1(sig, mapped, weights, index.num_ecs)
     out["A1"] = record(
-        err,
-        cuda_ms_each(fresh, lambda t: accumulate_cuda.fold_batch(
-            t, sig, mapped, weights=weights), 20),
+        err, a1["claim_audit_ms"],
         cuda_ms_each(fresh, lambda t: accumulate_cuda.plain(
             t, sig, mapped, weights=weights), 5),
         a1_bytes / HBM_BYTES_S, "bytes")
+    # events around each call, the wrapper's host time included when it
+    # exceeds what the card has queued (this kernel's earlier timing)
+    events = cuda_ms_each(fresh, lambda t: accumulate_cuda.fold_batch(
+        t, sig, mapped, weights=weights), 20)
     # steady state: the batch's signatures are already in both tables, so
     # every lane takes the matching path and none claims a slot
-    steady = (cuda_ms(lambda: accumulate_cuda.fold_batch(
-                  tables[0], sig, mapped, weights=weights), 20),
-              cuda_ms(lambda: accumulate_cuda.plain(
-                  tables[1], sig, mapped, weights=weights), 5))
+    steady_plain = cuda_ms(lambda: accumulate_cuda.plain(
+        tables[1], sig, mapped, weights=weights), 5)
     log(f"[A1 accumulate] {B} reads ({multi} multi-EC) at sig_table_bits=22: "
         f"{mk.sigs.shape[0]} merged signatures, overflow {mk.overflow}, "
-        f"collisions {mk.collisions}; max_abs_err {err}; empty table "
-        f"(claims): kernel {out['A1']['ms']:.4f} ms, plain "
-        f"{out['A1']['plain_ms']:.4f} ms, bound {out['A1']['bound_ms']:.4f} "
-        f"ms; steady state (matching path only): kernel "
-        f"{steady[0]:.4f} ms, plain {steady[1]:.4f} ms")
+        f"collisions {mk.collisions}; max_abs_err {err} (this batch and a "
+        f"pre-seeded colliding table); bound {out['A1']['bound_ms']:.6f} ms")
+    log(f"[A1 accumulate] empty table (claims), device time: claim "
+        f"{a1['claim_ms']:.6f} ms, claim + audit {a1['claim_audit_ms']:.6f} "
+        f"ms (share {out['A1']['bound_ms'] / a1['claim_audit_ms']:.6f}); "
+        f"steady state (matching path only): claim "
+        f"{a1['steady_claim_ms']:.6f} ms, claim + audit "
+        f"{a1['steady_claim_audit_ms']:.6f} ms, claim of the single-EC reads "
+        f"alone {a1['steady_singles_only_ms']:.6f} ms, of the multi-EC reads "
+        f"alone {a1['steady_multi_only_ms']:.6f} ms; empty launch of the "
+        f"same grid {a1['floor_ms']:.6f} ms, cooperative "
+        f"{a1['floor_coop_ms']:.6f} ms; host enqueue {a1['host_us']:.3f} us "
+        f"with the audit, {a1['host_us_no_audit']:.3f} us without; events "
+        f"around each call (host time included) {events:.6f} ms; plain "
+        f"{out['A1']['plain_ms']:.6f} ms on an empty table, "
+        f"{steady_plain:.6f} ms in steady state")
     for name, r in out.items():
         check(r["max_abs_err"] == 0,
               f"{name} disagrees with its plain version: {r['max_abs_err']}")
@@ -950,7 +1053,14 @@ KERNELS = [
 ]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--keep-inputs", metavar="PATH",
+                    help="write K3's inputs of the config-2 batch there, for "
+                    "python -m seekmer_tpu_torch.utils.kernel_ab")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -981,7 +1091,7 @@ def main() -> int:
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "build"))
     try:
-        timing = compare_kernels(work, make_worlds(work))
+        timing = compare_kernels(work, make_worlds(work), args.keep_inputs)
         timing["K4"] = compare_em_kernel(work)
         launches = end_to_end(work)
         profile_stages(work)

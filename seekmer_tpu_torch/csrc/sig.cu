@@ -1,107 +1,255 @@
 // K3: per-read EC signature (sorted distinct EC ids, capped at C).
 //
-// Replaces seekmer_tpu/ops/sig_pallas.py `_sig_kernel` with
-// `_bitonic_sort_rows` (called through `read_signatures_pallas`). The TPU
-// form built its compare-exchange network from pairs of circular lane
-// rolls over a (block, W >= 128) plane and sorted twice, the second time
-// to move the distinct ids to the front. Here one warp owns one read: the
-// row is loaded into shared memory (missed and invalid windows become
-// SIG_PAD, the tail up to the power-of-two width W is SIG_PAD), sorted by
-// a bitonic network with __syncwarp between stages, the first of each run
-// is flagged and counted, and a warp prefix sum over the flags compacts
-// the distinct ids in order, so no second sort is needed. The first C ids
-// are written, padded with SIG_PAD, with mapped = 1 <= n_distinct <= C.
+// Replaces seekmer_tpu/ops/sig_pallas.py `_sig_kernel` with its two
+// `_bitonic_sort_rows` passes (called through `read_signatures_pallas`).
+// The TPU form built a compare-exchange network from pairs of circular lane
+// rolls over a (block, W >= 128) plane and sorted the whole padded row
+// twice, the second time to move the distinct ids to the front.
 //
-// What bounds it on Hopper: shared-memory traffic of the sort,
-// log2(W) (log2(W) + 1) / 2 stages of W/2 compare-exchanges per read
-// (36 stages at W = 256), not device memory (one 5-byte read per window,
-// 68 bytes written per read). Four reads per 128-thread block keep the
-// shared footprint at 4 W int32 (16 KB at the largest W = 1024).
+// What bounds it on Hopper: bytes. A paired config-2 batch (65,536 reads x
+// 208 windows) reads 54.5 MB of ecs and 13.6 MB of valid and writes 4.2 MB
+// of signatures, ~72 MB, 0.0216 ms at 3.35 TB/s. Sorting 208 values a read
+// (the first port: 36 bitonic stages in shared memory) made it bound by
+// shared memory and instruction issue instead, to find what is almost
+// always 1-5 distinct ids: consecutive k-mers of a read fall in the same EC
+// except at junctions and misses.
+//
+// The design. One warp owns one read and holds its windows in registers,
+// NV a lane (NV = 8 at W = 256, up to 32 at the widest row, P = 1,024):
+//
+//  * Loads: with P % 4 == 0 and aligned rows (both configs), lane l loads
+//    windows 128 g + 4 l .. + 3 of group g as one 16-byte vector of ecs
+//    and one 4-byte word of valid; otherwise window 32 g + l, one by one.
+//    Either way a lane's windows follow the row's order. A missed (< 0) or
+//    invalid window becomes SIG_PAD, as in the plain version.
+//  * Run heads: a window is a head when it is not SIG_PAD and differs from
+//    the window before it (from the lane before, `__shfl_up_sync`, or from
+//    lane 31's previous group). Every distinct id heads at least one run; an
+//    id that recurs after a miss heads two, and the sort below drops the
+//    copy. H, the warp's head count, comes from a warp scan of per-lane
+//    counts.
+//  * H <= 32 (nearly every read): the heads are compacted one to a lane
+//    through 128 bytes of shared memory, sorted by a 15-step
+//    `__shfl_xor_sync` bitonic network, and every value equal to its left
+//    neighbour is dropped; a ballot ranks the rest, and lanes < C store the
+//    signature row as one coalesced run (64 bytes at C = 16).
+//  * H > 32 (rare; exact all the same): the heads, SIG_PAD elsewhere, are
+//    sorted in registers, the whole 32 NV values: in-lane compare-exchanges
+//    while the stride is below NV, `__shfl_xor_sync` above. Distinct ids are
+//    flagged against their left neighbour and compacted by a warp scan.
+//    The warp picks its path itself; nothing falls back to a library sort.
+//
+// mapped = 1 <= n_distinct <= C; the first C distinct ids are written even
+// when there are more (the plain version's `sort(distinct)[:, :C]`).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int READS_PER_BLOCK = 4;
+constexpr int WARPS = 8;  // reads a 256-thread block
+constexpr uint32_t FULL = 0xffffffffu;
+constexpr int32_t NONE = -1;  // "no window before": never a masked value
 
-__global__ void sig_kernel(const int32_t* __restrict__ ecs,
-                           const uint8_t* __restrict__ valid,
-                           int32_t* __restrict__ sig,
-                           uint8_t* __restrict__ mapped, int64_t B, int P,
-                           int W, int C) {
-  extern __shared__ int32_t smem[];
+// One bitonic compare-exchange step over the warp's 32 NV values, value k
+// of lane l being element l NV + k.
+template <int NV, int SIZE, int STRIDE>
+__device__ __forceinline__ void sort_step(int32_t (&x)[NV], int lane) {
+  if constexpr (STRIDE < NV) {  // both elements in this lane
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if ((k & STRIDE) == 0) {
+        const bool up = ((lane * NV + k) & SIZE) == 0;
+        const int32_t a = x[k], b = x[k | STRIDE];
+        x[k] = up ? min(a, b) : max(a, b);
+        x[k | STRIDE] = up ? max(a, b) : min(a, b);
+      }
+    }
+  } else {  // partner in lane l ^ (STRIDE / NV), same k
+    const bool lower = (lane & (STRIDE / NV)) == 0;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const bool up = ((lane * NV + k) & SIZE) == 0;
+      const int32_t y = __shfl_xor_sync(FULL, x[k], STRIDE / NV);
+      x[k] = (lower == up) ? min(x[k], y) : max(x[k], y);
+    }
+  }
+}
+
+template <int NV, int SIZE, int STRIDE = SIZE / 2>
+__device__ __forceinline__ void sort_merge(int32_t (&x)[NV], int lane) {
+  sort_step<NV, SIZE, STRIDE>(x, lane);
+  if constexpr (STRIDE > 1) sort_merge<NV, SIZE, STRIDE / 2>(x, lane);
+}
+
+// Ascending bitonic sort of the warp's 32 NV values (element l NV + k).
+template <int NV, int SIZE = 2>
+__device__ __forceinline__ void warp_sort(int32_t (&x)[NV], int lane) {
+  sort_merge<NV, SIZE>(x, lane);
+  if constexpr (SIZE < 32 * NV) warp_sort<NV, SIZE * 2>(x, lane);
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(FULL, v, d);
+    if (lane >= d) v += t;
+  }
+  return v;
+}
+
+__device__ __forceinline__ int32_t masked(int32_t e, uint32_t ok) {
+  return ok && e >= 0 ? e : seekmer::SIG_PAD;
+}
+
+// NV windows a lane; G = 4: 16-byte groups (P % 4 == 0, aligned rows),
+// G = 1: one window a load.
+template <int NV, int G>
+__global__ void __launch_bounds__(WARPS * 32)
+    sig_kernel(const int32_t* __restrict__ ecs,
+               const uint8_t* __restrict__ valid, int32_t* __restrict__ sig,
+               uint8_t* __restrict__ mapped, int64_t B, int P, int C) {
+  __shared__ int32_t stage[WARPS][32];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t b = (int64_t)blockIdx.x * READS_PER_BLOCK + warp;
-  if (b >= B) return;  // uniform across the warp; only __syncwarp is used
-  int32_t* s = smem + warp * W;
+  const int64_t b = (int64_t)blockIdx.x * WARPS + warp;
+  if (b >= B) return;  // uniform across the warp
+  int32_t* s = stage[warp];
   const int32_t* erow = ecs + b * P;
   const uint8_t* vrow = valid + b * P;
-  for (int i = lane; i < W; i += 32) {
-    int32_t v = seekmer::SIG_PAD;
-    if (i < P) {
-      int32_t e = erow[i];
-      if (vrow[i] && e >= 0) v = e;
-    }
-    s[i] = v;
-  }
-  __syncwarp();
-  for (int size = 2; size <= W; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < W / 2; t += 32) {
-        int i = 2 * t - (t & (stride - 1));  // lower index of pair t
-        int j = i + stride;
-        bool ascending = (i & size) == 0;
-        int32_t a = s[i], c = s[j];
-        if ((a > c) == ascending) {
-          s[i] = c;
-          s[j] = a;
-        }
+
+  int32_t v[NV];
+#pragma unroll
+  for (int g = 0; g < NV / G; ++g) {
+    const int pos = g * 32 * G + lane * G;  // this lane's first window of g
+    if constexpr (G == 4) {
+      int4 e = make_int4(NONE, NONE, NONE, NONE);
+      uint32_t ok = 0;
+      if (pos < P) {
+        e = *reinterpret_cast<const int4*>(erow + pos);
+        ok = *reinterpret_cast<const uint32_t*>(vrow + pos);
       }
-      __syncwarp();
+      v[4 * g + 0] = masked(e.x, ok & 0xffu);
+      v[4 * g + 1] = masked(e.y, ok & 0xff00u);
+      v[4 * g + 2] = masked(e.z, ok & 0xff0000u);
+      v[4 * g + 3] = masked(e.w, ok & 0xff000000u);
+    } else {
+      v[g] = pos < P ? masked(erow[pos], vrow[pos]) : seekmer::SIG_PAD;
     }
   }
-  // each lane owns a contiguous chunk of the sorted row
-  const int chunk = W / 32;
-  const int lo = lane * chunk;
-  int n = 0;
-  for (int i = lo; i < lo + chunk; ++i) {
-    int32_t v = s[i];
-    n += (v != seekmer::SIG_PAD) && (i == 0 || v != s[i - 1]);
+
+  // run heads, in the row's order
+  uint32_t heads = 0;  // bit k: v[k] heads a run
+  int32_t carry = NONE;  // last window of the previous group (lane 31's)
+#pragma unroll
+  for (int g = 0; g < NV / G; ++g) {
+    const int32_t last = v[g * G + G - 1];
+    const int32_t up = __shfl_up_sync(FULL, last, 1);
+    int32_t prev = lane == 0 ? carry : up;
+    carry = __shfl_sync(FULL, last, 31);
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      const int32_t x = v[g * G + e];
+      if (x != seekmer::SIG_PAD && x != prev) heads |= 1u << (g * G + e);
+      prev = x;
+    }
   }
-  int incl = n;  // inclusive warp scan of the per-lane distinct counts
-  for (int d = 1; d < 32; d <<= 1) {
-    int up = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += up;
-  }
-  const int total = __shfl_sync(0xffffffffu, incl, 31);
-  int pos = incl - n;
+  const int hc = __popc(heads);
+  const int incl = warp_inclusive_sum(hc, lane);
+  const int H = __shfl_sync(FULL, incl, 31);
+
   int32_t* srow = sig + b * C;
-  for (int i = lo; i < lo + chunk && pos < C; ++i) {
-    int32_t v = s[i];
-    if ((v != seekmer::SIG_PAD) && (i == 0 || v != s[i - 1])) {
-      srow[pos++] = v;
+  int n;  // distinct ids
+  if (H <= 32) {
+    int pos = incl - hc;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if ((heads >> k) & 1u) s[pos++] = v[k];
+    }
+    __syncwarp();
+    int32_t x[1] = {lane < H ? s[lane] : seekmer::SIG_PAD};
+    warp_sort<1>(x, lane);
+    const int32_t left = __shfl_up_sync(FULL, x[0], 1);
+    const bool fresh = x[0] != seekmer::SIG_PAD && (lane == 0 || x[0] != left);
+    const uint32_t fm = __ballot_sync(FULL, fresh);
+    n = __popc(fm);
+    __syncwarp();  // every lane has read its head before s is reused
+    if (fresh) {
+      const int r = __popc(fm & ((1u << lane) - 1u));
+      if (r < C) s[r] = x[0];
+    }
+    __syncwarp();
+    for (int q = lane; q < C; q += 32) {
+      srow[q] = q < n ? s[q] : seekmer::SIG_PAD;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if (!((heads >> k) & 1u)) v[k] = seekmer::SIG_PAD;
+    }
+    warp_sort<NV>(v, lane);
+    const int32_t left = __shfl_up_sync(FULL, v[NV - 1], 1);
+    uint32_t fresh = 0;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int32_t prev = k > 0 ? v[k - 1] : (lane > 0 ? left : NONE);
+      if (v[k] != seekmer::SIG_PAD && v[k] != prev) fresh |= 1u << k;
+    }
+    const int fc = __popc(fresh);
+    const int fincl = warp_inclusive_sum(fc, lane);
+    n = __shfl_sync(FULL, fincl, 31);
+    int r = fincl - fc;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if ((fresh >> k) & 1u) {
+        if (r < C) srow[r] = v[k];
+        ++r;
+      }
+    }
+    for (int q = lane; q < C; q += 32) {
+      if (q >= n) srow[q] = seekmer::SIG_PAD;
     }
   }
-  for (int q = lane; q < C; q += 32) {
-    if (q >= total) srow[q] = seekmer::SIG_PAD;
+  if (lane == 0) mapped[b] = (n >= 1) && (n <= C);
+}
+
+template <int NV>
+void launch(const void* ecs, const void* valid, void* sig, void* mapped,
+            cudaStream_t stream, int64_t B, int P, int C, bool vec) {
+  const unsigned grid = seekmer::grid_for(B, WARPS);
+  if (vec) {
+    sig_kernel<NV, 4><<<grid, WARPS * 32, 0, stream>>>(
+        (const int32_t*)ecs, (const uint8_t*)valid, (int32_t*)sig,
+        (uint8_t*)mapped, B, P, C);
+  } else {
+    sig_kernel<NV, 1><<<grid, WARPS * 32, 0, stream>>>(
+        (const int32_t*)ecs, (const uint8_t*)valid, (int32_t*)sig,
+        (uint8_t*)mapped, B, P, C);
   }
-  if (lane == 0) mapped[b] = (total >= 1) && (total <= C);
 }
 
 }  // namespace
 
+// NV = max(4, next power of two >= ceil(P / 32)) windows a lane, P <= 1024.
 extern "C" int seekmer_read_signatures(const void* ecs, const void* valid,
                                        void* sig, void* mapped, void* stream,
                                        int64_t device, int64_t B, int64_t P,
-                                       int64_t W, int64_t C) {
+                                       int64_t C) {
   cudaSetDevice((int)device);
-  if (B > 0) {
-    size_t shmem = (size_t)READS_PER_BLOCK * W * sizeof(int32_t);
-    sig_kernel<<<seekmer::grid_for(B, READS_PER_BLOCK), READS_PER_BLOCK * 32,
-                 shmem, (cudaStream_t)stream>>>(
-        (const int32_t*)ecs, (const uint8_t*)valid, (int32_t*)sig,
-        (uint8_t*)mapped, B, (int)P, (int)W, (int)C);
+  if (B <= 0) return (int)cudaGetLastError();
+  if (P > 1024 || C < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = P % 4 == 0 && (uintptr_t)ecs % 16 == 0 &&
+                   (uintptr_t)valid % 4 == 0;
+  auto s = (cudaStream_t)stream;
+  const int p = (int)P, c = (int)C;
+  const int64_t per_lane = (P + 31) / 32;
+  if (per_lane <= 4) {
+    launch<4>(ecs, valid, sig, mapped, s, B, p, c, vec);
+  } else if (per_lane <= 8) {
+    launch<8>(ecs, valid, sig, mapped, s, B, p, c, vec);
+  } else if (per_lane <= 16) {
+    launch<16>(ecs, valid, sig, mapped, s, B, p, c, vec);
+  } else {
+    launch<32>(ecs, valid, sig, mapped, s, B, p, c, vec);
   }
   return (int)cudaGetLastError();
 }

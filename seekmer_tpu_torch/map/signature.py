@@ -118,31 +118,32 @@ def _weights(mapped, weights):
     return torch.where(mapped, w, 0)
 
 
-def accumulate(table: SigTable, sig: torch.Tensor, mapped: torch.Tensor,
-               weights: torch.Tensor | None = None, sig_probe: int = 32,
-               audit: bool = True) -> SigTable:
-    """Fold one batch into the fingerprint table, round by round as
-    ``seekmer_tpu.map.signature.accumulate`` does: each active lane looks at
-    its cursor bucket, matches its fingerprint or claims the first empty
-    slot (the re-read tells who won), and moves to the next bucket only
-    when the bucket is full. At most ``sig_probe`` rounds; lanes still
-    active then count into ``overflow``. ``audit`` compares every resolved
-    lane's row with its slot's stored row and counts mismatches into
-    ``collisions``.
+def claim_slots(table: SigTable, sig: torch.Tensor, w: torch.Tensor,
+                sig_probe: int = 32):
+    """The claim rounds of :func:`accumulate`, as
+    ``seekmer_tpu.map.signature.accumulate`` runs them: each lane of weight
+    > 0 looks at its cursor bucket, matches its fingerprint or claims the
+    first empty slot (the re-read tells who took it), and moves to the next
+    bucket only when the bucket is full; at most ``sig_probe`` rounds.
+    Writes the keys only. Lanes of one fingerprint that take one slot in
+    the same round share it: the first of them is its winner, the others
+    match its key, as a CAS decides on the card.
+
+    Returns (slot int64[B], -1 where unresolved; won bool[B], the one lane
+    a claimed slot's row comes from; left bool[B], lanes that ran out of
+    rounds).
     """
-    B, C = sig.shape
+    B = sig.shape[0]
     NBK = table.key.shape[0] - 1
     fp1, fp2 = fingerprint(sig)
-    w = _weights(mapped, weights)
-    active0 = w > 0
     home = sig_slot_hash(fp1, fp2) & (NBK - 1)
     keyrow = torch.stack([fp1, fp2], dim=1).contiguous().view(torch.int64)[:, 0]
     key64 = table.key.view(torch.int64)[..., 0]  # (NBK + 1, KB), shared storage
 
-    active = active0.clone()
+    active = w > 0
     cursor = home
-    res_slot = torch.full((B,), -1, dtype=torch.int64, device=sig.device)
-    won_any = torch.zeros_like(active0)
+    slot = torch.full((B,), -1, dtype=torch.int64, device=sig.device)
+    won = torch.zeros_like(active)
     r = 0
     while r < sig_probe and bool(active.any()):
         rows = key64[cursor]
@@ -153,30 +154,48 @@ def accumulate(table: SigTable, sig: torch.Tensor, mapped: torch.Tensor,
         has_empty = is_empty.any(dim=1)
         first_empty = is_empty.to(torch.int32).argmax(dim=1)
         try_claim = active & ~matched & has_empty
-        won = torch.zeros_like(try_claim)
+        took = torch.zeros_like(try_claim)
         if bool(try_claim.any()):
             c = try_claim.nonzero()[:, 0]
             key64[cursor[c], first_empty[c]] = keyrow[c]
-            won = try_claim & (key64[cursor, first_empty] == keyrow)
-        resolved = matched | won
-        res_slot = torch.where(
+            took = try_claim & (key64[cursor, first_empty] == keyrow)
+            t = took.nonzero()[:, 0]
+            s, order = torch.sort(cursor[t] * KB + first_empty[t], stable=True)
+            first = torch.ones_like(s, dtype=torch.bool)
+            first[1:] = s[1:] != s[:-1]
+            won[t[order[first]]] = True
+        resolved = matched | took
+        slot = torch.where(
             resolved, cursor * KB + torch.where(matched, slot_in, first_empty),
-            res_slot)
-        won_any |= won
+            slot)
         advance = active & ~resolved & ~has_empty
         cursor = torch.where(advance, (cursor + 1) & (NBK - 1), cursor)
         active &= ~resolved
         r += 1
+    return slot, won, active
 
-    resolved = active0 & ~active
-    slots = res_slot[resolved]
-    table.count.index_add_(0, slots, w[resolved])
-    table.sig[res_slot[won_any]] = sig[won_any]
-    table.overflow.add_(w[active].sum().to(torch.int32))
+
+def accumulate(table: SigTable, sig: torch.Tensor, mapped: torch.Tensor,
+               weights: torch.Tensor | None = None, sig_probe: int = 32,
+               audit: bool = True) -> SigTable:
+    """Fold one batch into the fingerprint table: :func:`claim_slots`, then
+    every resolved lane's weight into ``count``, each winner's row into its
+    slot, and the weight of lanes out of rounds into ``overflow``.
+    ``audit`` compares the rows of the lanes that matched an existing key
+    with their slot's stored row and counts mismatches into
+    ``collisions``. A winner's slot holds its own row, so this counts what
+    the JAX package's audit of every resolved lane counts.
+    """
+    w = _weights(mapped, weights)
+    slot, won, left = claim_slots(table, sig, w, sig_probe)
+    resolved = slot >= 0
+    table.count.index_add_(0, slot[resolved], w[resolved])
+    table.sig[slot[won]] = sig[won]
+    table.overflow.add_(w[left].sum().to(torch.int32))
     if audit:
-        stored = table.sig[slots]
-        mismatch = (stored != sig[resolved]).any(dim=1)
-        table.collisions.add_(w[resolved][mismatch].sum().to(torch.int32))
+        m = resolved & ~won
+        mismatch = (table.sig[slot[m]] != sig[m]).any(dim=1)
+        table.collisions.add_(w[m][mismatch].sum().to(torch.int32))
     return table
 
 

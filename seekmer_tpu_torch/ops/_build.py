@@ -131,10 +131,12 @@ def stream_of(t: torch.Tensor) -> int:
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Reject what the kernel does not take: tensors off the card, on
     different cards, or not contiguous."""
-    dev = tensors[0].device
+    # device indices as ints (-1 on the CPU): comparing torch.device
+    # objects costs several times more host time a call
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name}: every tensor must be on {dev} "
-                             f"(CUDA), got {t.device}")
+        if t.get_device() != dev or dev < 0:
+            raise ValueError(f"{name}: every tensor must be on "
+                             f"{tensors[0].device} (CUDA), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

@@ -2,10 +2,12 @@
 
 Replaces ``seekmer_tpu/ops/sig_pallas.py`` ``_sig_kernel`` with
 ``_bitonic_sort_rows`` (through ``read_signatures_pallas``). The TPU form
-built its bitonic network from circular lane rolls and sorted twice; here
-one warp sorts one read's row in shared memory and compacts the distinct
-ids with a prefix sum, so one sort suffices. It is bounded by shared-memory
-traffic of the sort, not by device memory.
+sorted the whole padded row twice with a network of lane rolls. Here one
+warp owns a read and keeps its windows in registers; it sorts only the
+heads of the row's runs of equal EC ids (at most 32 on nearly every read,
+one to a lane, with a shuffle network), and sorts the whole row in
+registers on the rare read with more. It is bounded by the bytes of its
+inputs.
 """
 
 from __future__ import annotations
@@ -15,18 +17,9 @@ import torch
 from ..map.signature import read_signatures as plain
 from . import _build
 
-
-def _next_pow2(x: int) -> int:
-    p = 1
-    while p < x:
-        p *= 2
-    return p
-
-
 # Widest window axis the kernel takes, the widest the main path reaches: a
-# paired row at max_read_len=512 has 2 x 488 windows, W = 1024. A block's
-# 4 reads x W int32 of dynamic shared memory (16 KB) stay inside the 48 KB
-# a launch gets without opting in to more.
+# paired row at max_read_len=512 has 2 x 488 windows. A lane holds up to
+# MAX_W / 32 windows in registers.
 MAX_W = 1024
 
 
@@ -41,19 +34,21 @@ def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int):
         return plain(ecs, valid, max_ecs)
     B, P = ecs.shape
     C = max_ecs
-    W = max(_next_pow2(max(P, C)), 32)
-    if W > MAX_W:
+    if P > MAX_W:
         raise ValueError(f"window axis {P} exceeds the kernel's {MAX_W}")
+    if C < 1:
+        raise ValueError("max_ecs must be at least 1")
     if ecs.dtype != torch.int32:
         raise ValueError("ecs must be int32")
-    valid = valid.to(torch.bool)
+    if valid.dtype != torch.bool:
+        valid = valid.to(torch.bool)
     _build.require_cuda("read_signatures", ecs, valid)
     sig = torch.empty((B, C), dtype=torch.int32, device=ecs.device)
     mapped = torch.empty(B, dtype=torch.bool, device=ecs.device)
-    fn = _build.function("seekmer_read_signatures", 5, 5)
+    fn = _build.function("seekmer_read_signatures", 5, 4)
     _build.check(fn(ecs.data_ptr(), valid.data_ptr(), sig.data_ptr(),
                     mapped.data_ptr(), _build.stream_of(ecs),
-                    ecs.device.index, B, P, W, C),
+                    ecs.device.index, B, P, C),
                  "read_signatures")
     read_signatures.launches += 1
     return sig, mapped

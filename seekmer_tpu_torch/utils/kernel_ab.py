@@ -1,0 +1,203 @@
+"""Timers for K3 (signatures) and A1 (accumulate) on one card, and the same
+timings of two checkouts of the port in turns.
+
+    python -m seekmer_tpu_torch.utils.kernel_ab INPUTS A B [--rounds 3]
+
+INPUTS is a file of one batch's K3 inputs (``ecs`` int32 [B, P], ``valid``
+bool [B, P], ``max_ecs`` and the index's ``num_ecs``) as ``chip_smoke.py
+--keep-inputs INPUTS`` writes it for a paired config-2 batch. A and B are
+checkouts of the repository, for example a parent commit and a change
+unpacked with ``git archive``. Each round runs
+A and B, which one first alternating, each in a process of its own that
+imports the port from its checkout and times that checkout's kernels with
+the timers below (this file's, whichever side is timed), on the same
+inputs: K3, then A1 on the signatures K3 made. Needs a CUDA card.
+
+Device times are taken with the card kept busy while the host enqueues the
+call (``torch.cuda._sleep`` before the start event), so they hold the
+kernel's device time and not the wrapper's host time; the host time of a
+call is timed apart, on the host clock without a synchronise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SIG_PAD = 0x7FFFFFFF
+SLEEP_CYCLES = 400_000  # ~0.2 ms at the H100's clock: longer than any enqueue
+
+
+def device_ms(fn, reps: int, setup=None) -> float:
+    """Mean device ms of ``fn(setup())`` (or ``fn()``), one call a reading,
+    with ``setup`` outside the timed span."""
+    import torch
+
+    fn(setup()) if setup else fn()
+    spans = []
+    for _ in range(reps):
+        arg = setup() if setup else None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn(arg) if setup else fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds a call takes to return (the enqueue)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / reps * 1e6
+
+
+def head_counts(ecs, valid):
+    """Run heads a read, as K3 counts them: windows that are neither
+    missed nor invalid and differ from the window before."""
+    import torch
+
+    x = torch.where(valid & (ecs >= 0), ecs, SIG_PAD)
+    prev = torch.cat([torch.full_like(x[:, :1], -1), x[:, :-1]], dim=1)
+    return ((x != SIG_PAD) & (x != prev)).sum(dim=1)
+
+
+def head_summary(ecs, valid) -> dict:
+    h = head_counts(ecs, valid)
+    return {"reads": int(h.numel()),
+            "share_le_32": float((h <= 32).float().mean()),
+            "max": int(h.max()) if h.numel() else 0,
+            "mean": float(h.float().mean()) if h.numel() else 0.0}
+
+
+def time_k3(ecs, valid, C: int, reps: int = 50) -> dict:
+    from seekmer_tpu_torch.ops import sig_cuda
+
+    return {"ms": device_ms(lambda: sig_cuda.read_signatures(ecs, valid, C),
+                            reps),
+            "host_us": host_us(lambda: sig_cuda.read_signatures(ecs, valid,
+                                                                C), reps)}
+
+
+def time_a1(sig, mapped, weights, num_ecs: int, bits: int = 22,
+            reps: int = 20) -> dict:
+    """A1 on one batch: claim alone and claim plus audit on an empty table
+    (made outside the timed span), both again in steady state (the batch
+    already in the table: every multi-EC read matches), the host enqueue of
+    a call, and, where the checkout has it, the empty launch of the same
+    grid, plain and cooperative. Device ms, host us."""
+    import torch
+
+    from seekmer_tpu_torch.map.signature import make_sig_table
+    from seekmer_tpu_torch.ops import accumulate_cuda
+
+    C = sig.shape[1]
+
+    def fresh():
+        return make_sig_table(bits, C, num_ecs=num_ecs, device=sig.device)
+
+    def fold(t, audit):
+        accumulate_cuda.fold_batch(t, sig, mapped, weights=weights,
+                                   audit=audit)
+
+    out = {
+        "claim_ms": device_ms(lambda t: fold(t, False), reps, fresh),
+        "claim_audit_ms": device_ms(lambda t: fold(t, True), reps, fresh),
+    }
+    table = fresh()
+    fold(table, True)
+    out["steady_claim_ms"] = device_ms(lambda: fold(table, False), reps)
+    out["steady_claim_audit_ms"] = device_ms(lambda: fold(table, True), reps)
+    # the same steady claim with only the single-EC reads weighted (their
+    # direct-vector atomicAdds) and with only the multi-EC reads
+    w = (torch.ones(sig.shape[0], dtype=torch.int32, device=sig.device)
+         if weights is None else weights)
+    single = (sig[:, 0] != SIG_PAD) & (sig[:, 1] == SIG_PAD)
+    for tag, part in (("singles", single), ("multi", ~single)):
+        wp = torch.where(part, w, 0)
+        out[f"steady_{tag}_only_ms"] = device_ms(
+            lambda: accumulate_cuda.fold_batch(table, sig, mapped, weights=wp,
+                                               audit=False), reps)
+    out["host_us"] = host_us(lambda: fold(table, True), reps)
+    out["host_us_no_audit"] = host_us(lambda: fold(table, False), reps)
+    if hasattr(accumulate_cuda, "empty_launch"):
+        B = sig.shape[0]
+        for coop in (False, True):
+            out["floor_coop_ms" if coop else "floor_ms"] = device_ms(
+                lambda: accumulate_cuda.empty_launch(B, sig.device, coop),
+                reps)
+    return out
+
+
+def _child(inputs: str) -> None:
+    import torch
+
+    from seekmer_tpu_torch.ops import sig_cuda
+
+    data = torch.load(inputs)
+    dev = torch.device("cuda")
+    ecs, valid = data["ecs"].to(dev), data["valid"].to(dev)
+    C = data["max_ecs"]
+    sig, mapped = sig_cuda.read_signatures(ecs, valid, C)
+    weights = torch.ones(sig.shape[0], dtype=torch.int32, device=dev)
+    out = {"K3": time_k3(ecs, valid, C),
+           "A1": time_a1(sig, mapped, weights, data["num_ecs"])}
+    print(json.dumps(out))
+
+
+def run_side(checkout: str, inputs: str) -> dict:
+    env = dict(os.environ, PYTHONPATH=checkout)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
+                        inputs], cwd=checkout, env=env, capture_output=True,
+                       text=True, check=True)
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("inputs")
+    ap.add_argument("a", nargs="?")
+    ap.add_argument("b", nargs="?")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--child", action="store_true")
+    args = ap.parse_args(argv)
+    if args.child:
+        _child(args.inputs)
+        return 0
+    inputs = os.path.abspath(args.inputs)
+    sides = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
+    readings = {}
+    for r in range(args.rounds):
+        for side in ("AB" if r % 2 == 0 else "BA"):
+            got = run_side(sides[side], inputs)
+            print(f"round {r} {side} ({sides[side]}): {json.dumps(got)}",
+                  flush=True)
+            for k, rec in got.items():
+                for m, v in rec.items():
+                    readings.setdefault((k, m, side), []).append(v)
+    for (k, m, side), vs in sorted(readings.items()):
+        print(f"{side} {k} {m}: median {np.median(vs):.6f}, range "
+              f"{min(vs):.6f} - {max(vs):.6f}, {len(vs)} readings",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,7 +19,8 @@ from seekmer_tpu_torch.config import EMConfig, IndexConfig, MapConfig
 from seekmer_tpu_torch.index.build import build_index_from_seqs
 from seekmer_tpu_torch.io.fastq import ReadBatch
 from seekmer_tpu_torch.map.driver import DeviceIndex, Mapper, merge_sig_rows
-from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
+from seekmer_tpu_torch.map.signature import (SIG_PAD, make_sig_table,
+                                             table_to_host)
 from seekmer_tpu_torch.ops import (
     accumulate_cuda,
     em_cuda,
@@ -36,6 +37,7 @@ from seekmer_tpu_torch.utils.simulate import (
 )
 from tests.synthetic_buckets import (check_expected, hi_collision_tables,
                                      query_lanes)
+from tests.synthetic_signatures import adversarial_rows, seed_collision
 
 pytestmark = pytest.mark.cuda
 
@@ -195,8 +197,8 @@ def _merged(table, total):
                           int(table.collisions))
 
 
-def _paired_signatures(dev, rng, seqs, di, B, C):
-    """Signatures of B simulated read pairs through K1, K2 and K3."""
+def _paired_lanes(dev, rng, seqs, di, B):
+    """(ecs, valid) [B, 2P] of B simulated read pairs through K1 and K2."""
     c1, c2, _ = simulate_packed_pairs(rng, seqs, 1, B, read_len=100)
     ln = torch.full((B,), 100, dtype=torch.int32, device=dev)
     mates = []
@@ -209,7 +211,54 @@ def _paired_signatures(dev, rng, seqs, di, B, C):
                      for i in range(3))
     ecs = probe_cuda.lookup_ecs(hi, lo, valid, di.table, di.main_slots,
                                 di.stash, di.stash_slots, di.bucket)
-    return sig_cuda.read_signatures(ecs, valid, C)
+    return ecs, valid
+
+
+def _paired_signatures(dev, rng, seqs, di, B, C):
+    """Signatures of B simulated read pairs through K1, K2 and K3."""
+    return sig_cuda.read_signatures(*_paired_lanes(dev, rng, seqs, di, B), C)
+
+
+def _check_signatures(ecs, valid, C):
+    got = sig_cuda.read_signatures(ecs, valid, C)
+    want = sig_cuda.plain(ecs, valid, C)
+    torch.cuda.synchronize()
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    return got
+
+
+def test_signature_kernel_paired_reads(dev, world):
+    """K3 on the run-structured rows of simulated read pairs, as the map
+    step hands them over; each mate's padded tail is invalid."""
+    rng, seqs, idx = world
+    di = DeviceIndex.from_host(idx["default"], dev)
+    ecs, valid = _paired_lanes(dev, rng, seqs, di, 8192)
+    before = sig_cuda.read_signatures.launches
+    sig, mapped = _check_signatures(ecs, valid, 16)
+    assert sig_cuda.read_signatures.launches == before + 1
+    assert float(mapped.float().mean()) > 0.8
+
+
+@pytest.mark.parametrize("P,C", [(208, 16), (976, 16), (1024, 16),
+                                 (101, 16), (30, 5), (3, 8), (64, 40)])
+def test_signature_kernel_adversarial_rows(dev, P, C):
+    """The rows of tests/synthetic_signatures.py (32 and 33 run heads, ids
+    recurring after a miss, every window a head, ...) repeated over many
+    reads, so one launch takes both of the kernel's paths; at P = 208 and
+    976 (W 256 and 1,024) the > 32-head path sorts the whole row in
+    registers. Rows off a 16-byte boundary take the one-window loads."""
+    ecs, valid = adversarial_rows(P, C, seed=P + C)
+    reps = 4096 // ecs.shape[0] + 1
+    e = torch.from_numpy(np.tile(ecs, (reps, 1))).to(dev)
+    v = torch.from_numpy(np.tile(valid, (reps, 1))).to(dev)
+    _check_signatures(e, v, C)
+    if P % 4 == 0:
+        B = e.shape[0]
+        buf = torch.empty(B * P + 1, dtype=torch.int32, device=dev)
+        off = buf[1:].view(B, P)
+        off.copy_(e)
+        _check_signatures(off, v, C)
 
 
 @pytest.mark.parametrize("direct", [True, False], ids=["direct", "cas_only"])
@@ -238,6 +287,120 @@ def test_accumulate_kernel(dev, world, direct):
     keys = [np.sort(t.key.view(torch.int64).cpu().numpy().ravel())
             for t in tables]
     np.testing.assert_array_equal(keys[0], keys[1])
+
+
+def _fold_both(tables, sig, mapped, weights, audit):
+    accumulate_cuda.fold_batch(tables[0], sig, mapped, weights=weights,
+                               audit=audit)
+    accumulate_cuda.plain(tables[1], sig, mapped, weights=weights,
+                          audit=audit)
+    torch.cuda.synchronize()
+
+
+def _same_tables(tables):
+    a, b = (_merged(t, 0) for t in tables)
+    np.testing.assert_array_equal(a.sigs, b.sigs)
+    np.testing.assert_array_equal(a.sig_counts, b.sig_counts)
+    assert (a.overflow, a.collisions) == (b.overflow, b.collisions)
+    keys = [np.sort(t.key.view(torch.int64).cpu().numpy().ravel())
+            for t in tables]
+    np.testing.assert_array_equal(keys[0], keys[1])
+    return a
+
+
+@pytest.mark.parametrize("direct", [True, False], ids=["direct", "cas_only"])
+def test_accumulate_kernel_forced_collision(dev, world, direct):
+    """A table pre-seeded with a colliding key for one multi-EC signature of
+    the batch: the audit (of the reads that matched a key) counts the same
+    collisions as the plain version's, and they are > 0."""
+    rng, seqs, idx = world
+    index = idx["default"]
+    di = DeviceIndex.from_host(index, dev)
+    C = 16
+    sig, mapped = _paired_signatures(dev, rng, seqs, di, 4096, C)
+    multi = mapped & (sig[:, 1] != SIG_PAD)
+    assert bool(multi.any())
+    tables = [make_sig_table(12, C, num_ecs=index.num_ecs if direct else 0,
+                             device=dev) for _ in range(2)]
+    for t in tables:
+        seed_collision(t, sig[multi][0])
+    w = torch.from_numpy(rng.integers(0, 3, size=4096).astype(np.int32)).to(
+        dev)
+    for audit in (True, False, True):
+        _fold_both(tables, sig, mapped, w, audit)
+    res = _same_tables(tables)
+    assert res.collisions > 0
+
+
+@pytest.mark.parametrize("audit", [True, False], ids=["audit", "no_audit"])
+@pytest.mark.parametrize("weights", ["ones", "none", "zero"])
+def test_accumulate_kernel_steady_state(dev, world, audit, weights):
+    """The batch already in the table (every multi-EC read matches, none
+    claims), with the audit on and off, with weights, without, and with
+    all weights zero."""
+    rng, seqs, idx = world
+    index = idx["default"]
+    di = DeviceIndex.from_host(index, dev)
+    C = 16
+    sig, mapped = _paired_signatures(dev, rng, seqs, di, 4096, C)
+    tables = [make_sig_table(12, C, num_ecs=index.num_ecs, device=dev)
+              for _ in range(2)]
+    _fold_both(tables, sig, mapped, None, True)
+    w = {"ones": torch.ones(4096, dtype=torch.int32, device=dev),
+         "none": None,
+         "zero": torch.zeros(4096, dtype=torch.int32, device=dev)}[weights]
+    first = _merged(tables[0], 0)
+    for _ in range(3):
+        _fold_both(tables, sig, mapped, w, audit)
+    res = _same_tables(tables)
+    assert res.collisions == 0
+    if weights == "zero":
+        np.testing.assert_array_equal(res.sig_counts, first.sig_counts)
+    else:
+        np.testing.assert_array_equal(res.sig_counts, 4 * first.sig_counts)
+
+
+@pytest.mark.parametrize("C", [1, 5, 64])
+def test_accumulate_kernel_row_widths(dev, C):
+    """Rows the kernel stages one int32 at a time (C = 1, 5) and rows whose
+    block of 256 staged rows needs more than 48 KB of shared memory (C =
+    64), with the audit on and off, against the plain version."""
+    rng = np.random.default_rng(C)
+    B = 5000
+    pool = np.full((300, C), SIG_PAD, np.int32)
+    for i in range(300):
+        n = int(rng.integers(1, min(C, 6) + 1))
+        pool[i, :n] = np.sort(rng.choice(100, size=n, replace=False))
+    sig = torch.from_numpy(pool[rng.integers(0, 300, size=B)]).to(dev)
+    mapped = torch.from_numpy(rng.random(B) < 0.95).to(dev)
+    for num_ecs in (100, 0):
+        tables = [make_sig_table(12, C, num_ecs=num_ecs, device=dev)
+                  for _ in range(2)]
+        for audit in (True, False):
+            _fold_both(tables, sig, mapped, None, audit)
+        _same_tables(tables)
+
+
+def test_accumulate_kernel_in_passes(dev):
+    """A batch larger than the card holds at once in one cooperative launch
+    (the audit on) goes round in passes, one grid barrier each."""
+    rng = np.random.default_rng(9)
+    B, C = 600_000, 16
+    pool = np.full((5000, C), SIG_PAD, np.int32)
+    for i in range(5000):
+        n = int(rng.integers(1, 6))
+        pool[i, :n] = np.sort(rng.choice(400, size=n, replace=False))
+    sig = torch.from_numpy(pool[rng.integers(0, 5000, size=B)]).to(dev)
+    mapped = torch.from_numpy(rng.random(B) < 0.95).to(dev)
+    tables = [make_sig_table(16, C, num_ecs=400, device=dev)
+              for _ in range(2)]
+    x = sig[sig[:, 1] != SIG_PAD][0]
+    for t in tables:
+        seed_collision(t, x)
+    for _ in range(2):
+        _fold_both(tables, sig, mapped, None, True)
+    res = _same_tables(tables)
+    assert res.overflow == 0 and res.collisions > 0
 
 
 @pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
