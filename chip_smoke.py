@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--keep-inputs PATH]
 
 (``--keep-inputs`` also writes K3's inputs of the config-2 batch to PATH,
-for ``python -m seekmer_tpu_torch.utils.kernel_ab``.)
+for ``python -m seekmer_tpu_torch.utils.kernel_ab``, and config 2's EC
+table to PATH.c2_ec.npz, for ``python -m tests.test_torch_bootstrap``.)
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit, build the five kernels from
+1. print the card's name and power limit, build the seven kernels from
    ``seekmer_tpu_torch/csrc`` with nvcc (sm_90a, one nvcc per source);
 2. make two worlds from a seed and index them through the port's CLI: the
    config-1 world (1000 random transcripts, 4 x 65,536 single-end 100 bp
@@ -33,7 +34,14 @@ Phases; any failure exits non-zero:
    fixed iteration count (with a TF32 control of the plain version that
    must miss the bound, and a rerun that must give the same bits), then
    on two systems at the dense gate's edge, E-deep and T-deep, that walk
-   their depth in chunks;
+   their depth in chunks; fast mode's K5 (sample + probe + classify) and
+   K6 (merge) on the config-2 batch at strides 16 and 8 and on the
+   config-1 batch at 16, with the resolved-read and fallback-unit
+   fractions and every fast signature checked to equal, or be a non-empty
+   subset of, the dense one; the device map step on the pre-uploaded
+   config-2 batch dense and fast (``[map step]``, ``[map step fast
+   s=16]``, ``[map step fast s=8]``), the fast one's table held against
+   the plain route's on the same card tensors;
 4. run ``infer --device cuda`` of the port's CLI on both worlds with every
    kernel's launch count set to 0 just before and read just after:
    config 1 with ``--bootstrap 100`` (the dense route, through K4; the
@@ -42,13 +50,18 @@ Phases; any failure exits non-zero:
    JAX package and its float64 oracle),
    config 2 paired with no fragment flags (the fragment-length estimate
    checked against the simulated one) and ``--bootstrap 100`` (the
-   batched CSR route); check the outputs and print the stage rates;
-5. trace the map stage (``Mapper.run`` fed as ``infer`` feeds it), a
-   fixed 480-iteration EM and a fixed 480-iteration 100-replicate
-   bootstrap on both worlds with ``torch.profiler``; print each stage's
-   wall time untraced and traced, its device busy time, and the device
-   time per kernel or copy. On config 2, before its bootstrap is traced,
-   the card's batched CSR EM is held against the same call on the CPU.
+   batched CSR route); then ``infer --probe-sample 16`` on both (fast
+   mode: config 1's mapped and unmapped counts checked against the port's
+   plain fast path on the CPU; config 2 paired with the FLD estimated and
+   its mapped count beside the dense run's); check the outputs and print
+   the stage rates;
+5. trace the map stage (``Mapper.run`` fed as ``infer`` feeds it, dense
+   and then fast at s = 16), a fixed 480-iteration EM and a fixed
+   480-iteration 100-replicate bootstrap on both worlds with
+   ``torch.profiler``; print each stage's wall time untraced and traced,
+   its device busy time, and the device time per kernel or copy. On
+   config 2, before its bootstrap is traced, the card's batched CSR EM is
+   held against the same call on the CPU.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -351,6 +364,115 @@ def check_forced_collision(sig, mapped, weights, num_ecs) -> int:
                abs(mk.overflow - mp.overflow))
 
 
+def check_fast(tag, di, mates, L, stride, dense):
+    """K5 and K6 against their plain versions on one batch at one stride,
+    each timed beside the bytes it must move (device time with the card
+    kept busy while the host enqueues, ``utils/kernel_ab.py``; K5 without
+    the unit count's readback): K5 its 2-bit rows, its outputs and, by K2's
+    model, the hi slab of each distinct home row of a valid sampled key and
+    two 32-byte sectors of each distinct key found; K6 its inputs and the
+    signatures. Prints the resolved-read and fallback-unit fractions and
+    checks every fast signature against ``dense`` (sig, mapped of the dense
+    route on the same reads): equal, or a non-empty subset, wherever the
+    dense row is whole (mapped, or empty). Returns the two records."""
+    import torch
+
+    from seekmer_tpu_torch.map.signature import SIG_PAD
+    from seekmer_tpu_torch.ops import (fast_cuda, pack_cuda, probe,
+                                       probe_cuda, sig_cuda)
+    from seekmer_tpu_torch.ops.hash import hash_kmer
+    from seekmer_tpu_torch.utils import kernel_ab
+
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    k, C = di.k, dense[0].shape[1]
+    B, n_seg = mates[0][0].shape[0], len(mates)
+    single, slot, units = fast_cuda.sample_classify(mates, L, k, stride,
+                                                    *geo)
+    want = probe.sample_classify(mates, L, k, stride, *geo)
+    has = slot >= 0
+    nu = units[0].shape[0]
+    check(nu == want[2][0].shape[0], f"K5 {tag}: {nu} units, plain "
+          f"{want[2][0].shape[0]}")
+    err5 = max(max_abs_diff(single, want[0]),
+               max_abs_diff(has, want[1] >= 0),
+               *(max_abs_diff(g[slot[has].long()], w[want[1][has].long()])
+                 for g, w in zip(units, want[2])))
+    if nu:
+        hi, lo, valid = pack_cuda.pack_canonical_2bit(*units, L, k)
+        sig_d, mapped_d = sig_cuda.read_signatures(
+            probe_cuda.lookup_ecs(hi, lo, valid, *geo), valid, C)
+    else:
+        sig_d = torch.empty((0, C), dtype=torch.int32, device=single.device)
+        mapped_d = torch.empty(0, dtype=torch.bool, device=single.device)
+    merge_args = (single, slot, sig_d, mapped_d, C)
+    fs, fm = fast_cuda.merge_staging(*merge_args)
+    err6 = max(max_abs_diff(a, b) for a, b in
+               zip((fs, fm), probe.merge_staging(*merge_args)))
+    check(err5 == 0 and err6 == 0, f"fast mode {tag} s={stride}: K5 "
+          f"max_abs_err {err5}, K6 {err6}")
+
+    # K2's byte model over the valid sampled keys
+    cols = probe.sample_columns(L - k + 1, stride)
+    keys = [t[:, cols] for m in mates for t in pack_cuda.plain(*m, L, k)]
+    hs = torch.cat([h[v] for h, v in zip(keys[0::3], keys[2::3])])
+    ls = torch.cat([x[v] for x, v in zip(keys[1::3], keys[2::3])])
+    rows = int(torch.unique(hash_kmer(hs, ls)
+                            & (di.main_slots // di.bucket - 1)).numel())
+    found = probe.lookup_ecs(hs, ls, torch.ones_like(hs, dtype=torch.bool),
+                             *geo) >= 0
+    nkeys = int(torch.unique((hs[found].to(torch.int64) << 32)
+                             | (ls[found].to(torch.int64) & 0xFFFFFFFF))
+                .numel())
+    Sp, Sb = (L + 3) // 4, (L + 7) // 8
+    io5 = (nbytes(*(t for m in mates for t in m), single, slot) + 4
+           + nu * (Sp + Sb + 4))
+    def k5_launch():
+        fast_cuda.launch_sample(mates, L, k, stride, *geo)
+
+    def k6_launch():
+        fast_cuda.merge_staging(*merge_args)
+
+    k5 = record(err5, kernel_ab.device_ms(k5_launch, 50),
+                cuda_ms(lambda: probe.sample_classify(mates, L, k, stride,
+                                                      *geo), 3),
+                (io5 + rows * 4 * di.bucket + nkeys * 64) / HBM_BYTES_S,
+                "bytes")
+    k6 = record(err6, kernel_ab.device_ms(k6_launch, 50),
+                cuda_ms(lambda: probe.merge_staging(*merge_args), 10),
+                (nbytes(single, slot, sig_d, mapped_d, fs, fm))
+                / HBM_BYTES_S, "bytes")
+    times = {name: (cuda_ms(fn, 50), kernel_ab.host_us(fn, 50))
+             for name, fn in (("K5", k5_launch), ("K6", k6_launch))}
+
+    resolved = float((~has.any(dim=1) & (single != SIG_PAD).any(dim=1))
+                     .float().mean())
+    ds, dm = dense
+    inside = ((fs == SIG_PAD)
+              | (fs[:, :, None] == ds[:, None, :]).any(dim=2)).all(dim=1)
+    equal = (fs == ds).all(dim=1)
+    whole = dm | (ds[:, 0] == SIG_PAD)
+    bad = int((whole & ~(inside & (equal | (fs[:, 0] != SIG_PAD)))).sum())
+    check(bad == 0, f"fast mode {tag} s={stride}: {bad} fast signatures are "
+          "neither the dense one nor a non-empty subset of it")
+    log(f"[fast {tag} s={stride}] {B} reads x {n_seg} segments, {len(cols)} "
+        f"sampled columns a segment: resolved in phase 1 {resolved:.6f}, "
+        f"fallback units {nu} ({nu / (B * n_seg):.6f}); mapped {int(fm.sum())}"
+        f" (dense {int(dm.sum())}); fast signature equal to the dense one "
+        f"{float(equal.float().mean()):.6f}, a strict subset "
+        f"{int((inside & ~equal & whole).sum())}, dense row not whole "
+        f"{int((~whole).sum())}")
+    for name, r, extra in (
+            ("K5", k5, f"{hs.numel()} valid sampled lanes, {rows} distinct "
+                       f"home rows, {nkeys} distinct keys found"),
+            ("K6", k6, f"{nu} unit rows")):
+        log(f"[{name} {tag} s={stride}] max_abs_err {r['max_abs_err']}, "
+            f"kernel {r['ms']:.6f} ms (device time; back to back "
+            f"{times[name][0]:.6f} ms, host enqueue {times[name][1]:.3f} "
+            f"us), plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} "
+            f"ms (share {r['bound_ms'] / r['ms']:.6f}); {extra}")
+    return k5, k6
+
+
 def compare_kernels(work: Path, batches, keep_inputs=None):
     """Each kernel against its plain version at one paired config-2 batch's
     shapes, with the bytes each must move at the least (each input read
@@ -366,7 +488,8 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
     from seekmer_tpu_torch.map.driver import (DeviceIndex, map_step,
                                               merge_sig_rows)
     from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
-    from seekmer_tpu_torch.ops import accumulate_cuda, pack_cuda, sig_cuda
+    from seekmer_tpu_torch.ops import (accumulate_cuda, pack_cuda, probe,
+                                       sig_cuda)
     from seekmer_tpu_torch.utils import kernel_ab
 
     dev = torch.device(DEVICE)
@@ -380,6 +503,8 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         *upload_mate(batches[0], L, dev), L, index.k)
     c1, c1_got = check_lookup("config 1", index, di, *c1_lanes)
     log_heads("config 1", c1_got[0], c1_lanes[2])
+    check_fast("config 1", di, [upload_mate(batches[0], L, dev)], L, 16,
+               sig_cuda.read_signatures(c1_got[0], c1_lanes[2], 16))
     del di, c1_lanes, c1_got
 
     index = KMerIndex.load(str(work / "c2.npz"))
@@ -440,6 +565,8 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         f" (share {out['K3']['bound_ms'] / out['K3']['ms']:.6f})")
 
     sig, mapped = got
+    out["K5"], out["K6"] = check_fast("config 2", di, mates, L, 16, got)
+    check_fast("config 2", di, mates, L, 8, got)
     weights = torch.ones(B, dtype=torch.int32, device=dev)
     tables = []
     for fold in (accumulate_cuda.fold_batch, accumulate_cuda.plain):
@@ -523,6 +650,39 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         bad2=mates[1][1], pad_len=L, audit=True), 20)
     log(f"[map step] one paired batch on the card: {step_ms:.6f} ms, "
         f"{B / step_ms * 1e3:.0f} pairs/s of device time")
+    # fast mode's step: K5, the unit count read back, K1, K2, K3 on the
+    # units, K6, A1; its table against the plain route's on the same
+    # tensors (every step's plain version, A1's too)
+    for stride in (16, 8):
+        fcfg = dataclasses.replace(cfg, probe_sample=stride)
+        fast_ms = cuda_ms(lambda: map_step(
+            di, fcfg, tables[0], mates[0][0], mates[0][2], weights,
+            codes2=mates[1][0], lengths2=mates[1][2], bad=mates[0][1],
+            bad2=mates[1][1], pad_len=L, audit=True), 20)
+        log(f"[map step fast s={stride}] one paired batch on the card: "
+            f"{fast_ms:.6f} ms (the unit count's readback included), "
+            f"{B / fast_ms * 1e3:.0f} pairs/s; dense {step_ms:.6f} ms")
+    fcfg = dataclasses.replace(cfg, probe_sample=16)
+    fast_tables = [make_sig_table(22, C, num_ecs=index.num_ecs, device=dev)
+                   for _ in range(2)]
+    map_step(di, fcfg, fast_tables[0], mates[0][0], mates[0][2], weights,
+             codes2=mates[1][0], lengths2=mates[1][2], bad=mates[0][1],
+             bad2=mates[1][1], pad_len=L, audit=True)
+    fsig, fmapped = probe.two_phase_signatures(
+        mates, L, k, 16, C, di.table, di.main_slots, di.stash,
+        di.stash_slots, di.bucket)
+    accumulate_cuda.plain(fast_tables[1], fsig, fmapped, weights=weights,
+                          audit=True)
+    fk, fp = (merge_sig_rows(*table_to_host(t), B, int(t.overflow),
+                             int(t.collisions)) for t in fast_tables)
+    check(np.array_equal(fk.sigs, fp.sigs)
+          and np.array_equal(fk.sig_counts, fp.sig_counts)
+          and (fk.mapped, fk.overflow, fk.collisions)
+          == (fp.mapped, fp.overflow, fp.collisions),
+          "the fast map step on the card differs from the plain route")
+    log(f"[map step fast s=16] its table equals the plain route's on the "
+        f"same card tensors: {fk.sigs.shape[0]} signatures, mapped "
+        f"{fk.mapped}, overflow {fk.overflow}, collisions {fk.collisions}")
     del di
     torch.cuda.empty_cache()
     return out
@@ -760,21 +920,27 @@ def compare_batched_em(ec, lengths):
 
 
 def reset_launches():
-    from seekmer_tpu_torch.ops import (accumulate_cuda, em_cuda, pack_cuda,
-                                       probe_cuda, sig_cuda)
+    from seekmer_tpu_torch.ops import (accumulate_cuda, em_cuda, fast_cuda,
+                                       pack_cuda, probe_cuda, sig_cuda)
 
     for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
                sig_cuda.read_signatures, accumulate_cuda.fold_batch,
-               em_cuda.em_fixed_point):
+               em_cuda.em_fixed_point, fast_cuda.sample_classify,
+               fast_cuda.merge_staging):
         fn.launches = 0
 
 
-def run_infer(work: Path, tag: str, argv, unused=()):
-    """Run the CLI's infer; every kernel but those in ``unused`` must have
-    launched during it, and those in ``unused`` must not have."""
+DENSE_ONLY = ("sample", "merge")  # fast mode's kernels
+
+
+def run_infer(work: Path, tag: str, argv, unused=(), name=None):
+    """Run the CLI's infer on world ``tag`` into ``<name>_out``; every
+    kernel but those in ``unused`` must have launched during it, and those
+    in ``unused`` must not have."""
     from seekmer_tpu_torch import cli
 
-    out = work / f"{tag}_out"
+    name = name or tag
+    out = work / f"{name}_out"
     reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(["infer", str(work / f"{tag}.npz"), str(out), *argv,
@@ -784,17 +950,17 @@ def run_infer(work: Path, tag: str, argv, unused=()):
     check(rc == 0, f"{tag} infer exit {rc}")
     info = json.loads((out / "run_info.json").read_text())
     t = info["timings"]
-    log(f"[{tag} e2e] mapped {info['mapped']} / {info['total_reads']}, "
+    log(f"[{name} e2e] mapped {info['mapped']} / {info['total_reads']}, "
         f"EM iterations {info['em_iterations']}, map stage "
         f"{t['reads_per_s']:.0f} reads/s ({t['map_s']:.3f} s), EM "
         f"{t['em_iterations_per_s']:.1f} it/s ({t['em_s']:.3f} s), resolve "
         f"{t['resolve_s']:.3f} s, quantifier {t['wall_s']:.3f} s, CLI wall "
         f"{wall:.1f} s, kernel launches {launches}")
-    for name, n in launches.items():
-        if name in unused:
-            check(n == 0, f"{tag}: kernel {name} launched {n} times")
+    for kernel, n in launches.items():
+        if kernel in unused:
+            check(n == 0, f"{name}: kernel {kernel} launched {n} times")
         else:
-            check(n > 0, f"{tag}: kernel {name} was never launched")
+            check(n > 0, f"{name}: kernel {kernel} was never launched")
     return out, info, launches
 
 
@@ -822,13 +988,13 @@ def check_bootstrap(tag: str, out: Path, info, T: int):
 def end_to_end(work: Path):
     import numpy as np
 
-    from seekmer_tpu_torch import EMConfig
+    from seekmer_tpu_torch import EMConfig, MapConfig
     from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.io.writer import read_abundance
 
     out, info, l1 = run_infer(work, "c1", [
         str(work / "c1.fq"), "--em-tolerance", "1e-6", "--em-max-iters",
-        "2000", "--bootstrap", "100", "--seed", "1"])
+        "2000", "--bootstrap", "100", "--seed", "1"], unused=DENSE_ONLY)
     index = KMerIndex.load(str(work / "c1.npz"))
     check_bootstrap("c1", out, info, index.num_transcripts)
     em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
@@ -857,7 +1023,8 @@ def end_to_end(work: Path):
     # no fragment flags: the fragment-length distribution is estimated
     out2, info2, l2 = run_infer(work, "c2", [
         str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
-        "--sig-table-bits", "22", "--bootstrap", "100"], unused=("em",))
+        "--sig-table-bits", "22", "--bootstrap", "100"],
+        unused=("em", *DENSE_ONLY))
     fld = info2["fld"]
     check(fld is not None, "config-2 FLD was not estimated")
     log(f"[c2 fld] mean {fld['mean']:.6f} (simulated 200), sd "
@@ -877,7 +1044,39 @@ def end_to_end(work: Path):
     log(f"[c2 check] {tab2['target_id'].size} transcripts, est_counts sum "
         f"{mass:.1f} vs mapped {info2['mapped']}, TPM sum "
         f"{float(tab2['tpm'].sum()):.1f}")
-    return {k: l1[k] + l2[k] for k in l1}
+
+    # fast mode: config 1 against the port's plain fast path on the CPU
+    _, info3, l3 = run_infer(work, "c1", [str(work / "c1.fq"),
+                                          "--probe-sample", "16"],
+                             unused=("em",), name="c1_fast")
+    t0 = time.perf_counter()
+    ref3 = cpu_map(work, index, MapConfig(batch_size=B, probe_sample=16))
+    check(info3["probe_sample"] == 16
+          and (info3["mapped"], info3["unmapped"])
+          == (ref3["mapped"], ref3["unmapped"]),
+          f"config-1 fast mapped {info3['mapped']} / unmapped "
+          f"{info3['unmapped']} != the plain fast path on the CPU "
+          f"{ref3['mapped']} / {ref3['unmapped']}")
+    log(f"[c1_fast reference] mapped {info3['mapped']}, unmapped "
+        f"{info3['unmapped']} == the plain fast path on the CPU (dense: "
+        f"{info['mapped']} / {info['unmapped']}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    _, info4, l4 = run_infer(work, "c2", [
+        str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
+        "--sig-table-bits", "22", "--probe-sample", "16"], unused=("em",),
+        name="c2_fast")
+    fld4 = info4["fld"]
+    check(fld4 is not None and abs(fld4["mean"] - 200.0) < 10.0
+          and abs(fld4["sd"] - 20.0) < 10.0 and fld4["samples"] > 1000,
+          f"config-2 fast FLD estimate {fld4}")
+    check(info4["total_reads"] == BATCHES * B
+          and info4["mapped"] > 0.8 * BATCHES * B,
+          f"config-2 fast mapped only {info4['mapped']}")
+    log(f"[c2_fast check] mapped {info4['mapped']} (dense "
+        f"{info2['mapped']}), unmapped {info4['unmapped']} (dense "
+        f"{info2['unmapped']}); FLD mean {fld4['mean']:.6f}, sd "
+        f"{fld4['sd']:.6f}, {fld4['samples']} samples")
+    return {k: l1[k] + l2[k] + l3[k] + l4[k] for k in l1}
 
 
 def cpu_reference(work: Path, index, em_cfg) -> dict:
@@ -890,24 +1089,30 @@ def cpu_reference(work: Path, index, em_cfg) -> dict:
 
     from seekmer_tpu_torch import MapConfig
     from seekmer_tpu_torch.em.em import build_ec_table, run_em, tpm_from_alpha
+
+    ref = cpu_map(work, index, MapConfig(batch_size=B))
+    x64 = dataclasses.replace(em_cfg, use_x64=True)
+    ec = build_ec_table(ref["members"], ref["counts"], index.num_transcripts,
+                        dtype=torch.float64, device="cpu")
+    alpha, _ = run_em(ec, index.lengths, x64)
+    return dict(ref, tpm=tpm_from_alpha(alpha, index.lengths, x64).numpy())
+
+
+def cpu_map(work: Path, index, cfg) -> dict:
+    """The config-1 reads mapped under ``cfg`` on the CPU through the port's
+    plain versions: mapped and unmapped counted as the Quantifier counts
+    them (reads whose signature resolves to no transcript are dropped from
+    the mapped), and the resolved ECs."""
     from seekmer_tpu_torch.io.fastq import batch_reads_native
     from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
     from seekmer_tpu_torch.utils.prefetch import device_put_batches
 
-    cfg = MapConfig(batch_size=B)
     result = Mapper(index, cfg, device="cpu").run(device_put_batches(
         batch_reads_native([str(work / "c1.fq")], cfg), "cpu"))
-    # as the Quantifier counts them: reads whose signature resolves to no
-    # transcript are dropped from the mapped
     members, counts, dropped = resolve_signatures(result, index)
-    x64 = dataclasses.replace(em_cfg, use_x64=True)
-    ec = build_ec_table(members, counts, index.num_transcripts,
-                        dtype=torch.float64, device="cpu")
-    alpha, _ = run_em(ec, index.lengths, x64)
     return {"mapped": result.mapped - dropped,
             "unmapped": result.total_reads - result.mapped + dropped,
-            "members": members, "counts": counts,
-            "tpm": tpm_from_alpha(alpha, index.lengths, x64).numpy()}
+            "members": members, "counts": counts}
 
 
 def em_tpm_error(index, ref, em_cfg) -> float:
@@ -985,11 +1190,14 @@ def report_stage(name: str, run):
     return out
 
 
-def profile_stages(work: Path) -> None:
-    """Trace the map stage, a fixed 480-iteration EM and a fixed
-    480-iteration 100-replicate bootstrap on both worlds; on the world that
+def profile_stages(work: Path, keep_inputs=None) -> None:
+    """Trace the map stage (dense, then fast at s = 16), a fixed
+    480-iteration EM and a fixed 480-iteration 100-replicate bootstrap on
+    both worlds; on the world that
     takes the batched CSR bootstrap route, hold that route on the card
-    against the CPU first."""
+    against the CPU first. With ``keep_inputs``, write config 2's EC table
+    to ``keep_inputs``.c2_ec.npz."""
+    import numpy as np
     import torch
 
     from seekmer_tpu_torch import EMConfig, MapConfig
@@ -1009,7 +1217,7 @@ def profile_stages(work: Path) -> None:
         index = KMerIndex.load(str(work / f"{tag}.npz"))
         cfg = MapConfig(batch_size=B, sig_table_bits=bits, paired_end=paired)
 
-        def map_run(trace):
+        def map_run(trace, cfg=cfg):
             # as Quantifier.quantify_batches: the index upload is set-up,
             # the timed region is Mapper.run over the prefetched batches
             mapper = Mapper(index, cfg, device=dev)
@@ -1024,7 +1232,14 @@ def profile_stages(work: Path) -> None:
                                    torch.cuda.synchronize())[0], trace)
 
         result = report_stage(f"{tag} map", map_run)
+        fast = dataclasses.replace(cfg, probe_sample=16)
+        report_stage(f"{tag} map fast s=16",
+                     lambda trace: map_run(trace, fast))
         members, counts, _ = resolve_signatures(result, index)
+        if keep_inputs and paired:
+            np.savez(f"{keep_inputs}.c2_ec.npz", counts=counts,
+                     lengths=index.lengths, sizes=[m.size for m in members],
+                     members=np.concatenate(members))
         ec = build_ec_table(members, counts, index.num_transcripts,
                             device=dev)
         log(f"[profile {tag} em] nnz {ec.ec_ids.numel()}, {ec.num_ecs} ECs")
@@ -1050,6 +1265,10 @@ KERNELS = [
      "seekmer_tpu/ops/em_pallas.py:42"),
     ("A1", "accumulate", "seekmer_tpu_torch/csrc/accumulate.cu",
      "seekmer_tpu/map/signature.py:127"),
+    ("K5", "sample", "seekmer_tpu_torch/csrc/sample.cu",
+     "seekmer_tpu/ops/probe.py:339"),
+    ("K6", "merge", "seekmer_tpu_torch/csrc/merge.cu",
+     "seekmer_tpu/ops/probe.py:481"),
 ]
 
 
@@ -1059,7 +1278,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keep-inputs", metavar="PATH",
                     help="write K3's inputs of the config-2 batch there, for "
-                    "python -m seekmer_tpu_torch.utils.kernel_ab")
+                    "python -m seekmer_tpu_torch.utils.kernel_ab, and config "
+                    "2's EC table to PATH.c2_ec.npz")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1094,7 +1314,7 @@ def main(argv=None) -> int:
         timing = compare_kernels(work, make_worlds(work), args.keep_inputs)
         timing["K4"] = compare_em_kernel(work)
         launches = end_to_end(work)
-        profile_stages(work)
+        profile_stages(work, args.keep_inputs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

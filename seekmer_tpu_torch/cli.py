@@ -4,11 +4,20 @@ file loads in either package) and ``infer`` on one device, ``--device
 cuda`` by default.
 
 ``infer`` estimates the fragment-length distribution of paired runs unless
-``--fragment-length`` or ``--fragment-sd`` is given, and runs ``--bootstrap``
-replicates. It accepts the JAX CLI's flags for the features this port does
-not have yet (``--checkpoint``, ``--pack-cache``, ``--probe-sample``,
-``--probe-stride``, sharding) and refuses them with an error naming their
-ROADMAP.md item, as it does ``fuse``.
+``--fragment-length`` or ``--fragment-sd`` is given, runs ``--bootstrap``
+replicates, and maps in fast mode with ``--probe-sample N`` (N >= 2). It
+parses every ``infer`` flag of the JAX CLI:
+
+- ``--sample-fallback`` (validated, then ignored: the port re-probes every
+  fallback unit in one pass) and ``--io-workers`` go into ``MapConfig``;
+- ``--probe-chunks``, ``--pack-backend``, ``--probe-backend``,
+  ``--sig-backend`` and ``--no-h2d-pack`` go into ``MapConfig`` too, whose
+  fields for them the port ignores (``config.py``); ``--checkpoint-every``
+  is accepted and means nothing without ``--checkpoint``;
+- the features the port does not have yet (``--checkpoint``,
+  ``--pack-cache``, ``--probe-stride`` > 1, ``--trace-dir``, sharding,
+  ``--distributed``) are refused with an error naming their ROADMAP.md
+  item, as ``fuse`` is.
 """
 
 from __future__ import annotations
@@ -88,13 +97,34 @@ def _add_infer(sub):
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the bootstrap resampling")
     p.add_argument("--x64", action="store_true", help="float64 EM")
+    p.add_argument("--probe-sample", type=int, default=0,
+                   help="fast mode: sample every Nth window; reads whose "
+                        "samples name one EC resolve early, the rest "
+                        "re-probe densely (an approximation; 0 = exact "
+                        "dense)")
+    p.add_argument("--sample-fallback", type=float, default=0.0,
+                   help="the JAX package's fast-mode phase-2 cap fraction; "
+                        "validated and ignored here")
+    p.add_argument("--io-workers", type=int, default=0,
+                   help="concurrent FASTQ decode threads (0 = auto, "
+                        "1 = serial)")
+    # the JAX package's TPU-only knobs: accepted, ignored (config.py)
+    p.add_argument("--probe-chunks", type=int, default=0)
+    p.add_argument("--pack-backend", choices=("xla", "pallas"),
+                   default="xla")
+    p.add_argument("--probe-backend", choices=("xla", "pallas"),
+                   default="xla")
+    p.add_argument("--sig-backend", choices=("xla", "pallas"), default="xla")
+    p.add_argument("--no-h2d-pack", action="store_true")
     # features of the JAX CLI that are refused until they are ported
     p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--pack-cache", nargs="?", const="auto", default=None)
-    p.add_argument("--probe-sample", type=int, default=0)
     p.add_argument("--probe-stride", type=int, default=1)
+    p.add_argument("--trace-dir", default=None)
     p.add_argument("--data-shards", type=int, default=1)
     p.add_argument("--index-shards", type=int, default=1)
+    p.add_argument("--distributed", action="store_true")
     return p
 
 
@@ -120,23 +150,28 @@ def _refuse_unported(args) -> None:
         raise NotPorted("--checkpoint", "Checkpoints")
     if args.pack_cache is not None:
         raise NotPorted("--pack-cache", "Pack cache")
-    if args.probe_sample >= 2:
-        raise NotPorted("--probe-sample (fast mode)", "Fast mode")
     if args.probe_stride > 1:
         raise NotPorted("--probe-stride > 1", "Strided mode")
+    if args.trace_dir:
+        raise NotPorted("--trace-dir", "Tooling")
     if args.data_shards != 1 or args.index_shards != 1:
         raise NotPorted("sharding", "Multi-GPU")
+    if args.distributed:
+        raise NotPorted("--distributed", "Multi-GPU")
 
 
 def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers in this process."""
-    from .ops import accumulate_cuda, em_cuda, pack_cuda, probe_cuda, sig_cuda
+    from .ops import (accumulate_cuda, em_cuda, fast_cuda, pack_cuda,
+                      probe_cuda, sig_cuda)
 
     return {"pack": pack_cuda.pack_canonical_2bit.launches,
             "lookup": probe_cuda.lookup_ecs_aux.launches,
             "signature": sig_cuda.read_signatures.launches,
             "accumulate": accumulate_cuda.fold_batch.launches,
-            "em": em_cuda.em_fixed_point.launches}
+            "em": em_cuda.em_fixed_point.launches,
+            "sample": fast_cuda.sample_classify.launches,
+            "merge": fast_cuda.merge_staging.launches}
 
 
 def cmd_infer(args) -> int:
@@ -157,7 +192,15 @@ def cmd_infer(args) -> int:
         map=MapConfig(batch_size=args.batch_size,
                       max_ecs_per_read=args.max_ecs_per_read,
                       sig_table_bits=args.sig_table_bits,
-                      paired_end=bool(args.mates)),
+                      paired_end=bool(args.mates),
+                      probe_sample=args.probe_sample,
+                      sample_fallback_frac=args.sample_fallback,
+                      io_workers=args.io_workers,
+                      probe_chunks=args.probe_chunks,
+                      pack_backend=args.pack_backend,
+                      probe_backend=args.probe_backend,
+                      sig_backend=args.sig_backend,
+                      h2d_pack_2bit=not args.no_h2d_pack),
         em=EMConfig(
             mean_fragment_length=(200.0 if args.fragment_length is None
                                   else args.fragment_length),
@@ -207,6 +250,8 @@ def cmd_infer(args) -> int:
                     {"mean": result.fld_mean, "sd": result.fld_sd,
                      "samples": result.fld_samples}),
             "bootstrap_samples": args.bootstrap,
+            # 0 = dense, exact; >= 2 = fast mode's approximation
+            "probe_sample": args.probe_sample,
             "start_time": start_time,
             "timings": result.timings,
             "index": args.index,

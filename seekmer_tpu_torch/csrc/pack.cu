@@ -21,18 +21,13 @@
 //     and 4-byte stores where the output's layout allows;
 //   - base j sits at bit 2j of the row read as little-endian words, so the
 //     32 bases from the quad's first window are W, a funnel shift of three
-//     32-bit words, and window q of the quad is W >> 2q masked to 2k bits
-//     (2k <= 58); the quad's k + 3 bad bits are a funnel shift of two
-//     words of the bitmask, spread to 2-bit groups and cleared from W (bad
-//     bases pack as A, as the plain version packs them);
-//   - W holds base i at bits 2i, which is where the reverse complement
-//     wants base i complemented: R = ~(W >> 2q) & mask(2k). The forward
-//     value F (base 0 in the top group) reverses the 2-bit groups: with
-//     Bs = __brevll(W with the bits of each pair swapped), computed once a
-//     quad, F = (Bs << 2q) >> (64 - 2k);
-//   - canonical = min(F, R) as 2k-bit integers, which is the plain
-//     version's (hi, lo) lexicographic rule since hi is the top
-//     2 * (k / 2) bits; hi = canon >> 2 n_lo, lo = the low 2 n_lo bits.
+//     32-bit words; the quad's k + 3 bad bits are a funnel shift of two
+//     words of the bitmask, cleared from W (bad bases pack as A, as the
+//     plain version packs them);
+//   - window q of the quad is then computed in closed form from W and its
+//     base reversal Bs, computed once a quad (kmer.cuh, shared with K5):
+//     canonical = min(forward, reverse complement) as 2k-bit integers;
+//     hi = canon >> 2 n_lo, lo = the low 2 n_lo bits.
 //
 // That is ~30 operations a window, the quad's loads and reversal shared.
 //
@@ -43,6 +38,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "kmer.cuh"
 
 namespace {
 
@@ -78,16 +74,6 @@ __device__ __forceinline__ int stage(uint8_t* dst, const uint8_t* src, int n) {
   return a;
 }
 
-// Bit i of x moves to bit 2i.
-__device__ __forceinline__ uint64_t spread2(uint32_t x) {
-  uint64_t v = x;
-  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
-  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
-  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
-  v = (v | (v << 2)) & 0x3333333333333333ull;
-  return (v | (v << 1)) & 0x5555555555555555ull;
-}
-
 __global__ void __launch_bounds__(kThreads)
 pack_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad,
             const int32_t* __restrict__ lengths, int32_t* __restrict__ hi_out,
@@ -114,7 +100,6 @@ pack_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad,
   const uint32_t* pw = reinterpret_cast<const uint32_t*>(s_pk);
   const uint32_t* bw = reinterpret_cast<const uint32_t*>(s_bd);
   const int lo_bits = 2 * (k - k / 2);
-  const uint64_t mask2k = (1ull << (2 * k)) - 1;
   const uint32_t maskk = (1u << k) - 1;
   const uint32_t mask_quad = 0xffffffffu >> (29 - k);  // k + 3 bad bits
 
@@ -128,29 +113,21 @@ pack_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad,
     const uint32_t X = 8u * (a_pk + r * Sp + (p0 >> 2));
     const uint32_t i = X >> 5, s = X & 31;
     const uint32_t w0 = pw[i], w1 = pw[i + 1], w2 = pw[i + 2];
-    uint64_t W = (uint64_t)__funnelshift_r(w1, w2, s) << 32 |
-                 __funnelshift_r(w0, w1, s);
     const uint32_t Y = 8u * (a_bd + r * Sb) + p0;
     const uint32_t j = Y >> 5;
     const uint32_t nb =
         __funnelshift_r(bw[j], bw[j + 1], Y & 31) & mask_quad;
-    const uint64_t g = spread2(nb);
-    W &= ~(g | (g << 1));  // bad bases pack as A
-    // the forward strand of window q is the bit reversal of W's 2-bit
-    // groups from q on: with Bs = brev(W, pairs swapped), the top 2k bits
-    // of Bs << 2q
-    uint64_t Bs =
-        ((W >> 1) & 0x5555555555555555ull) | ((W & 0x5555555555555555ull) << 1);
-    Bs = __brevll(Bs);
+    const uint64_t W = seekmer::clear_bad(
+        (uint64_t)__funnelshift_r(w1, w2, s) << 32 | __funnelshift_r(w0, w1, s),
+        nb);
+    const uint64_t Bs = seekmer::reverse_bases(W);
     const int len = s_len[r];
 
     int32_t h[4], l[4];
     uint8_t v[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const uint64_t Rc = ~(W >> (2 * q)) & mask2k;  // reverse complement
-      const uint64_t F = (Bs << (2 * q)) >> (64 - 2 * k);
-      const uint64_t canon = F <= Rc ? F : Rc;
+      const uint64_t canon = seekmer::canonical_window(W, Bs, q, k);
       h[q] = (int32_t)(canon >> lo_bits);
       l[q] = (int32_t)(canon & ((1ull << lo_bits) - 1));
       v[q] = (p0 + q + k <= len) && ((nb >> q) & maskk) == 0;

@@ -39,7 +39,8 @@
 //     alone, on its stash row (~2e-4 of keys at load 0.5);
 //   - ec and aux are written per lane, coalesced.
 //
-// Results equal `_lookup_flat` on tables in the slab layout
+// The warp's steps are `seekmer::warp_lookup` in lookup.cuh, which K5
+// (sample.cu) shares. Results equal `_lookup_flat` on tables in the slab layout
 // (ops/probe.py `device_table_layout`): the matched slot's ecaux if any
 // (the largest, should several match), else -1 for a row with an empty
 // slot and -2 for a full one, which sends the key to the stash;
@@ -48,83 +49,13 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "lookup.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 // 4 blocks an SM (<= 64 registers): 32 warps, 1,024 keys in flight an SM
 constexpr int kMinBlocks = 4;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int32_t kEmpty = -1;
-
-// How a warp reads the hi slabs of 32 rows of G int32: VEC int32 a load,
-// LPR lanes a row, RPI rows a warp instruction, LPR instructions.
-template <int G>
-struct Geo {
-  static constexpr int VEC = G < 4 ? G : 4;
-  static constexpr int LPR = G / VEC;
-  static constexpr int RPI = 32 / LPR;
-};
-
-template <int V>
-__device__ __forceinline__ void load_vec(const int32_t* p, int32_t (&v)[V]) {
-  if constexpr (V == 4) {
-    int4 t = __ldg(reinterpret_cast<const int4*>(p));
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else if constexpr (V == 2) {
-    int2 t = __ldg(reinterpret_cast<const int2*>(p));
-    v[0] = t.x, v[1] = t.y;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
-
-// Bit i of x (x < 256) moves to bit 4i.
-__device__ __forceinline__ uint32_t spread4(uint32_t x) {
-  x = (x | (x << 12)) & 0x000F000Fu;
-  x = (x | (x << 6)) & 0x03030303u;
-  return (x | (x << 3)) & 0x11111111u;
-}
-
-// The 3-state value of one row, given the slots whose hi equals the key's
-// and whether the row has an empty slot: the largest ecaux of a slot whose
-// lo matches too, else -1 (an empty slot) or -2 (full).
-template <int G>
-__device__ __forceinline__ int32_t resolve(const int32_t* __restrict__ row,
-                                           uint32_t match, bool empty,
-                                           int32_t klo) {
-  int32_t m = empty ? -1 : -2;
-  while (match) {  // usually no slot or one
-    const int s = __ffs(match) - 1;
-    match &= match - 1;
-    const int32_t l = __ldg(row + G + s);
-    const int32_t e = __ldg(row + 2 * G + s);
-    if (l == klo) m = max(m, e);
-  }
-  return m;
-}
-
-// One lane alone on one row (the stash probe): the same steps as the
-// warp's cooperative read of the home rows.
-template <int G>
-__device__ int32_t probe_row(const int32_t* __restrict__ row, int32_t khi,
-                             int32_t klo) {
-  using C = Geo<G>;
-  uint32_t match = 0;
-  bool empty = false;
-#pragma unroll
-  for (int i = 0; i < C::LPR; ++i) {
-    int32_t v[C::VEC];
-    load_vec<C::VEC>(row + i * C::VEC, v);
-#pragma unroll
-    for (int c = 0; c < C::VEC; ++c) {
-      match |= (uint32_t)(v[c] == khi) << (i * C::VEC + c);
-      empty |= v[c] == kEmpty;
-    }
-  }
-  return resolve<G>(row, match, empty, klo);
-}
 
 template <int G>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -134,12 +65,7 @@ lookup_kernel(const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
               const int32_t* __restrict__ stash, int32_t* __restrict__ ec_out,
               int32_t* __restrict__ aux_out, int64_t N, uint32_t main_mask,
               uint32_t stash_mask, int aux_bits) {
-  using C = Geo<G>;
   const int lane = threadIdx.x & 31;
-  const int sub = lane % C::LPR;     // the vector of a row this lane loads
-  const int grp = lane / C::LPR;     // the row of an instruction it loads
-  const int own_ins = lane / C::RPI; // the instruction loading its own row
-  const int own_grp = lane % C::RPI; // and the row's place in it
   const int64_t warps = (int64_t)gridDim.x * (kThreads / 32);
   for (int64_t tile = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
        tile * 32 < N; tile += warps) {  // uniform across the warp
@@ -153,62 +79,8 @@ lookup_kernel(const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
       khi = hi[key];
       klo = lo[key];
     }
-    long long row = -1;  // home bucket; -1 for lanes that take no part
-    if (v) row = seekmer::hash_kmer((uint32_t)khi, (uint32_t)klo) & main_mask;
-
-    // every home row's hi slab, all loads issued before any compare
-    int32_t slab[C::LPR][C::VEC];
-#pragma unroll
-    for (int j = 0; j < C::LPR; ++j) {
-      const long long r = __shfl_sync(kFull, row, j * C::RPI + grp);
-      if (r >= 0) {
-        load_vec<C::VEC>(table + r * 4 * G + sub * C::VEC, slab[j]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < C::VEC; ++c) slab[j][c] = 0;
-      }
-    }
-
-    // per instruction, ballots of hi matches (one per vector component)
-    // and of empty slots; each lane keeps those of its own row
-    uint32_t own[C::VEC], own_empty = 0;
-#pragma unroll
-    for (int c = 0; c < C::VEC; ++c) own[c] = 0;
-#pragma unroll
-    for (int j = 0; j < C::LPR; ++j) {
-      const int32_t kh = __shfl_sync(kFull, khi, j * C::RPI + grp);
-      bool e = false;
-#pragma unroll
-      for (int c = 0; c < C::VEC; ++c) {
-        const uint32_t b = __ballot_sync(kFull, slab[j][c] == kh);
-        own[c] = j == own_ins ? b : own[c];
-        e |= slab[j][c] == kEmpty;
-      }
-      const uint32_t b = __ballot_sync(kFull, e);
-      own_empty = j == own_ins ? b : own_empty;
-    }
-
-    int32_t m = -1;
-    if (v) {
-      // bits [own_grp * LPR, + LPR) of a ballot are this row's vectors;
-      // vector i, component c is slot i * VEC + c
-      const int shift = own_grp * C::LPR;
-      const uint32_t lmask = (1u << C::LPR) - 1;
-      uint32_t match = 0;
-#pragma unroll
-      for (int c = 0; c < C::VEC; ++c) {
-        const uint32_t bits = (own[c] >> shift) & lmask;
-        match |= (C::VEC == 4 ? spread4(bits) : bits) << c;
-      }
-      const bool empty = (own_empty >> shift) & lmask;
-      m = resolve<G>(table + row * 4 * G, match, empty, klo);
-      if (m == -2) {
-        const uint32_t sb =
-            seekmer::hash_kmer_stash((uint32_t)khi, (uint32_t)klo) &
-            stash_mask;
-        m = probe_row<G>(stash + (int64_t)sb * 4 * G, khi, klo);
-      }
-    }
+    const int32_t m = seekmer::warp_lookup<G>(v, khi, klo, table, stash,
+                                              main_mask, stash_mask);
     if (key < N) {
       ec_out[key] = m >= 0 ? m >> aux_bits : -1;
       aux_out[key] = m >= 0 ? m & ((1 << aux_bits) - 1) : 0;

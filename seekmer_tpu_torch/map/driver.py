@@ -1,12 +1,22 @@
 """Single-device mapping driver: read batches -> map step -> signature
 table -> merged signature counts. Counterpart of
-``seekmer_tpu/map/driver.py``, dense mode only.
+``seekmer_tpu/map/driver.py``, dense and fast mode.
 
-One map step is pack (K1) -> lookup with the stash (K2) -> signatures (K3)
--> accumulate (A1), each a kernel on a CUDA device and its plain PyTorch
-version on the CPU. The table stays on the device across batches; the
-host only streams, packs and uploads reads, and merges and resolves the
-distinct signatures once at the end.
+A dense map step is pack (K1) -> lookup with the stash (K2) -> signatures
+(K3) -> accumulate (A1), each a kernel on a CUDA device and its plain
+PyTorch version on the CPU. A fast one (``MapConfig.probe_sample`` >= 2)
+is sample + probe + classify (K5) -> K1, K2 and K3 on the segments that
+need a dense re-probe -> merge (K6) -> A1 (``ops/fast_cuda.py``). The
+table stays on the device across batches; the host only streams, packs
+and uploads reads, and merges and resolves the distinct signatures once
+at the end.
+
+Fast mode has no fallback cap here: every needy segment is re-probed in
+one pass, so ``MapConfig.sample_fallback_frac`` is validated by the config
+and ignored, and the JAX package's cap calibration
+(``_pick_fallback_frac``, ``FALLBACK_FRAC_GRID``,
+``Mapper._resolve_fallback_frac``, an extra classify-stage program on the
+first batch) and its ``_probe_stage`` bisect hook have no counterpart.
 
 ``MapConfig.pack_backend``, ``probe_backend`` and ``sig_backend`` choose
 between XLA and Pallas in the JAX package and are ignored here: which
@@ -32,7 +42,8 @@ import torch
 from ..config import MapConfig
 from ..index.store import KMerIndex
 from ..io.fastq import ReadBatch, pack_batch_2bit
-from ..ops import accumulate_cuda, pack_cuda, probe_cuda, sig_cuda
+from ..ops import (accumulate_cuda, fast_cuda, pack_cuda, probe_cuda,
+                   sig_cuda)
 from ..ops.probe import device_table_layout
 from .signature import SIG_PAD, SigTable, make_sig_table, table_to_host
 
@@ -68,10 +79,6 @@ def to_device(x, device: torch.device):
 
 def check_map_config(cfg: MapConfig) -> None:
     """Raise on the mapping modes this port does not have yet."""
-    if cfg.probe_sample >= 2:
-        raise NotImplementedError(
-            "probe_sample (fast mode) is not ported yet: ROADMAP.md, "
-            "still to port, 'Fast mode'")
     if cfg.probe_stride > 1:
         raise NotImplementedError(
             "probe_stride > 1 (strided mode) is not ported yet: ROADMAP.md, "
@@ -109,14 +116,25 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
              lengths, weights, codes2=None, lengths2=None, bad=None,
              bad2=None, pad_len: int | None = None,
              audit: bool | None = None) -> SigTable:
-    """One dense mapping step on 2-bit packed reads (``pad_len`` is the
-    unpacked padded length). Paired reads pack both mates' windows side by
-    side into one (B, 2P) lookup and take the union of their EC hits."""
+    """One mapping step on 2-bit packed reads (``pad_len`` is the unpacked
+    padded length). Dense mode packs paired reads' windows side by side into
+    one (B, 2P) lookup and takes the union of their EC hits; fast mode
+    (``probe_sample`` >= 2) resolves each mate as a segment of its own."""
     check_map_config(cfg)
     if pad_len is None:
         raise ValueError("map_step takes 2-bit packed reads (pad_len set)")
     if audit is None:
         audit = cfg.collision_audit
+    if cfg.probe_sample >= 2:
+        mates = [(codes, bad, lengths)]
+        if codes2 is not None:
+            mates.append((codes2, bad2, lengths2))
+        sig, mapped = fast_cuda.two_phase_signatures(
+            mates, pad_len, di.k, cfg.probe_sample, cfg.max_ecs_per_read,
+            di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+        return accumulate_cuda.fold_batch(table, sig, mapped, weights=weights,
+                                          sig_probe=cfg.sig_probe,
+                                          audit=audit)
     out, P = None, max(pad_len - di.k + 1, 0)
     if codes2 is not None:
         shape = (codes.shape[0], 2 * P)

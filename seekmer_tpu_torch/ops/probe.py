@@ -1,8 +1,9 @@
-"""Bucketized k-mer lookup, plain PyTorch.
+"""Bucketized k-mer lookup and fast mode's two-phase probe, plain PyTorch.
 
 Counterpart of ``seekmer_tpu/ops/probe.py`` ``_bucket_lookup``,
-``lookup_ecs_aux`` and ``lookup_ecs``. These run on CPU tensors and are
-what the lookup kernel (``ops/probe_cuda.py``) is held against.
+``lookup_ecs_aux``, ``lookup_ecs`` and ``two_phase_signatures``. These run
+on CPU tensors and are what the lookup kernel (``ops/probe_cuda.py``) and
+fast mode's kernels (``ops/fast_cuda.py``) are held against.
 
 The JAX ``_lookup_flat`` block-compacts the rare lanes that must consult
 the stash into capped rounds under a ``while_loop``, so the second gather
@@ -17,10 +18,14 @@ JAX at the top, so the port cannot import them from there.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
+from ..map.signature import SIG_PAD, read_signatures
 from .hash import hash_kmer, hash_kmer_stash
+from .kmer_pack import pack_canonical, unpack_codes_2bit
 
 EMPTY = -1
 MISS = -1
@@ -120,3 +125,145 @@ def lookup_ecs(hi, lo, valid, table, main_slots: int, stash,
     """k-mer (hi, lo) lanes -> EC ids (MISS for absent or invalid)."""
     return lookup_ecs_aux(hi, lo, valid, table, main_slots, stash,
                           stash_slots, bucket)[0]
+
+
+# ---- fast mode: two-phase sampled probing ----------------------------------
+#
+# What ``seekmer_tpu/ops/probe.py`` ``two_phase_signatures`` computes, split
+# into its three steps so each kernel has a plain version of exactly its
+# own function: ``sample_classify`` (phase 1 and the choice of the units to
+# re-probe; K5), the dense re-probe of those units (K1, K2, K3), and
+# ``merge_staging`` (K6). Dropped, since they only schedule work under
+# XLA's static shapes: the ``fallback_frac`` cap, its compacted rounds and
+# the residual ``while_loop`` (coverage is exact whatever the cap; here
+# every unit goes in one pass), and the ``_stage`` bisect hooks.
+
+
+def sample_columns(P: int, stride: int) -> list:
+    """Fast mode's sampled window columns of a segment of P windows: 0, s,
+    2s, ... below P, then P - 1 if it is not one of them, s = max(stride,
+    2). They are static over the padded width, as the JAX package samples
+    them: at 100 bp in the 128 length bucket P - 1 = 103 is an invalid
+    window, and the read's last real window is not sampled."""
+    cols = list(range(0, P, max(stride, 2)))
+    if cols[-1] != P - 1:
+        cols.append(P - 1)
+    return cols
+
+
+def _pack(packed, bad, lengths, L: int, k: int):
+    return pack_canonical(unpack_codes_2bit(packed, bad, L), lengths, k)
+
+
+def sample_classify(mates, L: int, k: int, stride: int, table,
+                    main_slots: int, stash, stash_slots: int, bucket: int):
+    """Phase 1: look up the sampled windows of each segment and decide
+    which segments phase 2 re-probes densely.
+
+    ``mates`` holds one (packed uint8[B, (L+3)//4], bad uint8[B, (L+7)//8],
+    lengths int32[B]) per segment: a single-end read has one, a pair two.
+    A segment's sampled hits name at most one EC when ok; a read resolves
+    when every segment is ok and one had a hit. A unit (read, segment) is
+    re-probed when its read did not resolve, the segment is ambiguous or
+    had no sampled hit, and it has a valid window at all (judged on every
+    window, not the sampled ones).
+
+    Returns (single int32[B, n_seg]: the segment's one sampled EC when it
+    is ok and hit, else SIG_PAD; slot int32[B, n_seg]: the unit's row in
+    ``units``, -1 when it is not re-probed; units: (packed, bad, lengths)
+    of the Nu re-probed units, in (read, segment) order here).
+    """
+    n_seg = len(mates)
+    cols = torch.tensor(sample_columns(L - k + 1, stride),
+                        device=mates[0][0].device)
+    oks, mxs, has_valid = [], [], []
+    for packed, bad, lengths in mates:
+        hi, lo, valid = _pack(packed, bad, lengths, L, k)
+        ec = lookup_ecs(hi[:, cols], lo[:, cols], valid[:, cols], table,
+                        main_slots, stash, stash_slots, bucket)
+        hit = ec >= 0
+        mx = torch.where(hit, ec, -1).amax(dim=1)
+        oks.append((mx < 0) | (~hit | (ec == mx[:, None])).all(dim=1))
+        mxs.append(mx)
+        has_valid.append(valid.any(dim=1))
+    ok, mx = torch.stack(oks, dim=1), torch.stack(mxs, dim=1)
+    resolved = (mx >= 0).any(dim=1) & ok.all(dim=1)
+    single = torch.where(ok & (mx >= 0), mx, SIG_PAD).to(torch.int32)
+    need = (~resolved[:, None] & (~ok | (mx < 0))
+            & torch.stack(has_valid, dim=1))
+    flat = need.reshape(-1)
+    slot = torch.where(flat, torch.cumsum(flat, 0) - 1, -1).to(
+        torch.int32).reshape(need.shape)
+    units = flat.nonzero().squeeze(1)
+    b, g = units // n_seg, units % n_seg
+    return single, slot, tuple(torch.stack([m[i] for m in mates], dim=1)[b, g]
+                               for i in range(3))
+
+
+def merge_staging(single, slot, sig_d, mapped_d, max_ecs: int):
+    """Merge each read's segment contributions into its signature.
+
+    A segment contributes its unit's dense signature row ``sig_d[slot]``
+    when it was re-probed, else its ``single`` EC (nothing when SIG_PAD).
+    sig = the first C of the sorted distinct contributions; over = more
+    than C of them; a re-probed segment with hits that is unmapped on its
+    own (more than C distinct ECs) forces the read unmapped; mapped = some
+    contribution & ~over & ~forced. Returns (sig int32[B, C], mapped
+    bool[B]), as ``seekmer_tpu/ops/probe.py:481-490`` builds them.
+    """
+    B, n_seg = single.shape
+    C = max_ecs
+    staging = torch.full((B, n_seg, C), SIG_PAD, dtype=torch.int32,
+                         device=single.device)
+    staging[:, :, 0] = single
+    has = slot >= 0
+    rows = slot[has].long()
+    staging[has] = sig_d[rows]
+    forced = torch.zeros((B, n_seg), dtype=torch.bool, device=single.device)
+    forced[has] = (sig_d[rows, 0] != SIG_PAD) & ~mapped_d[rows]
+    flat = torch.sort(staging.reshape(B, n_seg * C), dim=1).values
+    if n_seg * C > 1:
+        dup = torch.cat([torch.zeros_like(flat[:, :1], dtype=torch.bool),
+                         flat[:, 1:] == flat[:, :-1]], dim=1)
+        flat = torch.sort(torch.where(dup, SIG_PAD, flat), dim=1).values
+    over = (flat[:, C] != SIG_PAD if n_seg > 1
+            else torch.zeros(B, dtype=torch.bool, device=single.device))
+    mapped = (flat[:, 0] != SIG_PAD) & ~over & ~forced.any(dim=1)
+    return flat[:, :C].contiguous(), mapped
+
+
+class FastSteps(NamedTuple):
+    """The functions fast mode's signatures are made of."""
+
+    sample: Callable  # sample_classify
+    pack: Callable  # (packed, bad, lengths, L, k) -> (hi, lo, valid)
+    lookup: Callable  # lookup_ecs
+    signatures: Callable  # read_signatures
+    merge: Callable  # merge_staging
+
+
+PLAIN = FastSteps(sample_classify, _pack, lookup_ecs, read_signatures,
+                  merge_staging)
+
+
+def two_phase_signatures(mates, L: int, k: int, stride: int, max_ecs: int,
+                         table, main_slots: int, stash, stash_slots: int,
+                         bucket: int, steps: FastSteps = PLAIN):
+    """Fast mode's (sig int32[B, C], mapped bool[B]) of a batch: phase 1
+    on the sampled windows, a dense re-probe of the units it picks (pack,
+    lookup, signatures at width C), then the merge. ``mates`` as in
+    :func:`sample_classify`; ``steps`` swaps in other implementations of
+    the steps (``ops/fast_cuda.KERNELS``). With no unit to re-probe, phase
+    2 runs nothing."""
+    geo = (table, main_slots, stash, stash_slots, bucket)
+    single, slot, (packed, bad, lengths) = steps.sample(mates, L, k, stride,
+                                                        *geo)
+    if packed.shape[0]:
+        hi, lo, valid = steps.pack(packed, bad, lengths, L, k)
+        sig_d, mapped_d = steps.signatures(steps.lookup(hi, lo, valid, *geo),
+                                           valid, max_ecs)
+    else:
+        sig_d = torch.empty((0, max_ecs), dtype=torch.int32,
+                            device=single.device)
+        mapped_d = torch.empty(0, dtype=torch.bool, device=single.device)
+    return steps.merge(single, slot, sig_d, mapped_d, max_ecs)

@@ -1,7 +1,10 @@
 """The port's bootstrap (``seekmer_tpu_torch.em.bootstrap``) against the JAX
-package: batched CSR EM on one shared count matrix, the route
-``run_bootstrap`` takes, and the resampler by its moments (the JAX
-multinomial bits cannot be reproduced)."""
+package: batched CSR EM on one shared count matrix (iteration counts too,
+on a mapped world), the route ``run_bootstrap`` takes, and the resampler
+by its moments (the JAX multinomial bits cannot be reproduced).
+
+``python -m tests.test_torch_bootstrap EC.npz`` compares both packages'
+iteration counts on a larger EC table (:func:`main`)."""
 
 import dataclasses
 
@@ -140,3 +143,116 @@ def test_resampler_moments():
     live = p > 0.02
     np.testing.assert_allclose(sd[live], np.sqrt(N * p * (1 - p))[live],
                                rtol=0.2)
+
+
+def _mapped_world():
+    """The EC table (members, counts) and lengths of a small isoform world
+    mapped by the port: the structure of config 2's table, whose bootstrap
+    runs to the 10,000-iteration cap on the card."""
+    from seekmer_tpu_torch.index.build import build_index_from_seqs
+    from seekmer_tpu_torch.io.fastq import ReadBatch
+    from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
+    from seekmer_tpu_torch.utils.simulate import (isoform_transcriptome,
+                                                  simulate_packed_pairs)
+
+    rng = np.random.default_rng(27)
+    names, seqs, genes = isoform_transcriptome(rng, num_genes=40)
+    index = build_index_from_seqs(names, seqs, genes=genes)
+    c1, c2, _ = simulate_packed_pairs(rng, seqs, 2, 2048, read_len=100,
+                                      mean_frag=200.0, sd_frag=20.0)
+    ln = np.full(2048, 100, np.int32)
+    result = Mapper(index, device="cpu").run(
+        ReadBatch(c1[i], ln, np.ones(2048, np.int32), codes2=c2[i],
+                  lengths2=ln) for i in range(2))
+    members, counts, _ = resolve_signatures(result, index)
+    return members, counts, index.lengths
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "x64"])
+def test_batched_em_iterations_match_jax_on_a_mapped_world(x64):
+    """One numpy count matrix of a mapped isoform world's EC table into
+    both packages' batched CSR EM at the ``infer`` defaults (rel_tol 1e-4,
+    max_iters 10,000): the same iteration count at float64, within one
+    check_every block at float32 (another summation order)."""
+    import jax
+
+    members, counts, lengths = _mapped_world()
+    T, B = lengths.size, 4
+    cmat = _cmat(counts, B, seed=28)
+    cfg = EMConfig()
+    jax.config.update("jax_enable_x64", x64)
+    try:
+        jdt = jnp.float64 if x64 else jnp.float32
+        jec = jem.build_ec_table(members, counts, T, dtype=jdt)
+        _, j_it = jbs.batched_em(jnp.asarray(cmat, jdt), jdt, jec.ec_ids,
+                                 jec.txp_ids, jnp.asarray(lengths),
+                                 jec.num_ecs, T, cfg)
+        j_it = int(j_it)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
+    tdt = torch.float64 if x64 else torch.float32
+    alpha, it = tbs.batched_em(torch.from_numpy(cmat).to(tdt), ec.ec_ids,
+                               ec.txp_ids, lengths, ec.num_ecs, T,
+                               port_config(cfg))
+    assert alpha.dtype == tdt
+    assert 0 < j_it <= cfg.max_iters
+    if x64:
+        assert it == j_it, (it, j_it)
+    else:
+        assert abs(it - j_it) <= cfg.check_every, (it, j_it)
+
+
+def main(argv=None) -> int:
+    """Both packages' batched CSR EM on one EC table, iteration counts side
+    by side (``python -m tests.test_torch_bootstrap EC.npz``): EC.npz is
+    what ``chip_smoke.py --keep-inputs PATH`` writes to PATH.c2_ec.npz
+    (counts, lengths, sizes, members). One numpy count matrix (multinomial
+    resamples of the counts, seed 0) goes to both at the ``infer``
+    defaults (rel_tol 1e-4, max_iters 10,000), float32 unless ``--x64``.
+    Runs on the CPU."""
+    import argparse
+    import time
+
+    ap = argparse.ArgumentParser(
+        description="both packages' batched CSR EM iteration counts")
+    ap.add_argument("ec")
+    ap.add_argument("--replicates", type=int, default=4)
+    ap.add_argument("--x64", action="store_true")
+    args = ap.parse_args(argv)
+
+    import jax
+
+    jax.config.update("jax_enable_x64", args.x64)
+
+    d = np.load(args.ec)
+    counts, lengths = d["counts"], d["lengths"]
+    members = np.split(d["members"], np.cumsum(d["sizes"])[:-1])
+    T = lengths.size
+    rng = np.random.default_rng(0)
+    N = int(round(counts.sum()))
+    cmat = np.stack([rng.multinomial(N, counts / counts.sum())
+                     for _ in range(args.replicates)]).astype(np.float32)
+    jdt = jnp.float64 if args.x64 else jnp.float32
+    tdt = torch.float64 if args.x64 else torch.float32
+    print(f"{len(members)} ECs, nnz {d['members'].size}, T {T}, "
+          f"{args.replicates} replicates, {tdt}")
+
+    t0 = time.perf_counter()
+    jec = jem.build_ec_table(members, counts, T, dtype=jdt)
+    _, j_it = jbs.batched_em(jnp.asarray(cmat, jdt), jdt, jec.ec_ids,
+                             jec.txp_ids, jnp.asarray(lengths), jec.num_ecs,
+                             T, EMConfig())
+    print(f"JAX batched_em: {int(j_it)} iterations "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    ec = tem.build_ec_table(members, counts, T, device="cpu")
+    _, it = tbs.batched_em(torch.from_numpy(cmat).to(tdt), ec.ec_ids,
+                           ec.txp_ids, lengths, ec.num_ecs, T, TEMConfig())
+    print(f"port batched_em: {it} iterations "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

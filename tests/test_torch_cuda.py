@@ -21,11 +21,14 @@ from seekmer_tpu_torch.io.fastq import ReadBatch
 from seekmer_tpu_torch.map.driver import DeviceIndex, Mapper, merge_sig_rows
 from seekmer_tpu_torch.map.signature import (SIG_PAD, make_sig_table,
                                              table_to_host)
+from seekmer_tpu_torch.map.driver import map_step
 from seekmer_tpu_torch.ops import (
     accumulate_cuda,
     em_cuda,
     em_dense,
+    fast_cuda,
     pack_cuda,
+    probe,
     probe_cuda,
     sig_cuda,
 )
@@ -604,3 +607,273 @@ def test_bootstrap_on_card_takes_k4(dev):
                                rtol=1e-4, atol=0.0)
     again, _ = run_bootstrap(ec, lengths, cfg)
     assert torch.equal(boot, again)
+
+
+# ---- fast mode: K5 (sample + probe + classify) and K6 (merge) ---------------
+
+
+def _fast_mates(dev, rng, seqs, B, L, n_seg):
+    """(packed, bad, lengths) on the card of each segment: simulated 100 bp
+    reads with 2% errors, a share of junk rows (no indexed k-mer), N bases,
+    ragged lengths, and in the last segment an all-invalid row every 97."""
+    mates = []
+    for g in range(n_seg):
+        codes, _ = simulate_packed_batches(rng, seqs, 1, B, read_len=100,
+                                           error_rate=0.02)
+        padded = np.full((B, L), 4, np.uint8)
+        padded[:, :100] = codes[0]
+        dead = rng.random(B) < 0.2
+        padded[dead, :100] = rng.integers(0, 4, size=(int(dead.sum()), 100))
+        padded[rng.random((B, L)) < 0.005] = 4
+        lengths = rng.integers(20, 101, size=B).astype(np.int32)
+        lengths[rng.random(B) < 0.5] = 100
+        if g == n_seg - 1:
+            padded[::97] = 4
+        packed, bad = enc.pack_codes_2bit(padded)
+        mates.append(tuple(torch.from_numpy(a).to(dev)
+                           for a in (packed, bad, lengths)))
+    return mates
+
+
+def _check_sample(mates, L, k, stride, geo):
+    """K5 against the plain sample_classify: the same single ECs, the same
+    units (each unit's rows found through its slot on both sides)."""
+    before = fast_cuda.sample_classify.launches
+    got = fast_cuda.sample_classify(mates, L, k, stride, *geo)
+    want = probe.sample_classify(mates, L, k, stride, *geo)
+    torch.cuda.synchronize()
+    assert fast_cuda.sample_classify.launches == before + 1
+    _eq(got[0], want[0])
+    _eq(got[1] >= 0, want[1] >= 0)
+    has = got[1] >= 0
+    assert got[2][0].shape[0] == want[2][0].shape[0] == int(has.sum())
+    for g_rows, w_rows in zip(got[2], want[2]):
+        _eq(g_rows[got[1][has].long()], w_rows[want[1][has].long()])
+    # every unit has its own slot
+    assert torch.equal(torch.sort(got[1][has]).values,
+                       torch.arange(int(has.sum()), device=has.device,
+                                    dtype=torch.int32))
+    return got, want
+
+
+@pytest.mark.parametrize("which", ["default", "stash"])
+@pytest.mark.parametrize("stride", [2, 16])
+@pytest.mark.parametrize("n_seg", [1, 2], ids=["single", "paired"])
+def test_sample_kernel(dev, world, which, stride, n_seg):
+    """K5 on reads with errors, junk, N bases, ragged lengths and
+    all-invalid mates; the "stash" index (4-slot buckets) puts keys of the
+    sampled windows in the stash."""
+    rng, seqs, idx = world
+    index = idx[which]
+    di = DeviceIndex.from_host(index, dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    L = 128
+    mates = _fast_mates(dev, rng, seqs, 3000, L, n_seg)
+    got, _ = _check_sample(mates, L, index.k, stride, geo)
+    nu = got[2][0].shape[0]
+    assert 0 < nu < 3000 * n_seg
+    if which == "stash":  # some sampled window's key lives in the stash
+        cols = probe.sample_columns(L - index.k + 1, stride)
+        hi, lo, valid = pack_cuda.plain(*mates[0], L, index.k)
+        keys = (hi[:, cols][valid[:, cols]].long() << 32) | (
+            lo[:, cols][valid[:, cols]].long() & 0xFFFFFFFF)
+        occ = index.stash[index.stash[:, 0] != -1]
+        stash_keys = torch.from_numpy((occ[:, 0].astype(np.int64) << 32)
+                                      | (occ[:, 1].astype(np.int64)
+                                         & 0xFFFFFFFF)).to(dev)
+        assert bool(torch.isin(keys, stash_keys).any())
+
+
+def test_sample_kernel_no_unit_and_every_unit(dev):
+    """Nu = 0: a one-transcript world where every read resolves in phase
+    1, and fast mode launches nothing of phase 2. Nu = every unit: junk
+    reads, every segment of which is re-probed."""
+    rng = np.random.default_rng(12)
+    seq = "".join(rng.choice(list("ACGT"), size=3000))
+    index = build_index_from_seqs(["t0"], [seq])
+    di = DeviceIndex.from_host(index, dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    L, B = 128, 2000
+    codes, _ = simulate_packed_batches(rng, [seq], 1, B, read_len=100,
+                                       error_rate=0.0)
+    padded = np.full((B, L), 4, np.uint8)
+    padded[:, :100] = codes[0]
+    clean = [tuple(torch.from_numpy(a).to(dev)
+                   for a in (*enc.pack_codes_2bit(padded),
+                             np.full(B, 100, np.int32)))]
+    got, _ = _check_sample(clean, L, index.k, 16, geo)
+    assert got[2][0].shape[0] == 0 and bool((got[1] == -1).all())
+    counts = [f.launches for f in (pack_cuda.pack_canonical_2bit,
+                                   probe_cuda.lookup_ecs_aux,
+                                   sig_cuda.read_signatures)]
+    sig, mapped = fast_cuda.two_phase_signatures(clean, L, index.k, 16, 16,
+                                                 *geo)
+    assert [f.launches for f in (pack_cuda.pack_canonical_2bit,
+                                 probe_cuda.lookup_ecs_aux,
+                                 sig_cuda.read_signatures)] == counts
+    want = probe.two_phase_signatures(clean, L, index.k, 16, 16, *geo)
+    _eq(sig, want[0])
+    _eq(mapped, want[1])
+    assert bool(mapped.all())
+
+    junk = np.full((B, L), 4, np.uint8)
+    junk[:, :100] = rng.integers(0, 4, size=(B, 100))
+    mates = [tuple(torch.from_numpy(a).to(dev)
+                   for a in (*enc.pack_codes_2bit(junk),
+                             np.full(B, 100, np.int32)))] * 2
+    got, _ = _check_sample(mates, L, index.k, 16, geo)
+    assert got[2][0].shape[0] == 2 * B
+
+
+def _merge_inputs(dev, B, n_seg, C, nu_share, seed):
+    r = np.random.default_rng(seed)
+    single = np.where(r.random((B, n_seg)) < 0.7,
+                      r.integers(0, 40, (B, n_seg)), SIG_PAD).astype(np.int32)
+    need = r.random((B, n_seg)) < nu_share
+    single[need] = SIG_PAD
+    nu = int(need.sum())
+    slot = np.full((B, n_seg), -1, np.int32)
+    slot[need] = r.permutation(nu)
+    sig_d = np.full((nu, C), SIG_PAD, np.int32)
+    mapped_d = np.zeros(nu, bool)
+    for u in range(nu):
+        n = int(r.integers(0, C + 3))  # empty, mapped and complex rows
+        vals = np.sort(r.choice(max(40, 2 * C), size=n, replace=False))
+        sig_d[u, :min(n, C)] = vals[:C]
+        mapped_d[u] = 0 < n <= C
+    return [torch.from_numpy(a).to(dev)
+            for a in (single, slot, sig_d, mapped_d)]
+
+
+@pytest.mark.parametrize("C", [16, 5, 1, 64])
+@pytest.mark.parametrize("n_seg", [1, 2], ids=["single", "paired"])
+@pytest.mark.parametrize("nu_share", [0.0, 0.4, 1.0], ids=["nu0", "some",
+                                                          "all"])
+def test_merge_kernel(dev, n_seg, C, nu_share):
+    """K6 against the plain merge: overlapping lists, more than C distinct
+    values (over), complex units (forced unmapped), empty units, no unit
+    and every segment a unit; at C = 64 a block's rows need more than 48
+    KB of shared memory; B not a multiple of the block."""
+    args = _merge_inputs(dev, 20001, n_seg, C, nu_share, seed=C + n_seg)
+    before = fast_cuda.merge_staging.launches
+    got = fast_cuda.merge_staging(*args, C)
+    want = probe.merge_staging(*args, C)
+    torch.cuda.synchronize()
+    assert fast_cuda.merge_staging.launches == before + 1
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+
+
+@pytest.mark.parametrize("stride", [2, 16])
+@pytest.mark.parametrize("n_seg", [1, 2], ids=["single", "paired"])
+def test_fast_signatures_on_card(dev, world, stride, n_seg):
+    """fast_cuda.two_phase_signatures (K5, K1, K2, K3, K6) against the
+    plain route on the same card tensors, bit for bit, rows of unmapped
+    reads included; the same bits on a rerun, whatever order K5's warps
+    took their slots in. At C = 2 some re-probed segment has more than C
+    distinct ECs and forces its read unmapped."""
+    rng, seqs, idx = world
+    index = idx["default"]
+    di = DeviceIndex.from_host(index, dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    L = 128
+    mates = _fast_mates(dev, rng, seqs, 8192, L, n_seg)
+    for C in (16, 2):
+        counts = [f.launches for f in (fast_cuda.sample_classify,
+                                       pack_cuda.pack_canonical_2bit,
+                                       probe_cuda.lookup_ecs_aux,
+                                       sig_cuda.read_signatures,
+                                       fast_cuda.merge_staging)]
+        got = fast_cuda.two_phase_signatures(mates, L, index.k, stride, C,
+                                             *geo)
+        assert [f.launches for f in (fast_cuda.sample_classify,
+                                     pack_cuda.pack_canonical_2bit,
+                                     probe_cuda.lookup_ecs_aux,
+                                     sig_cuda.read_signatures,
+                                     fast_cuda.merge_staging)] == [
+            c + 1 for c in counts]
+        want = probe.two_phase_signatures(mates, L, index.k, stride, C, *geo)
+        again = fast_cuda.two_phase_signatures(mates, L, index.k, stride, C,
+                                               *geo)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, again):
+            _eq(a, b)
+            _eq(c, b)
+        assert bool(got[1].any()) and not bool(got[1].all())
+        if C == 2:
+            _, slot, units = probe.sample_classify(mates, L, index.k, stride,
+                                                   *geo)
+            hi, lo, valid = pack_cuda.plain(*units, L, index.k)
+            sig_d, mapped_d = sig_cuda.plain(
+                probe.lookup_ecs(hi, lo, valid, *geo), valid, C)
+            assert bool(((sig_d[:, 0] != SIG_PAD) & ~mapped_d).any())
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_fast_map_step_on_card_matches_plain_route(dev, world, paired):
+    """The whole fast map_step on the card (K5, K1, K2, K3, K6, A1) against
+    the plain route (every step's plain version) on the same card tensors:
+    equal merged tables; and the Mapper on the card against the Mapper on
+    the CPU."""
+    rng, seqs, idx = world
+    index = idx["default"]
+    di = DeviceIndex.from_host(index, dev)
+    L, B = 128, 4096
+    mates = _fast_mates(dev, rng, seqs, B, L, 2 if paired else 1)
+    w = torch.ones(B, dtype=torch.int32, device=dev)
+    cfg = MapConfig(batch_size=B, sig_table_bits=14, paired_end=paired,
+                    probe_sample=16)
+    tables = [make_sig_table(14, 16, num_ecs=index.num_ecs, device=dev)
+              for _ in range(2)]
+    kw = dict(codes2=mates[1][0], lengths2=mates[1][2],
+              bad2=mates[1][1]) if paired else {}
+    before = fast_cuda.merge_staging.launches
+    map_step(di, cfg, tables[0], mates[0][0], mates[0][2], w,
+             bad=mates[0][1], pad_len=L, audit=True, **kw)
+    assert fast_cuda.merge_staging.launches == before + 1
+    sig, mapped = probe.two_phase_signatures(
+        mates, L, index.k, 16, 16, di.table, di.main_slots, di.stash,
+        di.stash_slots, di.bucket)
+    accumulate_cuda.plain(tables[1], sig, mapped, weights=w, audit=True)
+    torch.cuda.synchronize()
+    _same_tables(tables)
+
+    c1, c2, _ = simulate_packed_pairs(rng, seqs, 2, 1024, read_len=100,
+                                      error_rate=0.01)
+    ln = np.full(1024, 100, np.int32)
+    batches = [ReadBatch(c1[i], ln, np.ones(1024, np.int32),
+                         codes2=c2[i] if paired else None,
+                         lengths2=ln if paired else None) for i in range(2)]
+    cfg = MapConfig(batch_size=1024, sig_table_bits=14, paired_end=paired,
+                    probe_sample=8)
+    got = Mapper(index, cfg, device=dev).run(batches)
+    want = Mapper(index, cfg, device="cpu").run(batches)
+    np.testing.assert_array_equal(got.sigs, want.sigs)
+    np.testing.assert_array_equal(got.sig_counts, want.sig_counts)
+    assert (got.mapped, got.overflow, got.collisions) == (
+        want.mapped, want.overflow, want.collisions)
+
+
+def test_fast_wrappers_never_fall_back(dev, world):
+    """What K5 and K6 do not take raises on the card; nothing moves to the
+    plain version or the CPU."""
+    rng, seqs, idx = world
+    index = idx["default"]
+    di = DeviceIndex.from_host(index, dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    mates = _fast_mates(dev, rng, seqs, 64, 128, 1)
+    before = (fast_cuda.sample_classify.launches,
+              fast_cuda.merge_staging.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fast_cuda.sample_classify([(mates[0][0], mates[0][1].cpu(),
+                                    mates[0][2])], 128, index.k, 4, *geo)
+    with pytest.raises(ValueError, match="fit"):
+        fast_cuda.sample_classify(mates, 120, index.k, 4, *geo)
+    args = _merge_inputs(dev, 100, 2, 16, 0.4, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fast_cuda.merge_staging(args[0], args[1].t().contiguous().t(),
+                                *args[2:], 16)
+    with pytest.raises(ValueError, match="fit"):
+        fast_cuda.merge_staging(*args, 8)
+    assert (fast_cuda.sample_classify.launches,
+            fast_cuda.merge_staging.launches) == before

@@ -80,7 +80,7 @@ def test_mapper_matches_jax(world, paired, packed):
 
 def test_mapper_refuses_unported_modes(world):
     index, _, _ = world
-    for cfg in (MapConfig(probe_sample=4), MapConfig(probe_stride=2),
+    for cfg in (MapConfig(probe_stride=2),
                 MapConfig(paired_end=True, fusion_pairs=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Mapper(port_index(index), port_config(cfg), device="cpu")

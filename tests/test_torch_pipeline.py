@@ -3,6 +3,7 @@ Quantifier and the float64 oracle, bootstrap output, the refusal of
 features outside the port, and a run in a process where JAX cannot be
 imported."""
 
+import argparse
 import json
 import os
 import subprocess
@@ -103,8 +104,10 @@ def test_cli_index_and_infer(world):
     assert info["unmapped"] == o["unmapped"]
     assert info["device"] == "cpu"
     assert set(info["kernel_launches"]) == {"pack", "lookup", "signature",
-                                            "accumulate", "em"}
+                                            "accumulate", "em", "sample",
+                                            "merge"}
     assert info["fld"] is None and info["bootstrap_samples"] == 0
+    assert info["probe_sample"] == 0
     assert not os.path.exists(os.path.join(out, "bootstrap.npz"))
 
 
@@ -134,14 +137,80 @@ def test_cli_bootstrap_writes_replicates(world):
 @pytest.mark.parametrize("argv,item", [
     (["--checkpoint", "ck.npz"], "Checkpoints"),
     (["--pack-cache"], "Pack cache"),
-    (["--probe-sample", "8"], "Fast mode"),
     (["--probe-stride", "4"], "Strided mode"),
+    (["--trace-dir", "trace"], "Tooling"),
     (["--data-shards", "2"], "Multi-GPU"),
+    (["--distributed"], "Multi-GPU"),
 ])
 def test_cli_refuses_unported(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli.main(["infer", "index.npz", "out", "r1.fq", "--device", "cpu",
                   *argv])
+
+
+def _infer_parser(parser):
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return sub.choices["infer"]
+
+
+def test_cli_parses_every_jax_infer_flag():
+    """Every option of the JAX CLI's ``infer`` parses in the port's with a
+    value of its kind, to the same dest and value."""
+    from seekmer_tpu.cli import build_parser as j_build_parser
+
+    port = _infer_parser(cli.build_parser())
+    for action in _infer_parser(j_build_parser())._actions:
+        if not action.option_strings or action.dest == "help":
+            continue
+        opt = action.option_strings[-1]
+        if action.nargs == 0:
+            argv, want = [opt], True
+        elif action.choices:
+            argv, want = [opt, action.choices[-1]], action.choices[-1]
+        elif action.nargs in ("*", "+"):
+            argv, want = [opt, "x.fq"], ["x.fq"]
+        elif action.nargs == "?":
+            argv, want = [opt], action.const
+        else:
+            kind = action.type or str
+            want = kind("3")
+            argv = [opt, "3"]
+        args = port.parse_args(["index.npz", "out", "r1.fq", *argv])
+        assert getattr(args, action.dest) == want, (opt, argv)
+
+
+def test_cli_flags_reach_the_config(world, monkeypatch):
+    """--probe-sample, --sample-fallback and --io-workers reach MapConfig,
+    the TPU-only knobs are accepted, and run_info.json records
+    probe_sample."""
+    from seekmer_tpu_torch.models import quantifier
+
+    tmp, _, _, _, files, _, idx = world
+    seen = []
+    real = quantifier.Quantifier.__init__
+
+    def spy(self, index, cfg, device="cuda"):
+        seen.append(cfg.map)
+        real(self, index, cfg, device=device)
+
+    monkeypatch.setattr(quantifier.Quantifier, "__init__", spy)
+    out = str(tmp / "flags_out")
+    assert cli.main(["infer", idx, out, files["se"], "--device", "cpu",
+                     "--batch-size", "256", "--probe-sample", "8",
+                     "--sample-fallback", "0.25", "--io-workers", "1",
+                     "--probe-chunks", "2", "--pack-backend", "pallas",
+                     "--no-h2d-pack", "--checkpoint-every", "7"]) == 0
+    (cfg,) = seen
+    assert (cfg.probe_sample, cfg.sample_fallback_frac, cfg.io_workers,
+            cfg.probe_chunks, cfg.pack_backend, cfg.h2d_pack_2bit) == (
+        8, 0.25, 1, 2, "pallas", False)
+    info = json.load(open(os.path.join(out, "run_info.json")))
+    assert info["probe_sample"] == 8
+    assert 0 < info["mapped"] <= info["total_reads"]
+    with pytest.raises(ValueError, match="sample_fallback_frac"):
+        cli.main(["infer", idx, out, files["se"], "--device", "cpu",
+                  "--probe-sample", "8", "--sample-fallback", "2"])
 
 
 def test_cli_refuses_fuse():
