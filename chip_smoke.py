@@ -9,7 +9,7 @@ table to PATH.c2_ec.npz, for ``python -m tests.test_torch_bootstrap``.)
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit, build the seven kernels from
+1. print the card's name and power limit, build the eight kernels from
    ``seekmer_tpu_torch/csrc`` with nvcc (sm_90a, one nvcc per source);
 2. make two worlds from a seed and index them through the port's CLI: the
    config-1 world (1000 random transcripts, 4 x 65,536 single-end 100 bp
@@ -32,7 +32,8 @@ Phases; any failure exits non-zero:
    config-1 bootstrap shapes (the world's ECs, 100 resampled replicates)
    and at R = 1, to convergence and for the same
    fixed iteration count (with a TF32 control of the plain version that
-   must miss the bound, and a rerun that must give the same bits), then
+   must miss the bound, and a rerun that must give the same bits), with
+   A3 (the CSR EM iteration) timed beside it on the same systems, then
    on two systems at the dense gate's edge, E-deep and T-deep, that walk
    their depth in chunks; fast mode's K5 (sample + probe + classify) and
    K6 (merge) on the config-2 batch at strides 16 and 8 and on the
@@ -50,7 +51,8 @@ Phases; any failure exits non-zero:
    JAX package and its float64 oracle),
    config 2 paired with no fragment flags (the fragment-length estimate
    checked against the simulated one) and ``--bootstrap 100`` (the
-   batched CSR route); then ``infer --probe-sample 16`` on both (fast
+   batched CSR route, through A3; single-run EM takes A3 in every run);
+   then ``infer --probe-sample 16`` on both (fast
    mode: config 1's mapped and unmapped counts checked against the port's
    plain fast path on the CPU; config 2 paired with the FLD estimated and
    its mapped count beside the dense run's); check the outputs and print
@@ -60,8 +62,14 @@ Phases; any failure exits non-zero:
    480-iteration 100-replicate bootstrap on both worlds with
    ``torch.profiler``; print each stage's wall time untraced and traced,
    its device busy time, and the device time per kernel or copy. On
-   config 2, before its bootstrap is traced, the card's batched CSR EM is
-   held against the same call on the CPU.
+   config 2, before its EM is traced, A3 is held against its plain
+   version at the EC table's shapes (``[A3 ...]``): at 100 replicates one
+   16-step launch bit for bit against the CPU, a rerun bit for bit, 480
+   iterations within the group-mass bound of the plain version on the
+   card; ``batched_em`` (4 replicates) and ``run_em`` (float32, float64)
+   on the card bit for bit against the same calls on the CPU over 480
+   iterations; then timed at 100 replicates and at 1 beside its bound,
+   its plain version and two cuSPARSE products an iteration.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -839,6 +847,7 @@ def compare_em_kernel(work: Path):
         rec = time_em_kernel(tag, M, n, inv_eff, alpha0, cfg, it)
         if out is None:
             out = dict(rec, max_abs_err=err)
+        time_csr_beside_k4(tag, ec, n, inv_eff, alpha0, it, rec["ms"])
 
     # at the gate's edge, both ways: E-deep, E x T pads to 7,680 x 256 =
     # 1.97M of the gate's 2M entries; T-deep, 128 x 14,464 = 1.85M, the
@@ -869,64 +878,211 @@ def compare_em_kernel(work: Path):
     return out
 
 
-def compare_batched_em(ec, lengths):
-    """The card's batched CSR EM (the config-2 bootstrap route) against the
-    same call on CPU tensors: 4 replicates resampled on the card with a
-    fixed generator, a fixed 480 iterations on both sides. The mass of each
-    group of transcripts with identical EC membership must agree within
-    1e-3 relative + 1e-2 reads: the two differ by float32 rounding in
-    another order (``index_add_`` adds with atomics on the card), while a
-    replicate mixed with another, or a bad resample row, moves groups by
-    whole reads."""
-    import numpy as np
+def time_csr_beside_k4(tag, ec, n, inv_eff, alpha0, it, k4_ms):
+    """A3 on K4's system (the batched form, counts n [R, E], alpha0
+    [R, T]): one launch of ``it`` steps against the plain version on the
+    CPU (equal bits), timed beside K4's converged run of ``it``
+    iterations, for the dense route's gate."""
     import torch
 
-    from seekmer_tpu_torch import EMConfig
-    from seekmer_tpu_torch.em.bootstrap import batched_em, resample_counts
+    from seekmer_tpu_torch.em.em import csr_layout
+    from seekmer_tpu_torch.ops import em_csr_cuda
+    from seekmer_tpu_torch.utils import kernel_ab
 
-    gen = torch.Generator(device=ec.counts.device)
-    gen.manual_seed(SEED)
-    cmat = resample_counts(ec.counts, 4, gen)
-    cfg = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480)
-    walls, outs = [], []
-    for dev in (ec.counts.device, torch.device("cpu")):
-        t0 = time.perf_counter()
-        alpha, it = batched_em(cmat.to(dev), ec.ec_ids.to(dev),
-                               ec.txp_ids.to(dev), lengths, ec.num_ecs,
-                               ec.num_transcripts, cfg)
-        outs.append(alpha.cpu().numpy().astype(np.float64))
-        walls.append(time.perf_counter() - t0)
-        check(it == 480, f"batched EM on {dev}: {it} iterations")
-    # group of a transcript: a random 64-bit key per EC, summed over its
-    # ECs (wrapping), so equal membership gives equal keys
+    E, T = ec.num_ecs, ec.num_transcripts
+    lay = csr_layout(ec.ec_ids, ec.txp_ids, E, T)
+    args = (alpha0.t().contiguous(), n.t().contiguous(),
+            inv_eff.reshape(-1).contiguous())
+    got = em_csr_cuda.em_steps(*args, lay, it, False)
+    want = em_csr_cuda.plain_steps(
+        *(a.cpu() for a in args),
+        csr_layout(ec.ec_ids.cpu(), ec.txp_ids.cpu(), E, T), it, False)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          f"A3 at {tag}: {it} steps differ from the plain version on the CPU")
+    ms = kernel_ab.device_ms(
+        lambda: em_csr_cuda.em_steps(*args, lay, it, False), 10)
+    log(f"[A3 beside K4, {tag}] one launch of {it} steps: equal bits to the "
+        f"plain version on the CPU; {ms:.6f} ms ({ms / it * 1e3:.3f} us/it) "
+        f"device time, K4's converged run {k4_ms:.6f} ms "
+        f"({k4_ms / it * 1e3:.3f} us/it)")
+
+
+def group_masses_np(ec, alphas):
+    """Mass of each group of transcripts with identical EC membership in
+    each (T, B) iterate of ``alphas`` (numpy float64, [B, G] each): the
+    group of a transcript is a random 64-bit key per EC summed over its
+    ECs (wrapping), so equal membership gives equal keys."""
+    import numpy as np
+
     ec_ids, txp = ec.ec_ids.cpu().numpy(), ec.txp_ids.cpu().numpy()
     key = np.zeros(ec.num_transcripts, np.uint64)
     np.add.at(key, txp, np.random.default_rng(SEED).integers(
         0, 2**64, size=ec.num_ecs, dtype=np.uint64)[ec_ids])
     g = np.unique(key, return_inverse=True)[1]
-    got, want = ([np.bincount(g, weights=a) for a in o] for o in outs)
-    got, want = np.stack(got), np.stack(want)
-    err = float(np.abs(got - want).max())
-    bad = float((np.abs(got - want) - 1e-3 * np.abs(want)).max())
-    apart = float(np.abs(want[1:] - want[:-1]).max())
-    check(bool(np.isfinite(got).all()) and bad <= 1e-2 and apart > 1.0,
-          f"batched EM, card against CPU: group masses disagree by {err} "
-          f"reads (replicates apart by {apart})")
-    log(f"[batched EM] {cmat.shape[0]} replicates, nnz {ec.ec_ids.numel()}, "
-        f"{ec.num_ecs} ECs, {g.max() + 1} membership groups, 480 iterations: "
-        f"card against CPU max abs group-mass error {err:.6g} reads (bound "
-        f"1e-3 relative + 1e-2), replicates apart by up to {apart:.6g}; "
-        f"card {walls[0]:.3f} s, CPU {walls[1]:.3f} s")
+    return [np.stack([np.bincount(g, weights=col) for col in
+                      a.cpu().numpy().astype(np.float64).T])
+            for a in alphas]
+
+
+def compare_csr_em(ec, lengths):
+    """A3 at config 2's EC table (the batched CSR bootstrap route), with
+    100 replicates resampled on the card from a fixed generator:
+
+    - one launch of 16 steps (``check_every``, the main path's launch)
+      against the plain version on CPU tensors from the same inputs: equal
+      bits, and a rerun on the card: equal bits;
+    - 480 steps against the plain version on the card (torch gathers and
+      ``index_add_``, whose atomics add in another order): the mass of
+      each group of transcripts with identical EC membership within 1e-3
+      relative + 1e-2 reads (a replicate mixed with another, or a bad
+      resample row, moves groups by whole reads);
+    - the entry points on the card against the same calls on the CPU, a
+      fixed 480 iterations: ``batched_em`` on the first 4 replicates and
+      ``run_em`` in float32 and float64, equal bits (the effective
+      lengths are exact at fragment sd 0);
+    - device time (card kept busy) of a 16-step launch at 100 replicates
+      and at 1 (the single run), beside the plain version's, the bound
+      (per step: alpha and the counts read, alpha' written, the CSR and
+      CSC read once; or 5 FP32 operations a membership entry and
+      replicate), and 16 steps of the library form: two cuSPARSE products
+      (``torch.sparse.mm`` on CSR) and the elementwise work between.
+
+    Returns A3's record."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch import EMConfig
+    from seekmer_tpu_torch.em.bootstrap import batched_em, resample_counts
+    from seekmer_tpu_torch.em.em import (csr_layout, effective_lengths,
+                                         run_em)
+    from seekmer_tpu_torch.ops import em_csr_cuda
+    from seekmer_tpu_torch.utils import kernel_ab
+
+    dev, cpu = ec.counts.device, torch.device("cpu")
+    E, T, nnz = ec.num_ecs, ec.num_transcripts, ec.ec_ids.numel()
+    R, C = 100, EMConfig().check_every
+    eff = effective_lengths(lengths, EMConfig(), torch.float32, dev)
+    inv = 1.0 / eff
+    lay = csr_layout(ec.ec_ids, ec.txp_ids, E, T)
+    lay_cpu = csr_layout(ec.ec_ids.cpu(), ec.txp_ids.cpu(), E, T)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cmat = resample_counts(ec.counts, R, gen)
+    counts = cmat.t().contiguous()
+    alpha0 = (cmat.sum(dim=1)[None, :] / T).expand(T, R).contiguous()
+    batched = (alpha0, counts, inv)
+
+    got = em_csr_cuda.em_steps(*batched, lay, C, False)
+    again = em_csr_cuda.em_steps(*batched, lay, C, False)
+    t0 = time.perf_counter()
+    want = em_csr_cuda.plain_steps(*(a.cpu() for a in batched), lay_cpu, C,
+                                   False)
+    cpu_s = time.perf_counter() - t0
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          f"A3, {R} replicates, {C} steps: not the CPU's bits (max abs "
+          f"{err})")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "A3: a rerun gives other bits")
+
+    fixed = 480
+    kern = em_csr_cuda.em_steps(*batched, lay, fixed, False)[1]
+    plain = em_csr_cuda.plain_steps(*batched, lay, fixed, False)[1]
+    gk, gp = group_masses_np(ec, (kern, plain))
+    gerr = float(np.abs(gk - gp).max())
+    bad = float((np.abs(gk - gp) - 1e-3 * np.abs(gp)).max())
+    apart = float(np.abs(gp[1:] - gp[:-1]).max())
+    check(bool(np.isfinite(gk).all()) and bad <= 1e-2 and apart > 1.0,
+          f"A3, {fixed} steps: group masses differ from the plain version "
+          f"on the card by {gerr} reads (replicates apart by {apart})")
+
+    cfg = EMConfig(rel_tol=0.0, min_iters=fixed, max_iters=fixed)
+    on_cpu = ec._replace(counts=ec.counts.cpu(), ec_ids=ec.ec_ids.cpu(),
+                         txp_ids=ec.txp_ids.cpu())
+    entry = []
+    for name, fn in (
+            ("batched_em, 4 replicates", lambda t, c: batched_em(
+                cmat[:4].to(t.counts.device), t.ec_ids, t.txp_ids, lengths,
+                E, T, c)),
+            ("run_em float32", lambda t, c: run_em(t, lengths, c)),
+            ("run_em float64", lambda t, c: run_em(
+                t._replace(counts=t.counts.double()), lengths,
+                dataclasses.replace(c, use_x64=True)))):
+        (a, ia), (b, ib) = fn(ec, cfg), fn(on_cpu, cfg)
+        check(ia == ib == fixed and torch.equal(a.cpu(), b),
+              f"A3 through {name}: card and CPU differ ({ia} / {ib} "
+              "iterations)")
+        entry.append(name)
+
+    ms = kernel_ab.device_ms(
+        lambda: em_csr_cuda.em_steps(*batched, lay, C, False), 20)
+    one = ((ec.counts.sum() / T).repeat(T), ec.counts, eff)
+    ms1 = kernel_ab.device_ms(
+        lambda: em_csr_cuda.em_steps(*one, lay, C, True), 50)
+    plain_ms = cuda_ms(
+        lambda: em_csr_cuda.plain_steps(*batched, lay, C, False), 5)
+    plain1_ms = cuda_ms(
+        lambda: em_csr_cuda.plain_steps(*one, lay, C, True), 5)
+
+    ones = torch.ones(nnz, dtype=torch.float32, device=dev)
+    A = torch.sparse_csr_tensor(lay.ec_off, lay.txp, ones, (E, T))
+    At = torch.sparse_csr_tensor(lay.txp_off, lay.csc_ec, ones, (T, E))
+    inv_col = inv[:, None]
+
+    def library():
+        a = alpha0
+        for _ in range(C):
+            w = a * inv_col
+            d = torch.sparse.mm(A, w)
+            a = w * torch.sparse.mm(At, torch.where(d > 0, counts / d, 0.0))
+        return a
+
+    gl, gk = group_masses_np(ec, (library(), got[1]))
+    lerr = float(np.abs(gl - gk).max())
+    check(float((np.abs(gl - gk) - 1e-3 * np.abs(gk)).max()) <= 1e-2,
+          f"the library form differs from A3 by {lerr} reads")
+    library_ms = cuda_ms(library, 5)
+
+    def bound(B):
+        step_bytes = (4 * (2 * T * B + E * B + T) + nbytes(
+            lay.ec_off, lay.txp, lay.txp_off, lay.csc_ec))
+        step_ops = (5.0 * nnz + T) * B
+        return (C * step_bytes / HBM_BYTES_S, C * step_ops / FP32_FLOPS)
+
+    (b_bytes, b_ops), (b1_bytes, b1_ops) = bound(R), bound(1)
+    log(f"[A3 em_csr config 2] E {E}, T {T}, nnz {nnz}, {R} replicates: "
+        f"{C} steps equal bits to the plain version on the CPU "
+        f"({cpu_s:.3f} s there) and on a rerun; {fixed} steps against the "
+        f"plain version on the card: max abs group-mass error {gerr:.6g} "
+        f"reads (bound 1e-3 relative + 1e-2), replicates apart by up to "
+        f"{apart:.6g}; card against CPU over {fixed} iterations, equal bits: "
+        f"{', '.join(entry)}; library form against A3 after {C} steps: "
+        f"{lerr:.6g} reads")
+    for tag, k, p, bb, bo in ((f"B {R}", ms, plain_ms, b_bytes, b_ops),
+                              ("B 1 (single run)", ms1, plain1_ms, b1_bytes,
+                               b1_ops)):
+        bnd = max(bb, bo) * 1e3
+        log(f"[A3 em_csr config 2 {tag}] one launch of {C} steps: {k:.6f} ms "
+            f"device time ({k / C * 1e3:.3f} us/it), plain "
+            f"{p:.6f} ms ({p / C * 1e3:.3f} us/it); bound {bnd:.6f} ms "
+            f"(bytes {bb * 1e3:.6f} ms, operations {bo * 1e3:.6f} ms; "
+            f"share {bnd / k:.6f})")
+    log(f"[A3 em_csr config 2 B {R}] library form (two cuSPARSE SpMM and "
+        f"the elementwise work, {C} steps) {library_ms:.6f} ms "
+        f"({library_ms / C * 1e3:.3f} us/it)")
+    return record(err, ms, plain_ms, max(b_bytes, b_ops),
+                  "bytes" if b_bytes >= b_ops else "operations", library_ms)
 
 
 def reset_launches():
-    from seekmer_tpu_torch.ops import (accumulate_cuda, em_cuda, fast_cuda,
-                                       pack_cuda, probe_cuda, sig_cuda)
+    from seekmer_tpu_torch.ops import (accumulate_cuda, em_csr_cuda,
+                                       em_cuda, fast_cuda, pack_cuda,
+                                       probe_cuda, sig_cuda)
 
     for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
                sig_cuda.read_signatures, accumulate_cuda.fold_batch,
                em_cuda.em_fixed_point, fast_cuda.sample_classify,
-               fast_cuda.merge_staging):
+               fast_cuda.merge_staging, em_csr_cuda.em_steps):
         fn.launches = 0
 
 
@@ -967,7 +1123,8 @@ def run_infer(work: Path, tag: str, argv, unused=(), name=None):
 def check_bootstrap(tag: str, out: Path, info, T: int):
     """bootstrap.npz holds [100, T] replicates, each carrying the mapped
     reads. The route is read from K4's launch count (``run_infer`` checked
-    it against the expected one)."""
+    it against the expected one); A3's launches are the single run's and,
+    on the batched CSR route, the bootstrap's."""
     import numpy as np
 
     boot = np.load(out / "bootstrap.npz")["est_counts"]
@@ -979,7 +1136,8 @@ def check_bootstrap(tag: str, out: Path, info, T: int):
     t = info["timings"]
     k4 = info["kernel_launches"]["em"]
     log(f"[{tag} bootstrap] {boot.shape[0]} x {boot.shape[1]}, route "
-        f"{'dense (K4)' if k4 else 'batched CSR'} (K4 launches {k4}), "
+        f"{'dense (K4)' if k4 else 'batched CSR (A3)'} (K4 launches {k4}, "
+        f"A3 launches {info['kernel_launches']['em_csr']}), "
         f"{int(t['bootstrap_iterations'])} "
         f"iterations, stage wall {t['bootstrap_s']:.6f} s; row mass vs "
         f"mapped {info['mapped']}: max relative error {err:.3g}")
@@ -1190,13 +1348,14 @@ def report_stage(name: str, run):
     return out
 
 
-def profile_stages(work: Path, keep_inputs=None) -> None:
+def profile_stages(work: Path, keep_inputs=None) -> dict:
     """Trace the map stage (dense, then fast at s = 16), a fixed
     480-iteration EM and a fixed 480-iteration 100-replicate bootstrap on
-    both worlds; on the world that
-    takes the batched CSR bootstrap route, hold that route on the card
-    against the CPU first. With ``keep_inputs``, write config 2's EC table
-    to ``keep_inputs``.c2_ec.npz."""
+    both worlds; on the world that takes the batched CSR bootstrap route,
+    hold A3 against its plain version and time it first
+    (``compare_csr_em``), and return its record as {"A3": record}. With
+    ``keep_inputs``, write config 2's EC table to
+    ``keep_inputs``.c2_ec.npz."""
     import numpy as np
     import torch
 
@@ -1210,6 +1369,7 @@ def profile_stages(work: Path, keep_inputs=None) -> None:
     from seekmer_tpu_torch.utils.prefetch import device_put_batches, prefetch
 
     dev = torch.device(DEVICE)
+    out = {}
     fixed = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480)
     boot = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480,
                     bootstrap_samples=100, bootstrap_seed=1)
@@ -1242,16 +1402,18 @@ def profile_stages(work: Path, keep_inputs=None) -> None:
                      members=np.concatenate(members))
         ec = build_ec_table(members, counts, index.num_transcripts,
                             device=dev)
+        dense = use_dense(ec, boot, 100)
+        if not dense:
+            out["A3"] = compare_csr_em(ec, index.lengths)
         log(f"[profile {tag} em] nnz {ec.ec_ids.numel()}, {ec.num_ecs} ECs")
         report_stage(f"{tag} em", lambda trace: traced(lambda: (
             run_em(ec, index.lengths, fixed)[0].sum().item()), trace))
-        dense = use_dense(ec, boot, 100)
         log(f"[profile {tag} bootstrap] 100 replicates, 480 iterations, "
-            f"{'dense (K4)' if dense else 'batched CSR'} route")
-        if not dense:
-            compare_batched_em(ec, index.lengths)
+            f"{'dense (K4)' if dense else 'batched CSR (A3)'} route")
         report_stage(f"{tag} bootstrap", lambda trace: traced(lambda: (
             run_bootstrap(ec, index.lengths, boot)[0].sum().item()), trace))
+    check("A3" in out, "no world took the batched CSR route")
+    return out
 
 
 KERNELS = [
@@ -1269,6 +1431,8 @@ KERNELS = [
      "seekmer_tpu/ops/probe.py:339"),
     ("K6", "merge", "seekmer_tpu_torch/csrc/merge.cu",
      "seekmer_tpu/ops/probe.py:481"),
+    ("A3", "em_csr", "seekmer_tpu_torch/csrc/em_csr.cu",
+     "seekmer_tpu/em/bootstrap.py:86"),
 ]
 
 
@@ -1314,7 +1478,7 @@ def main(argv=None) -> int:
         timing = compare_kernels(work, make_worlds(work), args.keep_inputs)
         timing["K4"] = compare_em_kernel(work)
         launches = end_to_end(work)
-        profile_stages(work, args.keep_inputs)
+        timing.update(profile_stages(work, args.keep_inputs))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -162,8 +162,8 @@ def _refuse_unported(args) -> None:
 
 def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers in this process."""
-    from .ops import (accumulate_cuda, em_cuda, fast_cuda, pack_cuda,
-                      probe_cuda, sig_cuda)
+    from .ops import (accumulate_cuda, em_csr_cuda, em_cuda, fast_cuda,
+                      pack_cuda, probe_cuda, sig_cuda)
 
     return {"pack": pack_cuda.pack_canonical_2bit.launches,
             "lookup": probe_cuda.lookup_ecs_aux.launches,
@@ -171,7 +171,8 @@ def kernel_launches() -> dict:
             "accumulate": accumulate_cuda.fold_batch.launches,
             "em": em_cuda.em_fixed_point.launches,
             "sample": fast_cuda.sample_classify.launches,
-            "merge": fast_cuda.merge_staging.launches}
+            "merge": fast_cuda.merge_staging.launches,
+            "em_csr": em_csr_cuda.em_steps.launches}
 
 
 def cmd_infer(args) -> int:

@@ -5,7 +5,7 @@ All B replicates share one fixed point that iterates until every replicate
 meets the shared convergence rule. ``run_bootstrap`` draws one resample and
 then takes the route of the JAX package for the system (``em.use_dense``):
 the dense fixed point over the membership matrix (K4 on a card) when it
-fits, else the batched CSR EM here, replicate-major (T, B).
+fits, else the batched CSR EM here, replicate-minor (T, B) (A3 on a card).
 
 What has no counterpart: the chunked execution (``_batched_em_chunked``,
 ``_use_chunked``), which worked around a TPU limit on execution time. The
@@ -23,8 +23,10 @@ from ..config import EMConfig
 from .em import (
     ECTable,
     accel_schedule,
+    csr_layout,
     dense_membership,
     effective_lengths,
+    even_split,
     run_blocked_fixed_point,
     squarem_cycle,
     use_dense,
@@ -58,28 +60,41 @@ def resample_counts(counts: torch.Tensor, num_samples: int,
 def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
                num_transcripts: int, cfg: EMConfig):
     """Batched CSR EM over resampled count rows cmat [B, E], in the dtype of
-    ``cmat``. Returns (alpha [B, T], iterations). The replicate axis is the
-    minor axis of every (nnz, B) gather and ``index_add_``; SQUAREM takes
-    one steplength per replicate."""
+    ``cmat``. Returns (alpha [B, T], iterations). The iterate is (T, B),
+    replicate-minor; each block of steps goes through
+    ``ops/em_csr_cuda.em_steps`` (A3 on a card, ``_batched_iter`` on the
+    CPU) with the counts as (E, B); SQUAREM takes one steplength per
+    replicate."""
+    from ..ops import em_csr_cuda
+
     dtype, device = cmat.dtype, cmat.device
     eff = effective_lengths(lengths, cfg, dtype, device)
     B, T = cmat.shape[0], num_transcripts
-    counts_nnz = cmat.t()[ec_ids]  # (nnz, B), loop-constant
-    inv_eff_nnz = (1.0 / eff)[txp_ids][:, None]  # (nnz, 1)
-    em_iter = _batched_iter(counts_nnz, inv_eff_nnz, ec_ids, txp_ids,
-                            num_ecs, T)
-    n_per = cmat.sum(dim=1)  # (B,)
-    alpha0 = (n_per[None, :] / T).expand(T, B).contiguous()
+    layout = csr_layout(ec_ids, txp_ids, num_ecs, T)
+    counts = cmat.t().contiguous()  # (E, B), loop-constant
+    inv_eff = 1.0 / eff
+
+    def em_block(a, steps):
+        return em_csr_cuda.em_steps(a, counts, inv_eff, layout, steps,
+                                    divide=False)
+
+    def em_iter(a):
+        return em_block(a, 1)[1]
+
+    alpha0 = even_split(cmat.sum(dim=1), T)[None, :].expand(T, B).contiguous()
     if cfg.accel == "squarem":
         it, _, alpha = run_blocked_fixed_point(
             lambda a: squarem_cycle(em_iter, a), alpha0, accel_schedule(cfg))
         return alpha.t(), it * 3
-    it, _, alpha = run_blocked_fixed_point(em_iter, alpha0, cfg)
+    it, _, alpha = run_blocked_fixed_point(em_iter, alpha0, cfg,
+                                           em_block=em_block)
     return alpha.t(), it
 
 
 def _batched_iter(counts_nnz, inv_eff_nnz, ec_ids, txp_ids,
                   num_ecs: int, num_transcripts: int):
+    """One batched E+M step over (nnz, B) gathers and ``index_add_``, the
+    replicate axis minor: A3's plain version."""
     def em_iter(alpha):  # (T, B)
         w = alpha[txp_ids] * inv_eff_nnz
         denom = torch.zeros((num_ecs, w.shape[1]), dtype=w.dtype,

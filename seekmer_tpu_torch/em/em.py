@@ -11,12 +11,15 @@ elementwise work:
 
 The fixed point runs in blocks of ``check_every`` steps with one host read
 of the converged flag per block, the schedule of the JAX package and of the
-float64 oracle, so iteration counts match. ``EMConfig.backend="pallas"``
-runs the dense fixed point instead (``use_dense``): K4 on a card, its plain
-version on the CPU. The JAX chunked execution
-(``_use_chunked``/``_chunked_fixed_point``) worked around a TPU limit on
-execution time and has no counterpart. On CUDA, ``index_add_`` adds with
-float atomics in no fixed order.
+float64 oracle, so iteration counts match. Each block goes through
+``ops/em_csr_cuda.em_steps``: on the card one launch of A3
+(``csrc/em_csr.cu``) over the table's ``csr_layout``, which returns the
+block's last two iterates and adds in the order the CPU's ``index_add_``
+does, so it gives the CPU's bits; on the CPU the plain ``em_step``.
+``EMConfig.backend="pallas"`` runs the dense fixed point instead
+(``use_dense``): K4 on a card, its plain version on the CPU. The JAX
+chunked execution (``_use_chunked``/``_chunked_fixed_point``) worked
+around a TPU limit on execution time and has no counterpart.
 """
 
 from __future__ import annotations
@@ -60,6 +63,46 @@ def build_ec_table(member_lists: List[np.ndarray], counts: np.ndarray,
     )
 
 
+class CSRLayout(NamedTuple):
+    """An EC table in the form A3 walks it: rows by EC (the CSR) for the
+    E-phase, by transcript (the CSC) for the M-phase; int32 offsets and
+    ids. ``ec_ids``/``txp_ids`` are the table's own, for the plain
+    version."""
+
+    ec_ids: torch.Tensor  # int64[nnz], sorted
+    txp_ids: torch.Tensor  # int64[nnz]
+    ec_off: torch.Tensor  # int32[E+1] row offsets of each EC
+    txp: torch.Tensor  # int32[nnz] member transcripts, in nnz order
+    txp_off: torch.Tensor  # int32[T+1] offsets of each transcript's run
+    csc_ec: torch.Tensor  # int32[nnz] EC of each entry, by transcript
+    num_ecs: int
+    num_transcripts: int
+
+
+def csr_layout(ec_ids, txp_ids, num_ecs: int,
+               num_transcripts: int) -> CSRLayout:
+    """The CSR and CSC of a flat EC table (``ec_ids`` sorted), on its
+    device; built once per fixed point. The CSC is the nnz stably sorted by
+    transcript, which keeps each transcript's entries in nnz order, the
+    order in which ``index_add_`` adds them on the CPU."""
+    if max(ec_ids.numel(), num_ecs, num_transcripts) >= 2**31:
+        raise ValueError("EC tables of 2^31 entries or more do not fit "
+                         "A3's int32 offsets")
+    if ec_ids.numel() > 1 and bool((ec_ids[1:] < ec_ids[:-1]).any()):
+        raise ValueError("ec_ids must be sorted")
+
+    def offsets(ids, n):
+        off = torch.zeros(n + 1, dtype=torch.int64, device=ids.device)
+        off[1:] = torch.cumsum(torch.bincount(ids, minlength=n), 0)
+        return off.to(torch.int32)
+
+    perm = torch.sort(txp_ids, stable=True).indices
+    return CSRLayout(ec_ids, txp_ids, offsets(ec_ids, num_ecs),
+                     txp_ids.to(torch.int32),
+                     offsets(txp_ids, num_transcripts),
+                     ec_ids[perm].to(torch.int32), num_ecs, num_transcripts)
+
+
 def effective_lengths(lengths, cfg: EMConfig, dtype=torch.float32,
                       device="cuda") -> torch.Tensor:
     """Effective transcript lengths: ``max(len - mean + 1, 1)`` when
@@ -78,6 +121,14 @@ def effective_lengths(lengths, cfg: EMConfig, dtype=torch.float32,
     c1 = torch.cumsum(pdf * f, 0)
     idx = torch.clamp(lengths.to(torch.int64), 1, F) - 1
     return torch.clamp((l + 1.0) - c1[idx] / c0[idx], min=1.0)
+
+
+def even_split(total: torch.Tensor, T: int) -> torch.Tensor:
+    """``total / T`` as one IEEE division on every device. PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal instead, one
+    bit off for many values, and the card's fixed point would then start
+    elsewhere than the CPU's; the CPU divides either way."""
+    return total / torch.tensor(T, dtype=total.dtype, device=total.device)
 
 
 def em_step(alpha, ec: ECTable, eff):
@@ -130,17 +181,22 @@ def convergence_check(alpha_m, alpha_new, cfg: EMConfig) -> torch.Tensor:
 
 
 def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
-                            it_init: int = 0):
+                            it_init: int = 0, em_block=None):
     """Iterate ``alpha -> em_iter(alpha)`` in blocks of check_every - 1 raw
     steps plus one monitored step, testing convergence between the block's
-    last two iterates with one host read per block. Returns
-    (it, converged, alpha); ``it`` counts from ``it_init``."""
+    last two iterates with one host read per block. ``em_block(alpha,
+    steps)``, where given, runs a whole block and returns its last two
+    iterates. Returns (it, converged, alpha); ``it`` counts from
+    ``it_init``."""
     C = max(cfg.check_every, 1)
     it, converged, alpha = it_init, False, alpha0
     while not converged and it < cfg.max_iters:
-        for _ in range(C - 1):
-            alpha = em_iter(alpha)
-        alpha_new = em_iter(alpha)
+        if em_block is not None:
+            alpha, alpha_new = em_block(alpha, C)
+        else:
+            for _ in range(C - 1):
+                alpha = em_iter(alpha)
+            alpha_new = em_iter(alpha)
         converged = (it + C >= cfg.min_iters
                      and bool(convergence_check(alpha, alpha_new, cfg)))
         alpha = alpha_new
@@ -182,8 +238,8 @@ def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
     ``alpha_init``/``it_init`` warm-start the fixed point; max_iters counts
     the total across restarts. A fresh run under ``backend="pallas"``
     takes the dense fixed point (K4 with R = 1, float32); a resumed one
-    (``it_init`` > 0) stays on the CSR form, whose budget counts from
-    ``it_init``."""
+    (``it_init`` > 0) stays on the CSR form (A3 on a card), whose budget
+    counts from ``it_init``."""
     dtype, device = ec.counts.dtype, ec.counts.device
     T = ec.num_transcripts
     if it_init == 0 and use_dense(ec, cfg):
@@ -200,15 +256,22 @@ def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
             dense_membership(ec), ec.counts.to(f32).reshape(1, -1), inv_eff,
             alpha0, cfg)
         return alpha[0], iters
+    from ..ops import em_csr_cuda
+
     eff = effective_lengths(lengths, cfg, dtype, device)
     if alpha_init is None:
-        alpha0 = (ec.counts.sum() / T).repeat(T)
+        alpha0 = even_split(ec.counts.sum(), T).repeat(T)
     else:
         alpha0 = torch.as_tensor(np.asarray(alpha_init), dtype=dtype,
                                  device=device)
+    layout = csr_layout(ec.ec_ids, ec.txp_ids, ec.num_ecs, T)
+
+    def em_block(a, steps):
+        return em_csr_cuda.em_steps(a, ec.counts, eff, layout, steps,
+                                    divide=True)
 
     def em_iter(a):
-        return em_step(a, ec, eff)
+        return em_block(a, 1)[1]
 
     if cfg.accel == "squarem":
         it, _, alpha = run_blocked_fixed_point(
@@ -216,7 +279,7 @@ def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
             it_init=it_init // 3)
         return alpha, it * 3
     it, _, alpha = run_blocked_fixed_point(em_iter, alpha0, cfg,
-                                           it_init=it_init)
+                                           it_init=it_init, em_block=em_block)
     return alpha, it
 
 

@@ -48,8 +48,9 @@ class SigTable(NamedTuple):
 
 
 def make_sig_table(bits: int, max_ecs: int, num_ecs: int = 0,
-                   device="cpu") -> SigTable:
-    """``num_ecs`` > 0 enables the direct per-EC count vector."""
+                   device="cuda") -> SigTable:
+    """``num_ecs`` > 0 enables the direct per-EC count vector. The table
+    lives on ``device``: the card unless the caller names the CPU."""
     if not 3 <= bits <= 30:
         raise ValueError("sig_table_bits must be in [3, 30]")
     S = 1 << bits

@@ -23,7 +23,9 @@ from seekmer_tpu_torch.map.signature import (SIG_PAD, make_sig_table,
                                              table_to_host)
 from seekmer_tpu_torch.map.driver import map_step
 from seekmer_tpu_torch.ops import (
+    _build,
     accumulate_cuda,
+    em_csr_cuda,
     em_cuda,
     em_dense,
     fast_cuda,
@@ -877,3 +879,233 @@ def test_fast_wrappers_never_fall_back(dev, world):
         fast_cuda.merge_staging(*args, 8)
     assert (fast_cuda.sample_classify.launches,
             fast_cuda.merge_staging.launches) == before
+
+
+# ---- A3: the CSR EM iteration ------------------------------------------------
+
+
+def _csr_system(T, E, B, dtype, seed):
+    """A random EC table on the CPU (1-6 members an EC in no sorted order,
+    two empty ECs, the last 3 transcripts in no EC) as its layout, with
+    counts (E, B) that have zero rows, eff, and a start iterate (T, B) with
+    zero rows, so that some ECs have d = 0."""
+    from seekmer_tpu_torch.em.em import build_ec_table, csr_layout
+
+    rng = np.random.default_rng(seed)
+    members = [rng.choice(T - 3, size=int(rng.integers(1, 7)),
+                          replace=False).astype(np.int32) for _ in range(E)]
+    members[1] = members[1][:0]
+    members[-1] = members[-1][:0]
+    ec = build_ec_table(members, np.ones(E), T, device="cpu")
+    n = rng.integers(0, 300, size=(E, B)).astype(np.float64)
+    n[::5] = 0
+    eff = np.maximum(rng.integers(250, 3000, size=T) - 180.0, 1.0)
+    alpha = rng.random((T, B)) * 50
+    alpha[::6] = 0
+    return (csr_layout(ec.ec_ids, ec.txp_ids, E, T),
+            *(torch.from_numpy(a).to(dtype) for a in (n, eff, alpha)))
+
+
+def _on(dev, layout):
+    from seekmer_tpu_torch.em.em import csr_layout
+
+    return csr_layout(layout.ec_ids.to(dev), layout.txp_ids.to(dev),
+                      layout.num_ecs, layout.num_transcripts)
+
+
+def _csr_args(dev, layout, n, eff, alpha, divide):
+    """(alpha, counts, scale) of the single run (``divide``: column 0,
+    eff) or of the batched form (1 / eff), on ``dev``."""
+    if divide:
+        args = (alpha[:, 0].contiguous(), n[:, 0].contiguous(), eff)
+    else:
+        args = (alpha, n, 1.0 / eff)
+    return tuple(a.to(dev) for a in args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 3, 32, 100, 129])
+def test_em_csr_kernel_equals_cpu_bits(dev, B, dtype):
+    """A3 against its plain version on the CPU, on the same inputs: the
+    last two of 5 iterates bit for bit, batched at every B and (at B = 1)
+    the single run; transcripts in no EC get 0."""
+    layout, n, eff, alpha = _csr_system(70, 160, B, dtype, seed=B)
+    lay = _on(dev, layout)
+    for divide in ([False, True] if B == 1 else [False]):
+        before = em_csr_cuda.em_steps.launches
+        got = em_csr_cuda.em_steps(*_csr_args(dev, layout, n, eff, alpha,
+                                              divide), lay, 5, divide)
+        torch.cuda.synchronize()
+        assert em_csr_cuda.em_steps.launches == before + 1
+        want = em_csr_cuda.em_steps(*_csr_args("cpu", layout, n, eff, alpha,
+                                               divide), layout, 5, divide)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == dtype
+            _eq(g.cpu(), w)
+        assert bool((got[1][-3:] == 0).all())
+        assert float(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("divide", [False, True], ids=["batched", "single"])
+def test_em_csr_kernel_in_squarem(dev, divide, dtype):
+    """SQUAREM cycles on the card, A3 one step a call: every call's output
+    equals the plain version's on the CPU from the same (extrapolated)
+    input."""
+    from seekmer_tpu_torch.em.em import squarem_cycle
+
+    layout, n, eff, alpha = _csr_system(70, 160, 4, dtype, seed=11)
+    lay = _on(dev, layout)
+    a, counts, scale = _csr_args(dev, layout, n, eff, alpha, divide)
+    cpu = _csr_args("cpu", layout, n, eff, alpha, divide)
+    seen = []
+
+    def em_iter(x):
+        out = em_csr_cuda.em_steps(x, counts, scale, lay, 1, divide)[1]
+        seen.append((x.cpu(), out.cpu()))
+        return out
+
+    for _ in range(4):
+        a = squarem_cycle(em_iter, a)
+    assert len(seen) == 12
+    for x, out in seen:
+        _eq(out, em_csr_cuda.em_steps(x, *cpu[1:], layout, 1, divide)[1])
+    assert bool(torch.isfinite(a).all()) and bool((a >= 0).all())
+
+
+def test_em_csr_kernel_zero_mass_and_rerun(dev):
+    """An all-zero iterate (every d = 0) gives zeros; 16 steps at B = 100
+    give the same bits twice."""
+    layout, n, eff, alpha = _csr_system(300, 700, 100, torch.float32,
+                                        seed=5)
+    lay = _on(dev, layout)
+    a, counts, scale = _csr_args(dev, layout, n, eff, alpha, False)
+    zero = em_csr_cuda.em_steps(torch.zeros_like(a), counts, scale, lay, 3,
+                                False)[1]
+    assert bool((zero == 0).all())
+    one = em_csr_cuda.em_steps(a, counts, scale, lay, 16, False)
+    two = em_csr_cuda.em_steps(a, counts, scale, lay, 16, False)
+    for x, y in zip(one, two):
+        _eq(x, y)
+
+
+def test_em_and_bootstrap_on_card_equal_cpu_bits(dev):
+    """The entry points: run_em (float32 and float64) and batched_em on a
+    CUDA table give the CPU's iteration counts and bits (sd = 0: the
+    effective lengths are exact on both; replicates of unequal totals, so
+    the start values N_b / T are divided on the card)."""
+    import dataclasses
+
+    from seekmer_tpu_torch.em.bootstrap import batched_em
+    from seekmer_tpu_torch.em.em import build_ec_table, run_em
+
+    rng = np.random.default_rng(8)
+    T, E = 117, 300
+    members = [np.sort(rng.choice(T, size=int(rng.integers(1, 6)),
+                                  replace=False)).astype(np.int32)
+               for _ in range(E)]
+    counts = rng.integers(0, 400, size=E).astype(np.float64)
+    lengths = rng.integers(250, 3000, size=T).astype(np.int32)
+    cfg = EMConfig(rel_tol=1e-6, max_iters=3000)
+    for x64 in (False, True):
+        dt = torch.float64 if x64 else torch.float32
+        c = dataclasses.replace(cfg, use_x64=x64)
+        got = run_em(build_ec_table(members, counts, T, dtype=dt, device=dev),
+                     lengths, c)
+        want = run_em(build_ec_table(members, counts, T, dtype=dt,
+                                     device="cpu"), lengths, c)
+        assert got[1] == want[1]
+        _eq(got[0].cpu(), want[0])
+    N = int(counts.sum())
+    cmat = torch.from_numpy(np.stack([rng.multinomial(N - 37 * b, counts / N)
+                                      for b in range(4)]).astype(np.float32))
+    ec = build_ec_table(members, counts, T, device="cpu")
+    want = batched_em(cmat, ec.ec_ids, ec.txp_ids, lengths, E, T, cfg)
+    before = em_csr_cuda.em_steps.launches
+    got = batched_em(cmat.to(dev), ec.ec_ids.to(dev), ec.txp_ids.to(dev),
+                     lengths, E, T, cfg)
+    assert got[1] == want[1]
+    assert em_csr_cuda.em_steps.launches - before == got[1] // 16
+    _eq(got[0].cpu(), want[0])
+
+
+def test_em_csr_kernel_never_falls_back(dev, monkeypatch):
+    """What A3 does not take raises on the card, and so do a failed build
+    and a failed launch; nothing moves to the plain version or the CPU."""
+    layout, n, eff, alpha = _csr_system(70, 160, 3, torch.float32, seed=2)
+    lay = _on(dev, layout)
+    a, counts, scale = _csr_args(dev, layout, n, eff, alpha, False)
+    before = em_csr_cuda.em_steps.launches
+    with pytest.raises(ValueError, match="float32 or float64"):
+        em_csr_cuda.em_steps(a.half(), counts.half(), scale.half(), lay, 2,
+                             False)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        em_csr_cuda.em_steps(a, counts.double(), scale, lay, 2, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        em_csr_cuda.em_steps(a, counts.t().contiguous().t(), scale, lay, 2,
+                             False)
+    with pytest.raises(ValueError, match="CUDA"):
+        em_csr_cuda.em_steps(a, counts, scale, layout, 2, False)
+    with pytest.raises(ValueError, match="shapes"):
+        em_csr_cuda.em_steps(a[:-1].contiguous(), counts, scale, lay, 2,
+                             False)
+    with pytest.raises(ValueError, match="divide"):
+        em_csr_cuda.em_steps(a, counts, scale, lay, 2, True)
+
+    def failed_build(*args):
+        raise RuntimeError("nvcc failed: (test)")
+
+    monkeypatch.setattr(_build, "function", failed_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        em_csr_cuda.em_steps(a, counts, scale, lay, 2, False)
+    monkeypatch.setattr(_build, "function", lambda *args: lambda *x: 700)
+    with pytest.raises(RuntimeError, match="em_csr failed: cudaError 700"):
+        em_csr_cuda.em_steps(a, counts, scale, lay, 2, False)
+    assert em_csr_cuda.em_steps.launches == before
+
+
+def test_infer_on_card_launches_a3_on_both_csr_routes(dev, world, tmp_path):
+    """``infer --device cuda``: single-run EM takes A3 one launch a
+    check_every block; an x64 bootstrap takes the batched CSR route
+    through A3, a float32 one on this small system the dense route (K4
+    once). The x64 point estimate equals the CPU run's bits."""
+    import json
+
+    from seekmer_tpu_torch import cli
+    from seekmer_tpu_torch.io.writer import read_abundance
+    from seekmer_tpu_torch.utils.simulate import (simulate_reads,
+                                                  write_fasta, write_fastq)
+
+    _, seqs, _ = world
+    fa, fq, idx = (str(tmp_path / f) for f in ("ref.fa", "r.fq", "i.npz"))
+    write_fasta(fa, [f"t{i}" for i in range(len(seqs))], seqs)
+    sim = simulate_reads(np.random.default_rng(9), seqs, num_reads=3000,
+                         read_len=100, error_rate=0.005)
+    write_fastq(fq, sim.reads1)
+    assert cli.main(["index", fa, idx]) == 0
+    runs = {}
+    for name, device, extra in (("x64", "cuda", ["--x64"]),
+                                ("x64_cpu", "cpu", ["--x64"]),
+                                ("f32", "cuda", [])):
+        out = tmp_path / name
+        before = cli.kernel_launches()
+        assert cli.main(["infer", idx, str(out), fq, "--device", device,
+                         "--batch-size", "1024", "--bootstrap", "8",
+                         "--seed", "3", *extra]) == 0
+        info = json.loads((out / "run_info.json").read_text())
+        after = info["kernel_launches"]
+        runs[name] = (info, {k: after[k] - before[k] for k in after},
+                      read_abundance(str(out / "abundance.tsv")))
+    info, d, _ = runs["x64"]
+    single = info["em_iterations"] // 16
+    boot = int(info["timings"]["bootstrap_iterations"]) // 16
+    assert single > 0 and boot > 0
+    assert (d["em_csr"], d["em"]) == (single + boot, 0)
+    assert runs["x64_cpu"][1]["em_csr"] == 0
+    assert info["em_iterations"] == runs["x64_cpu"][0]["em_iterations"]
+    np.testing.assert_array_equal(runs["x64"][2]["est_counts"],
+                                  runs["x64_cpu"][2]["est_counts"])
+    info, d, _ = runs["f32"]
+    assert (d["em_csr"], d["em"]) == (info["em_iterations"] // 16, 1)

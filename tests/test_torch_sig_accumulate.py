@@ -160,7 +160,7 @@ def test_k3_model_heads_on_simulated_pairs():
 def _seeded_table(bits, C, num_ecs, collide_with):
     """Table fields as numpy arrays, with ``collide_with``'s key seeded
     (``seed_collision``) unless it is None."""
-    t = tsig.make_sig_table(bits, C, num_ecs=num_ecs)
+    t = tsig.make_sig_table(bits, C, num_ecs=num_ecs, device="cpu")
     if collide_with is not None:
         seed_collision(t, torch.from_numpy(collide_with))
     return {f: getattr(t, f).numpy() for f in tsig.SigTable._fields}

@@ -62,7 +62,7 @@ def test_fold_batch_matches_jax(bits, num_ecs, n_distinct):
     rng = np.random.default_rng(bits * 100 + n_distinct)
     C = 8
     jt = jsig.make_sig_table(bits, C, num_ecs=num_ecs)
-    tt = tsig.make_sig_table(bits, C, num_ecs=num_ecs)
+    tt = tsig.make_sig_table(bits, C, num_ecs=num_ecs, device="cpu")
     for batch in range(3):
         sig, mapped, w = _random_sigs(rng, 256, C, n_distinct)
         audit = batch != 1
@@ -78,10 +78,11 @@ def test_fold_batch_matches_jax(bits, num_ecs, n_distinct):
         assert res.overflow > 0
 
 
-def _forced_collision_run(mod, as_array, const_fp, monkeypatch):
+def _forced_collision_run(mod, as_array, const_fp, monkeypatch, **table):
     """The forced-collision sequence of the JAX package's
-    test_collision_audit_detects_forced_collision, on module ``mod``.
-    Returns the (collisions, counts) observed after each step."""
+    test_collision_audit_detects_forced_collision, on module ``mod``
+    (``table``: further arguments of its ``make_sig_table``). Returns the
+    (collisions, counts) observed after each step."""
     monkeypatch.setattr(mod, "fingerprint", const_fp)
     C = 4
     sig1 = np.full((2, C), PAD, np.int32)
@@ -95,15 +96,17 @@ def _forced_collision_run(mod, as_array, const_fp, monkeypatch):
         seen.append((int(t.collisions),
                      sorted(mod.table_to_host(t)[1].tolist())))
 
-    t = mod.make_sig_table(bits=4, max_ecs=C)
+    t = mod.make_sig_table(bits=4, max_ecs=C, **table)
     t = mod.accumulate(t, as_array(sig1), mapped)
     note(t)
     t = mod.accumulate(t, as_array(sig2), mapped)
     note(t)
-    t2 = mod.make_sig_table(bits=4, max_ecs=C)  # same-batch double claim
+    # same-batch double claim
+    t2 = mod.make_sig_table(bits=4, max_ecs=C, **table)
     t2 = mod.accumulate(t2, as_array(np.stack([sig1[0], sig2[0]])), mapped)
     note(t2)
-    t3 = mod.make_sig_table(bits=4, max_ecs=C)  # audit off: undetected
+    # audit off: undetected
+    t3 = mod.make_sig_table(bits=4, max_ecs=C, **table)
     t3 = mod.accumulate(t3, as_array(sig1), mapped)
     t3 = mod.accumulate(t3, as_array(sig2), mapped, audit=False)
     note(t3)
@@ -124,7 +127,8 @@ def test_collision_audit_detects_forced_collision(monkeypatch):
                 torch.full((B,), 9, dtype=torch.int32))
 
     want = _forced_collision_run(jsig, jnp.asarray, j_fp, monkeypatch)
-    got = _forced_collision_run(tsig, torch.from_numpy, t_fp, monkeypatch)
+    got = _forced_collision_run(tsig, torch.from_numpy, t_fp, monkeypatch,
+                                device="cpu")
     assert got == want
     assert got == [(0, [2]), (2, [4]), (1, [2]), (0, [4])]
 
