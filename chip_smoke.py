@@ -33,7 +33,7 @@ Phases; any failure exits non-zero:
    and at R = 1, to convergence and for the same
    fixed iteration count (with a TF32 control of the plain version that
    must miss the bound, and a rerun that must give the same bits), with
-   A3 (the CSR EM iteration) timed beside it on the same systems, then
+   A3 (the CSR EM fixed point) timed beside it on the same systems, then
    on two systems at the dense gate's edge, E-deep and T-deep, that walk
    their depth in chunks; fast mode's K5 (sample + probe + classify) and
    K6 (merge) on the config-2 batch at strides 16 and 8 and on the
@@ -63,13 +63,20 @@ Phases; any failure exits non-zero:
    ``torch.profiler``; print each stage's wall time untraced and traced,
    its device busy time, and the device time per kernel or copy. On
    config 2, before its EM is traced, A3 is held against its plain
-   version at the EC table's shapes (``[A3 ...]``): at 100 replicates one
-   16-step launch bit for bit against the CPU, a rerun bit for bit, 480
-   iterations within the group-mass bound of the plain version on the
-   card; ``batched_em`` (4 replicates) and ``run_em`` (float32, float64)
-   on the card bit for bit against the same calls on the CPU over 480
-   iterations; then timed at 100 replicates and at 1 beside its bound,
-   its plain version and two cuSPARSE products an iteration.
+   version at the EC table's shapes (``[A3 ...]``): the tiling (components,
+   tiles, slices, resident or streamed, shared memory); the whole fixed
+   point in one launch against the plain blocked loop on the CPU at 100
+   replicates and at 1, float32 and float64, at a rel_tol at which the
+   test stops it before max_iters (equal iteration count, flag and bits); one 16-step launch at
+   100 replicates bit for bit against the CPU and a rerun; 480 iterations
+   within the group-mass bound of the plain version on the card;
+   ``batched_em`` (4 replicates) and ``run_em`` (float32, float64) on the
+   card bit for bit against the same calls on the CPU over 480 iterations,
+   one launch each; then the fixed point timed over 480 iterations at 100
+   replicates and at 1, float32 and float64, beside its bound (inputs and outputs once a
+   launch, the iterations' operations), its plain blocked loop and two
+   cuSPARSE products an iteration. ``infer`` must launch A3 once a fixed
+   point.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -103,6 +110,7 @@ DEVICE = "cuda"
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12  # outside the tensor cores (the same data sheet)
 TF32_FLOPS = 495e12
 
 
@@ -881,10 +889,13 @@ def compare_em_kernel(work: Path):
 def time_csr_beside_k4(tag, ec, n, inv_eff, alpha0, it, k4_ms):
     """A3 on K4's system (the batched form, counts n [R, E], alpha0
     [R, T]): one launch of ``it`` steps against the plain version on the
-    CPU (equal bits), timed beside K4's converged run of ``it``
-    iterations, for the dense route's gate."""
+    CPU (equal bits), then the fixed point over ``it`` iterations (one
+    launch, the test every 16) timed beside K4's converged run of ``it``
+    iterations and A3's bound (``csr_bound``), for the dense route's
+    gate."""
     import torch
 
+    from seekmer_tpu_torch import EMConfig
     from seekmer_tpu_torch.em.em import csr_layout
     from seekmer_tpu_torch.ops import em_csr_cuda
     from seekmer_tpu_torch.utils import kernel_ab
@@ -899,12 +910,17 @@ def time_csr_beside_k4(tag, ec, n, inv_eff, alpha0, it, k4_ms):
         csr_layout(ec.ec_ids.cpu(), ec.txp_ids.cpu(), E, T), it, False)
     check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
           f"A3 at {tag}: {it} steps differ from the plain version on the CPU")
-    ms = kernel_ab.device_ms(
-        lambda: em_csr_cuda.em_steps(*args, lay, it, False), 10)
-    log(f"[A3 beside K4, {tag}] one launch of {it} steps: equal bits to the "
-        f"plain version on the CPU; {ms:.6f} ms ({ms / it * 1e3:.3f} us/it) "
-        f"device time, K4's converged run {k4_ms:.6f} ms "
-        f"({k4_ms / it * 1e3:.3f} us/it)")
+    cfg = EMConfig(rel_tol=0.0, min_iters=it, max_iters=it)
+    ms = kernel_ab.device_ms(lambda: em_csr_cuda.em_fixed_point(
+        *args, lay, cfg, False), 10)
+    B = args[0].shape[1]
+    bb, bo = csr_bound(em_csr_cuda.tiling(lay, B, torch.float32), E, T,
+                       ec.ec_ids.numel(), B, it, 4)
+    log(f"[A3 beside K4, {tag}] {it} steps in one launch: equal bits to the "
+        f"plain version on the CPU; the fixed point over {it} iterations "
+        f"{ms:.6f} ms ({ms / it * 1e3:.3f} us/it) device time, bound "
+        f"{max(bb, bo) * 1e3:.6f} ms (share {max(bb, bo) * 1e3 / ms:.6f}); "
+        f"K4's converged run {k4_ms:.6f} ms ({k4_ms / it * 1e3:.3f} us/it)")
 
 
 def group_masses_np(ec, alphas):
@@ -924,41 +940,60 @@ def group_masses_np(ec, alphas):
             for a in alphas]
 
 
+def csr_bound(tl, E, T, nnz, B, its, elem, C=16):
+    """(bytes s, operations s) of an A3 launch of ``its`` iterations, the
+    test every ``C``: alpha0 and the counts (E, B), the scale and the tiled
+    layout read once, alpha written once; an iteration does 4 operations a
+    membership entry and replicate (the E-phase's sum, the M-phase's
+    product, quotient and sum) and one a transcript and replicate (its
+    weight, stored once), and each block's test 5 a transcript and
+    replicate; at the FP32 or FP64 peak."""
+    moved = elem * (2 * T * B + E * B + T) + tl.index_bytes()
+    ops = its * (4.0 * nnz + T) * B + -(-its // C) * 5.0 * T * B
+    return moved / HBM_BYTES_S, ops / (FP64_FLOPS if elem == 8 else FP32_FLOPS)
+
+
 def compare_csr_em(ec, lengths):
     """A3 at config 2's EC table (the batched CSR bootstrap route), with
     100 replicates resampled on the card from a fixed generator:
 
-    - one launch of 16 steps (``check_every``, the main path's launch)
-      against the plain version on CPU tensors from the same inputs: equal
-      bits, and a rerun on the card: equal bits;
+    - the tiling: components (the largest in transcripts and ECs), tiles,
+      slice width, resident or streamed, shared memory a block, the grid,
+      its build time, at B 100 and B 1;
+    - the whole fixed point (``em_fixed_point``, one launch) against the
+      plain blocked loop on CPU tensors, at B 100 and B 1, float32 and
+      float64, with a rel_tol at which the test stops it before
+      ``max_iters``: equal iteration count, converged flag and bits;
+    - one launch of 16 steps (``em_steps``, SQUAREM's launch) against the
+      plain version on CPU tensors: equal bits, and a rerun: equal bits;
     - 480 steps against the plain version on the card (torch gathers and
       ``index_add_``, whose atomics add in another order): the mass of
       each group of transcripts with identical EC membership within 1e-3
-      relative + 1e-2 reads (a replicate mixed with another, or a bad
-      resample row, moves groups by whole reads);
+      relative + 1e-2 reads;
     - the entry points on the card against the same calls on the CPU, a
       fixed 480 iterations: ``batched_em`` on the first 4 replicates and
-      ``run_em`` in float32 and float64, equal bits (the effective
-      lengths are exact at fragment sd 0);
-    - device time (card kept busy) of a 16-step launch at 100 replicates
-      and at 1 (the single run), beside the plain version's, the bound
-      (per step: alpha and the counts read, alpha' written, the CSR and
-      CSC read once; or 5 FP32 operations a membership entry and
-      replicate), and 16 steps of the library form: two cuSPARSE products
-      (``torch.sparse.mm`` on CSR) and the elementwise work between.
+      ``run_em`` in float32 and float64, equal bits, one launch each;
+    - device time (card kept busy) of the fixed point over 480 iterations
+      at 100 replicates and at 1 (the single run), float64 beside its
+      bound at the FP64 peak, float32 beside the earlier form's
+      155.248 and 11.923 us an iteration (one launch a 16-step block, the
+      test on the host; NVIDIA H100 80GB HBM3, 700 W), the plain blocked
+      loop on the card, the
+      bound (``csr_bound``) and the library form over the same 480
+      iterations: two cuSPARSE products (``torch.sparse.mm`` on CSR) and
+      the elementwise work between, an iteration.
 
-    Returns A3's record."""
+    Returns A3's record (the fixed point at 100 replicates)."""
     import numpy as np
     import torch
 
     from seekmer_tpu_torch import EMConfig
     from seekmer_tpu_torch.em.bootstrap import batched_em, resample_counts
-    from seekmer_tpu_torch.em.em import (csr_layout, effective_lengths,
-                                         run_em)
+    from seekmer_tpu_torch.em.em import csr_layout, effective_lengths, run_em
     from seekmer_tpu_torch.ops import em_csr_cuda
     from seekmer_tpu_torch.utils import kernel_ab
 
-    dev, cpu = ec.counts.device, torch.device("cpu")
+    dev = ec.counts.device
     E, T, nnz = ec.num_ecs, ec.num_transcripts, ec.ec_ids.numel()
     R, C = 100, EMConfig().check_every
     eff = effective_lengths(lengths, EMConfig(), torch.float32, dev)
@@ -971,6 +1006,54 @@ def compare_csr_em(ec, lengths):
     counts = cmat.t().contiguous()
     alpha0 = (cmat.sum(dim=1)[None, :] / T).expand(T, R).contiguous()
     batched = (alpha0, counts, inv)
+    one = ((ec.counts.sum() / T).repeat(T), ec.counts, eff)
+
+    for B, dt in ((R, torch.float32), (1, torch.float32), (R, torch.float64)):
+        blocks, cap = em_csr_cuda.grid_shape(dev.index, dt == torch.float64)
+        elem = 8 if dt == torch.float64 else 4
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tl = em_csr_cuda.tiled_layout(lay, B, elem, cap, blocks)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        sizes = np.diff(tl.tile_t0.cpu().numpy())[:tl.ntiles]
+        log(f"[A3 tiling config 2 B {B} {dt}] {tl.components} components, "
+            f"the largest {tl.largest[0]} transcripts x {tl.largest[1]} ECs; "
+            f"{tl.ntiles} tiles of {int(sizes.min()) if tl.ntiles else 0}-"
+            f"{int(sizes.max()) if tl.ntiles else 0} transcripts, "
+            f"{tl.slices} slice(s) of {tl.width}, "
+            f"{'resident' if tl.resident else 'streamed'}, "
+            f"{tl.ntiles * tl.slices} items on a grid of {blocks} blocks, "
+            f"{tl.smem} of {cap} bytes of shared memory a block; global "
+            f"route {tl.global_rows[0]} transcripts x {tl.global_rows[1]} "
+            f"ECs; built in {build_ms:.3f} ms (torch ops on the card)")
+
+    # the whole fixed point against the plain blocked loop on the CPU, at
+    # the least rel_tol of these at which the test stops it before
+    # max_iters (12 blocks)
+    for B, dt in ((R, torch.float32), (R, torch.float64),
+                  (1, torch.float32), (1, torch.float64)):
+        args = tuple(a.to(dt) for a in (batched if B == R else one))
+        divide = B == 1
+        for tol in (1e-2, 3e-2, 1e-1, 3e-1, 1.0):
+            cfg = EMConfig(rel_tol=tol, max_iters=192)
+            got = em_csr_cuda.em_fixed_point(*args, lay, cfg, divide)
+            if got[2] and got[1] < cfg.max_iters:
+                break
+        check(got[2] and got[1] < cfg.max_iters,
+              f"A3 fixed point, B {B} {dt}: no tolerance stopped it before "
+              f"{cfg.max_iters} iterations")
+        t0 = time.perf_counter()
+        want = em_csr_cuda.em_fixed_point(*(a.cpu() for a in args), lay_cpu,
+                                          cfg, divide)
+        cpu_s = time.perf_counter() - t0
+        check(got[1:] == want[1:] and torch.equal(got[0].cpu(), want[0]),
+              f"A3 fixed point, B {B} {dt}, rel_tol {tol}: card ({got[1]}, "
+              f"{got[2]}) and CPU ({want[1]}, {want[2]}) differ, max abs "
+              f"{float((got[0].cpu() - want[0]).abs().max())}")
+        log(f"[A3 fixed point config 2 B {B} {dt}] rel_tol {tol}: converged "
+            f"after {got[1]} of at most {cfg.max_iters} iterations on the "
+            f"card and on the CPU, equal bits ({cpu_s:.1f} s on the CPU)")
 
     got = em_csr_cuda.em_steps(*batched, lay, C, False)
     again = em_csr_cuda.em_steps(*batched, lay, C, False)
@@ -1008,68 +1091,91 @@ def compare_csr_em(ec, lengths):
             ("run_em float64", lambda t, c: run_em(
                 t._replace(counts=t.counts.double()), lengths,
                 dataclasses.replace(c, use_x64=True)))):
-        (a, ia), (b, ib) = fn(ec, cfg), fn(on_cpu, cfg)
-        check(ia == ib == fixed and torch.equal(a.cpu(), b),
+        before = em_csr_cuda.em_steps.launches
+        a, ia = fn(ec, cfg)
+        launched = em_csr_cuda.em_steps.launches - before
+        b, ib = fn(on_cpu, cfg)
+        check(ia == ib == fixed and launched == 1
+              and torch.equal(a.cpu(), b),
               f"A3 through {name}: card and CPU differ ({ia} / {ib} "
-              "iterations)")
+              f"iterations, {launched} launches)")
         entry.append(name)
 
-    ms = kernel_ab.device_ms(
+    # device times of the whole fixed point, 480 iterations, the test every
+    # 16; the plain blocked loop and the library form over the same count
+    timed = EMConfig(rel_tol=0.0, min_iters=fixed, max_iters=fixed)
+    ms = kernel_ab.device_ms(lambda: em_csr_cuda.em_fixed_point(
+        *batched, lay, timed, False), 5)
+    ms1 = kernel_ab.device_ms(lambda: em_csr_cuda.em_fixed_point(
+        *one, lay, timed, True), 10)
+    ms16 = kernel_ab.device_ms(
         lambda: em_csr_cuda.em_steps(*batched, lay, C, False), 20)
-    one = ((ec.counts.sum() / T).repeat(T), ec.counts, eff)
-    ms1 = kernel_ab.device_ms(
-        lambda: em_csr_cuda.em_steps(*one, lay, C, True), 50)
-    plain_ms = cuda_ms(
-        lambda: em_csr_cuda.plain_steps(*batched, lay, C, False), 5)
-    plain1_ms = cuda_ms(
-        lambda: em_csr_cuda.plain_steps(*one, lay, C, True), 5)
+    plain_ms = cuda_ms(lambda: em_csr_cuda.plain_fixed_point(
+        *batched, lay, timed, False), 2)
+    plain1_ms = cuda_ms(lambda: em_csr_cuda.plain_fixed_point(
+        *one, lay, timed, True), 2)
 
     ones = torch.ones(nnz, dtype=torch.float32, device=dev)
     A = torch.sparse_csr_tensor(lay.ec_off, lay.txp, ones, (E, T))
     At = torch.sparse_csr_tensor(lay.txp_off, lay.csc_ec, ones, (T, E))
     inv_col = inv[:, None]
 
-    def library():
+    def library(steps):
         a = alpha0
-        for _ in range(C):
+        for _ in range(steps):
             w = a * inv_col
             d = torch.sparse.mm(A, w)
             a = w * torch.sparse.mm(At, torch.where(d > 0, counts / d, 0.0))
         return a
 
-    gl, gk = group_masses_np(ec, (library(), got[1]))
+    gl, gk = group_masses_np(ec, (library(C), got[1]))
     lerr = float(np.abs(gl - gk).max())
     check(float((np.abs(gl - gk) - 1e-3 * np.abs(gk)).max()) <= 1e-2,
           f"the library form differs from A3 by {lerr} reads")
-    library_ms = cuda_ms(library, 5)
+    library_ms = cuda_ms(lambda: library(fixed), 2)
 
-    def bound(B):
-        step_bytes = (4 * (2 * T * B + E * B + T) + nbytes(
-            lay.ec_off, lay.txp, lay.txp_off, lay.csc_ec))
-        step_ops = (5.0 * nnz + T) * B
-        return (C * step_bytes / HBM_BYTES_S, C * step_ops / FP32_FLOPS)
-
-    (b_bytes, b_ops), (b1_bytes, b1_ops) = bound(R), bound(1)
+    b_bytes, b_ops = csr_bound(em_csr_cuda.tiling(lay, R, torch.float32), E,
+                               T, nnz, R, fixed, 4)
+    b1_bytes, b1_ops = csr_bound(em_csr_cuda.tiling(lay, 1, torch.float32),
+                                 E, T, nnz, 1, fixed, 4)
     log(f"[A3 em_csr config 2] E {E}, T {T}, nnz {nnz}, {R} replicates: "
         f"{C} steps equal bits to the plain version on the CPU "
         f"({cpu_s:.3f} s there) and on a rerun; {fixed} steps against the "
         f"plain version on the card: max abs group-mass error {gerr:.6g} "
         f"reads (bound 1e-3 relative + 1e-2), replicates apart by up to "
-        f"{apart:.6g}; card against CPU over {fixed} iterations, equal bits: "
-        f"{', '.join(entry)}; library form against A3 after {C} steps: "
-        f"{lerr:.6g} reads")
-    for tag, k, p, bb, bo in ((f"B {R}", ms, plain_ms, b_bytes, b_ops),
-                              ("B 1 (single run)", ms1, plain1_ms, b1_bytes,
-                               b1_ops)):
+        f"{apart:.6g}; card against CPU over {fixed} iterations, equal bits, "
+        f"one launch each: {', '.join(entry)}; library form against A3 "
+        f"after {C} steps: {lerr:.6g} reads")
+    for tag, k, p, bb, bo, before in (
+            (f"B {R}", ms, plain_ms, b_bytes, b_ops, 155.248),
+            ("B 1 (single run)", ms1, plain1_ms, b1_bytes, b1_ops, 11.923)):
         bnd = max(bb, bo) * 1e3
-        log(f"[A3 em_csr config 2 {tag}] one launch of {C} steps: {k:.6f} ms "
-            f"device time ({k / C * 1e3:.3f} us/it), plain "
-            f"{p:.6f} ms ({p / C * 1e3:.3f} us/it); bound {bnd:.6f} ms "
-            f"(bytes {bb * 1e3:.6f} ms, operations {bo * 1e3:.6f} ms; "
-            f"share {bnd / k:.6f})")
-    log(f"[A3 em_csr config 2 B {R}] library form (two cuSPARSE SpMM and "
-        f"the elementwise work, {C} steps) {library_ms:.6f} ms "
-        f"({library_ms / C * 1e3:.3f} us/it)")
+        log(f"[A3 em_csr config 2 {tag}] the fixed point, one launch of "
+            f"{fixed} iterations (the test every {C}): {k:.6f} ms device "
+            f"time ({k / fixed * 1e3:.3f} us/it; one launch a 16-step block: "
+            f"{before} us/it), plain blocked loop on the card {p:.6f} ms "
+            f"({p / fixed * 1e3:.3f} "
+            f"us/it); bound {bnd:.6f} ms (bytes {bb * 1e3:.6f} ms, "
+            f"operations {bo * 1e3:.6f} ms; share {bnd / k:.6f})")
+    # float64 (``use_x64``): the same fixed point, its bound at the FP64 peak
+    for B, args, divide, reps in ((R, batched, False, 3), (1, one, True, 10)):
+        a64 = tuple(a.double() for a in args)
+        k = kernel_ab.device_ms(lambda: em_csr_cuda.em_fixed_point(
+            *a64, lay, timed, divide), reps)
+        bb, bo = csr_bound(em_csr_cuda.tiling(lay, B, torch.float64), E, T,
+                           nnz, B, fixed, 8)
+        bnd = max(bb, bo) * 1e3
+        log(f"[A3 em_csr config 2 B {B} float64] the fixed point, one launch "
+            f"of {fixed} iterations: {k:.6f} ms device time "
+            f"({k / fixed * 1e3:.3f} us/it); bound {bnd:.6f} ms (bytes "
+            f"{bb * 1e3:.6f} ms, operations {bo * 1e3:.6f} ms at "
+            f"{FP64_FLOPS / 1e12:.0f} TFLOP/s; share {bnd / k:.6f})")
+    log(f"[A3 em_csr config 2 B {R}] one em_steps launch of {C} steps "
+        f"(SQUAREM's form, test off) {ms16:.6f} ms ({ms16 / C * 1e3:.3f} "
+        f"us/it; the earlier form: 2.483974 ms); library form (two cuSPARSE "
+        f"SpMM and the elementwise work, {fixed} iterations) "
+        f"{library_ms:.6f} ms "
+        f"({library_ms / fixed * 1e3:.3f} us/it)")
     return record(err, ms, plain_ms, max(b_bytes, b_ops),
                   "bytes" if b_bytes >= b_ops else "operations", library_ms)
 
@@ -1123,8 +1229,8 @@ def run_infer(work: Path, tag: str, argv, unused=(), name=None):
 def check_bootstrap(tag: str, out: Path, info, T: int):
     """bootstrap.npz holds [100, T] replicates, each carrying the mapped
     reads. The route is read from K4's launch count (``run_infer`` checked
-    it against the expected one); A3's launches are the single run's and,
-    on the batched CSR route, the bootstrap's."""
+    it against the expected one); A3 launches once for the single run and,
+    on the batched CSR route, once for the bootstrap."""
     import numpy as np
 
     boot = np.load(out / "bootstrap.npz")["est_counts"]
@@ -1234,6 +1340,10 @@ def end_to_end(work: Path):
         f"{info2['mapped']}), unmapped {info4['unmapped']} (dense "
         f"{info2['unmapped']}); FLD mean {fld4['mean']:.6f}, sd "
         f"{fld4['sd']:.6f}, {fld4['samples']} samples")
+    # A3: one launch a fixed point, no host read between its blocks
+    a3 = [l["em_csr"] for l in (l1, l2, l3, l4)]
+    check(a3 == [1, 2, 1, 1], f"A3 launches per infer run {a3}, expected one "
+          "a fixed point: [1, 2, 1, 1]")
     return {k: l1[k] + l2[k] + l3[k] + l4[k] for k in l1}
 
 

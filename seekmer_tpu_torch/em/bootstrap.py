@@ -61,10 +61,10 @@ def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
                num_transcripts: int, cfg: EMConfig):
     """Batched CSR EM over resampled count rows cmat [B, E], in the dtype of
     ``cmat``. Returns (alpha [B, T], iterations). The iterate is (T, B),
-    replicate-minor; each block of steps goes through
-    ``ops/em_csr_cuda.em_steps`` (A3 on a card, ``_batched_iter`` on the
-    CPU) with the counts as (E, B); SQUAREM takes one steplength per
-    replicate."""
+    replicate-minor, the counts (E, B); the fixed point is
+    ``ops/em_csr_cuda.em_fixed_point`` (one A3 launch on a card, the
+    blocked loop over ``_batched_iter`` on the CPU). SQUAREM takes one
+    steplength per replicate, an ``em_steps`` call a step."""
     from ..ops import em_csr_cuda
 
     dtype, device = cmat.dtype, cmat.device
@@ -73,21 +73,17 @@ def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
     layout = csr_layout(ec_ids, txp_ids, num_ecs, T)
     counts = cmat.t().contiguous()  # (E, B), loop-constant
     inv_eff = 1.0 / eff
-
-    def em_block(a, steps):
-        return em_csr_cuda.em_steps(a, counts, inv_eff, layout, steps,
-                                    divide=False)
-
-    def em_iter(a):
-        return em_block(a, 1)[1]
-
     alpha0 = even_split(cmat.sum(dim=1), T)[None, :].expand(T, B).contiguous()
     if cfg.accel == "squarem":
+        def em_iter(a):
+            return em_csr_cuda.em_steps(a, counts, inv_eff, layout, 1,
+                                        divide=False)[1]
+
         it, _, alpha = run_blocked_fixed_point(
             lambda a: squarem_cycle(em_iter, a), alpha0, accel_schedule(cfg))
         return alpha.t(), it * 3
-    it, _, alpha = run_blocked_fixed_point(em_iter, alpha0, cfg,
-                                           em_block=em_block)
+    alpha, it, _ = em_csr_cuda.em_fixed_point(alpha0, counts, inv_eff, layout,
+                                              cfg, divide=False)
     return alpha.t(), it
 
 

@@ -9,13 +9,14 @@ elementwise work:
      r = n_c * w / denom_c
   M: alpha'_t = segsum_txp(r)
 
-The fixed point runs in blocks of ``check_every`` steps with one host read
-of the converged flag per block, the schedule of the JAX package and of the
-float64 oracle, so iteration counts match. Each block goes through
-``ops/em_csr_cuda.em_steps``: on the card one launch of A3
-(``csrc/em_csr.cu``) over the table's ``csr_layout``, which returns the
-block's last two iterates and adds in the order the CPU's ``index_add_``
-does, so it gives the CPU's bits; on the CPU the plain ``em_step``.
+The fixed point runs in blocks of ``check_every`` steps, testing
+convergence between each block's last two iterates, the schedule of the
+JAX package and of the float64 oracle, so iteration counts match. On the
+card the whole fixed point is one launch of A3 (``csrc/em_csr.cu``,
+``ops/em_csr_cuda.em_fixed_point``) over the table's ``csr_layout`` cut
+into tiles of whole connected components; it adds in the order the CPU's
+``index_add_`` does, so it gives the CPU's bits and iteration count. On
+the CPU ``run_blocked_fixed_point`` drives the plain ``em_step``.
 ``EMConfig.backend="pallas"`` runs the dense fixed point instead
 (``use_dense``): K4 on a card, its plain version on the CPU. The JAX
 chunked execution (``_use_chunked``/``_chunked_fixed_point``) worked
@@ -67,7 +68,8 @@ class CSRLayout(NamedTuple):
     """An EC table in the form A3 walks it: rows by EC (the CSR) for the
     E-phase, by transcript (the CSC) for the M-phase; int32 offsets and
     ids. ``ec_ids``/``txp_ids`` are the table's own, for the plain
-    version."""
+    version. ``tilings`` caches A3's tilings of it
+    (``em_csr_cuda.tiling``) by shape."""
 
     ec_ids: torch.Tensor  # int64[nnz], sorted
     txp_ids: torch.Tensor  # int64[nnz]
@@ -77,6 +79,7 @@ class CSRLayout(NamedTuple):
     csc_ec: torch.Tensor  # int32[nnz] EC of each entry, by transcript
     num_ecs: int
     num_transcripts: int
+    tilings: dict
 
 
 def csr_layout(ec_ids, txp_ids, num_ecs: int,
@@ -100,7 +103,8 @@ def csr_layout(ec_ids, txp_ids, num_ecs: int,
     return CSRLayout(ec_ids, txp_ids, offsets(ec_ids, num_ecs),
                      txp_ids.to(torch.int32),
                      offsets(txp_ids, num_transcripts),
-                     ec_ids[perm].to(torch.int32), num_ecs, num_transcripts)
+                     ec_ids[perm].to(torch.int32), num_ecs, num_transcripts,
+                     {})
 
 
 def effective_lengths(lengths, cfg: EMConfig, dtype=torch.float32,
@@ -184,10 +188,10 @@ def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
                             it_init: int = 0, em_block=None):
     """Iterate ``alpha -> em_iter(alpha)`` in blocks of check_every - 1 raw
     steps plus one monitored step, testing convergence between the block's
-    last two iterates with one host read per block. ``em_block(alpha,
-    steps)``, where given, runs a whole block and returns its last two
-    iterates. Returns (it, converged, alpha); ``it`` counts from
-    ``it_init``."""
+    last two iterates with one host read per block: the plain version of
+    A3's fixed point, and SQUAREM's loop. ``em_block(alpha, steps)``,
+    where given, runs a whole block and returns its last two iterates.
+    Returns (it, converged, alpha); ``it`` counts from ``it_init``."""
     C = max(cfg.check_every, 1)
     it, converged, alpha = it_init, False, alpha0
     while not converged and it < cfg.max_iters:
@@ -265,21 +269,18 @@ def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
         alpha0 = torch.as_tensor(np.asarray(alpha_init), dtype=dtype,
                                  device=device)
     layout = csr_layout(ec.ec_ids, ec.txp_ids, ec.num_ecs, T)
-
-    def em_block(a, steps):
-        return em_csr_cuda.em_steps(a, ec.counts, eff, layout, steps,
-                                    divide=True)
-
-    def em_iter(a):
-        return em_block(a, 1)[1]
-
     if cfg.accel == "squarem":
+        def em_iter(a):
+            return em_csr_cuda.em_steps(a, ec.counts, eff, layout, 1,
+                                        divide=True)[1]
+
         it, _, alpha = run_blocked_fixed_point(
             lambda a: squarem_cycle(em_iter, a), alpha0, accel_schedule(cfg),
             it_init=it_init // 3)
         return alpha, it * 3
-    it, _, alpha = run_blocked_fixed_point(em_iter, alpha0, cfg,
-                                           it_init=it_init, em_block=em_block)
+    alpha, it, _ = em_csr_cuda.em_fixed_point(alpha0, ec.counts, eff, layout,
+                                              cfg, divide=True,
+                                              it_init=it_init)
     return alpha, it
 
 

@@ -1012,8 +1012,10 @@ def test_em_and_bootstrap_on_card_equal_cpu_bits(dev):
     for x64 in (False, True):
         dt = torch.float64 if x64 else torch.float32
         c = dataclasses.replace(cfg, use_x64=x64)
+        before = em_csr_cuda.em_steps.launches
         got = run_em(build_ec_table(members, counts, T, dtype=dt, device=dev),
                      lengths, c)
+        assert em_csr_cuda.em_steps.launches - before == 1
         want = run_em(build_ec_table(members, counts, T, dtype=dt,
                                      device="cpu"), lengths, c)
         assert got[1] == want[1]
@@ -1026,8 +1028,8 @@ def test_em_and_bootstrap_on_card_equal_cpu_bits(dev):
     before = em_csr_cuda.em_steps.launches
     got = batched_em(cmat.to(dev), ec.ec_ids.to(dev), ec.txp_ids.to(dev),
                      lengths, E, T, cfg)
-    assert got[1] == want[1]
-    assert em_csr_cuda.em_steps.launches - before == got[1] // 16
+    assert got[1] == want[1] and got[1] > 16
+    assert em_csr_cuda.em_steps.launches - before == 1  # one fixed point
     _eq(got[0].cpu(), want[0])
 
 
@@ -1067,10 +1069,11 @@ def test_em_csr_kernel_never_falls_back(dev, monkeypatch):
 
 
 def test_infer_on_card_launches_a3_on_both_csr_routes(dev, world, tmp_path):
-    """``infer --device cuda``: single-run EM takes A3 one launch a
-    check_every block; an x64 bootstrap takes the batched CSR route
-    through A3, a float32 one on this small system the dense route (K4
-    once). The x64 point estimate equals the CPU run's bits."""
+    """``infer --device cuda``: single-run EM takes A3 in one launch for
+    the whole fixed point; an x64 bootstrap takes the batched CSR route
+    through one more A3 launch, a float32 one on this small system the
+    dense route (K4 once). The x64 point estimate equals the CPU run's
+    bits."""
     import json
 
     from seekmer_tpu_torch import cli
@@ -1102,10 +1105,193 @@ def test_infer_on_card_launches_a3_on_both_csr_routes(dev, world, tmp_path):
     single = info["em_iterations"] // 16
     boot = int(info["timings"]["bootstrap_iterations"]) // 16
     assert single > 0 and boot > 0
-    assert (d["em_csr"], d["em"]) == (single + boot, 0)
+    assert (d["em_csr"], d["em"]) == (2, 0)
     assert runs["x64_cpu"][1]["em_csr"] == 0
     assert info["em_iterations"] == runs["x64_cpu"][0]["em_iterations"]
     np.testing.assert_array_equal(runs["x64"][2]["est_counts"],
                                   runs["x64_cpu"][2]["est_counts"])
     info, d, _ = runs["f32"]
-    assert (d["em_csr"], d["em"]) == (info["em_iterations"] // 16, 1)
+    assert (d["em_csr"], d["em"]) == (1, 1)
+
+
+# ---- A3: the whole fixed point in one launch ---------------------------------
+
+
+def _gene_system(genes, chain, B, dtype, seed):
+    """A transcriptome-shaped EC table on the CPU: genes of 1-4 isoforms
+    with ECs over subsets of a gene (members in no sorted order), a gene
+    family of ``chain`` transcripts linked EC by EC (0: none), two
+    transcripts in no EC, two empty ECs, the ECs shuffled; as its layout,
+    with counts (E, B) that have zero rows, eff, and the even start
+    iterate (T, B) of ``batched_em``."""
+    from seekmer_tpu_torch.em.em import build_ec_table, csr_layout
+
+    rng = np.random.default_rng(seed)
+    members, T = [], 0
+    for _ in range(genes):
+        k = int(rng.integers(1, 5))
+        for _ in range(int(rng.integers(1, 2 * k + 1))):
+            members.append(T + rng.choice(k, size=int(rng.integers(1, k + 1)),
+                                          replace=False))
+        T += k
+    members += [np.array([T + j + 1, T + j]) for j in range(chain - 1)]
+    T += chain + 2
+    members += [np.zeros(0, np.int64)] * 2
+    members = [members[k].astype(np.int32)
+               for k in rng.permutation(len(members))]
+    E = len(members)
+    ec = build_ec_table(members, np.ones(E), T, device="cpu")
+    n = rng.integers(0, 300, size=(E, B)).astype(np.float64)
+    n[::5] = 0
+    eff = np.maximum(rng.integers(250, 3000, size=T) - 180.0, 1.0)
+    alpha = np.repeat(n.sum(axis=0, keepdims=True) / T, T, axis=0)
+    return (csr_layout(ec.ec_ids, ec.txp_ids, E, T),
+            *(torch.from_numpy(a).to(dtype) for a in (n, eff, alpha)))
+
+
+def _fixed_both(dev, layout, n, eff, alpha, divide, cfg, it_init=0):
+    """em_fixed_point on the card (one launch, checked) and on the CPU."""
+    lay = _on(dev, layout)
+    before = em_csr_cuda.em_steps.launches
+    got = em_csr_cuda.em_fixed_point(
+        *_csr_args(dev, layout, n, eff, alpha, divide), lay, cfg, divide,
+        it_init=it_init)
+    assert em_csr_cuda.em_steps.launches == before + 1
+    want = em_csr_cuda.em_fixed_point(
+        *_csr_args("cpu", layout, n, eff, alpha, divide), layout, cfg,
+        divide, it_init=it_init)
+    assert got[0].device.type == "cuda"
+    _eq(got[0].cpu(), want[0])
+    assert got[1:] == want[1:]
+    return got, lay
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 3, 32, 100, 129])
+def test_em_csr_fixed_point_equals_cpu(dev, B, dtype):
+    """The whole fixed point in one launch against the plain blocked loop
+    on the CPU: equal bits, iteration count and converged flag, where it
+    converges (27-49 blocks) and where it stops at max_iters (not a
+    multiple of check_every), batched at every B and (at B = 1) the single
+    run."""
+    layout, n, eff, alpha = _gene_system(60, 0, B, dtype, seed=B)
+    for divide in ([False, True] if B == 1 else [False]):
+        got, lay = _fixed_both(dev, layout, n, eff, alpha, divide,
+                               EMConfig(rel_tol=3e-2, max_iters=2000))
+        assert got[2] and 16 < got[1] < 2000
+        tl = em_csr_cuda.tiling(lay, B, dtype)
+        assert tl.ntiles > 1 and tl.global_rows == (0, 0)
+        got, _ = _fixed_both(dev, layout, n, eff, alpha, divide,
+                             EMConfig(rel_tol=0.0, max_iters=100,
+                                      check_every=7))
+        assert got[1:] == (105, False)
+
+
+@pytest.mark.parametrize("genes", [0, 40], ids=["alone", "beside_small"])
+@pytest.mark.parametrize("B", [1, 100])
+def test_em_csr_fixed_point_global_route(dev, B, genes):
+    """A component too large for a tile (a gene family of 4,000
+    transcripts) takes the global route inside the same launch, alone and
+    beside small components in tiles: the CPU's bits, count and flag."""
+    layout, n, eff, alpha = _gene_system(genes, 4000, B, torch.float32,
+                                         seed=7 + genes)
+    for divide in ([False, True] if B == 1 else [False]):
+        got, lay = _fixed_both(dev, layout, n, eff, alpha, divide,
+                               EMConfig(rel_tol=1e-4, max_iters=160))
+        tl = em_csr_cuda.tiling(lay, B, torch.float32)
+        assert tl.global_rows == (4000, 3999) and tl.largest == (4000, 3999)
+        # the two transcripts in no EC and the two empty ECs are tiles
+        assert tl.ntiles >= 1 + (genes > 0)
+
+
+def test_em_csr_fixed_point_streamed(dev):
+    """More (tile, slice) items than the grid holds at once: every block
+    streams its items through shared memory each block of steps."""
+    layout, n, eff, alpha = _gene_system(9000, 0, 129, torch.float32,
+                                         seed=3)
+    got, lay = _fixed_both(dev, layout, n, eff, alpha, False,
+                           EMConfig(rel_tol=1e-3, max_iters=64))
+    tl = em_csr_cuda.tiling(lay, 129, torch.float32)
+    assert not tl.resident and tl.slices == 5 and tl.width == 26
+
+
+def test_em_csr_fixed_point_zero_mass_resume_and_rerun(dev):
+    """A zero start (no active transcript: never converges, runs to
+    max_iters), a resumed run (``it_init`` > 0, counting from it), a run
+    whose it_init is already max_iters (no launch), and a rerun giving the
+    same bits."""
+    layout, n, eff, alpha = _gene_system(60, 30, 100, torch.float32,
+                                         seed=4)
+    cfg = EMConfig(rel_tol=1e-3, max_iters=200)
+    got, lay = _fixed_both(dev, layout, n, eff, torch.zeros_like(alpha),
+                           False, cfg)
+    assert got[1:] == (208, False) and bool((got[0] == 0).all())
+    got, _ = _fixed_both(dev, layout, n, eff, alpha, False, cfg, it_init=48)
+    assert got[1] > 48 and (got[1] - 48) % 16 == 0
+    args = _csr_args(dev, layout, n, eff, alpha, False)
+    before = em_csr_cuda.em_steps.launches
+    same = em_csr_cuda.em_fixed_point(*args, lay, cfg, False, it_init=200)
+    assert same[0] is args[0] and same[1:] == (200, False)
+    assert em_csr_cuda.em_steps.launches == before
+    one = em_csr_cuda.em_fixed_point(*args, lay, cfg, False)
+    two = em_csr_cuda.em_fixed_point(*args, lay, cfg, False)
+    _eq(one[0], two[0])
+    assert one[1:] == two[1:]
+
+
+def test_em_csr_fixed_point_never_falls_back(dev, monkeypatch):
+    """What the fixed point does not take raises on the card, and so do a
+    failed build and a failed launch; nothing moves to the CPU."""
+    layout, n, eff, alpha = _gene_system(20, 0, 3, torch.float32, seed=2)
+    lay = _on(dev, layout)
+    a, counts, scale = _csr_args(dev, layout, n, eff, alpha, False)
+    cfg = EMConfig()
+    before = em_csr_cuda.em_steps.launches
+    with pytest.raises(ValueError, match="float32 or float64"):
+        em_csr_cuda.em_fixed_point(a, counts.double(), scale, lay, cfg,
+                                   False)
+    with pytest.raises(ValueError, match="CUDA"):
+        em_csr_cuda.em_fixed_point(a, counts, scale, layout, cfg, False)
+    with pytest.raises(ValueError, match="divide"):
+        em_csr_cuda.em_fixed_point(a, counts, scale, lay, cfg, True)
+
+    def failed_build(*args):
+        raise RuntimeError("nvcc failed: (test)")
+
+    monkeypatch.setattr(_build, "function", failed_build)
+    em_csr_cuda.grid_shape.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        em_csr_cuda.em_fixed_point(a, counts, scale, lay, cfg, False)
+    monkeypatch.setattr(_build, "function", lambda *args: lambda *x: 700)
+    with pytest.raises(RuntimeError, match="em_csr failed: cudaError 700"):
+        em_csr_cuda.em_fixed_point(a, counts, scale, lay, cfg, False)
+    monkeypatch.undo()
+    em_csr_cuda.grid_shape.cache_clear()
+    assert em_csr_cuda.em_steps.launches == before
+
+
+@pytest.mark.parametrize("B", [1, 100])
+def test_em_csr_kernel_wide_range_values(dev, B):
+    """Iterates, counts and lengths across the float32 range (subnormal
+    iterates and weights, zeros, up to 1e20) so that every quotient meets
+    operands from subnormal to large: the CPU's bits over 3 steps, single
+    run and batched, finite throughout."""
+    layout, n, eff, alpha = _gene_system(300, 40, B, torch.float32, seed=21)
+    rng = np.random.default_rng(22)
+    exp = rng.uniform(-44, 20, size=tuple(alpha.shape))
+    alpha = torch.from_numpy((10.0 ** exp).astype(np.float32))
+    alpha[rng.random(tuple(alpha.shape)) < 0.1] = 0
+    n = torch.from_numpy((10.0 ** rng.uniform(-40, 10, size=tuple(n.shape)))
+                         .astype(np.float32)) * (n > 0)
+    eff = torch.from_numpy((10.0 ** rng.uniform(-5, 5, size=tuple(
+        eff.shape))).astype(np.float32))
+    lay = _on(dev, layout)
+    for divide in ([False, True] if B == 1 else [False]):
+        got = em_csr_cuda.em_steps(*_csr_args(dev, layout, n, eff, alpha,
+                                              divide), lay, 3, divide)
+        want = em_csr_cuda.em_steps(*_csr_args("cpu", layout, n, eff, alpha,
+                                               divide), layout, 3, divide)
+        for g, w in zip(got, want):
+            _eq(g.cpu(), w)
+        assert bool(torch.isfinite(got[1]).all())
