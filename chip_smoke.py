@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--keep-inputs PATH]
 
-(``--keep-inputs`` also writes K3's inputs of the config-2 batch to PATH,
-for ``python -m seekmer_tpu_torch.utils.kernel_ab``, and config 2's EC
-table to PATH.c2_ec.npz, for ``python -m tests.test_torch_bootstrap``.)
+(``--keep-inputs`` also writes K3's and fast mode's inputs of the config-2
+batch to PATH, for ``python -m seekmer_tpu_torch.utils.kernel_ab``, and
+config 2's EC table to PATH.c2_ec.npz, for ``python -m
+tests.test_torch_bootstrap``.)
 
 Phases; any failure exits non-zero:
 
@@ -36,13 +37,17 @@ Phases; any failure exits non-zero:
    A3 (the CSR EM fixed point) timed beside it on the same systems, then
    on two systems at the dense gate's edge, E-deep and T-deep, that walk
    their depth in chunks; fast mode's K5 (sample + probe + classify) and
-   K6 (merge) on the config-2 batch at strides 16 and 8 and on the
-   config-1 batch at 16, with the resolved-read and fallback-unit
-   fractions and every fast signature checked to equal, or be a non-empty
-   subset of, the dense one; the device map step on the pre-uploaded
-   config-2 batch dense and fast (``[map step]``, ``[map step fast
-   s=16]``, ``[map step fast s=8]``), the fast one's table held against
-   the plain route's on the same card tensors;
+   K6 (merge) on the config-2 batch at strides 16, 8 and 2 and on the
+   single-end config-1 batch at 16 and 2, with the resolved-read and
+   fallback-unit fractions and every fast signature checked to equal, or
+   be a non-empty subset of, the dense one, K5 timed beside K2 on exactly
+   its valid sampled keys and K6 beside an empty launch of its grid; the
+   device map step on the pre-uploaded config-2 batch dense and fast
+   (``[map step]``, ``[map step fast s=16]``, ``[map step fast s=8]``),
+   the card's idle time at the fast step's unit-count readback from a
+   ``torch.profiler`` trace (``[map step fast s=16 readback]``), and the
+   fast step's table held against the plain route's on the same card
+   tensors;
 4. run ``infer --device cuda`` of the port's CLI on both worlds with every
    kernel's launch count set to 0 just before and read just after:
    config 1 with ``--bootstrap 100`` (the dense route, through K4; the
@@ -394,8 +399,8 @@ def check_fast(tag, di, mates, L, stride, dense):
     import torch
 
     from seekmer_tpu_torch.map.signature import SIG_PAD
-    from seekmer_tpu_torch.ops import (fast_cuda, pack_cuda, probe,
-                                       probe_cuda, sig_cuda)
+    from seekmer_tpu_torch.ops import (accumulate_cuda, fast_cuda, pack_cuda,
+                                       probe, probe_cuda, sig_cuda)
     from seekmer_tpu_torch.ops.hash import hash_kmer
     from seekmer_tpu_torch.utils import kernel_ab
 
@@ -448,6 +453,14 @@ def check_fast(tag, di, mates, L, stride, dense):
     def k6_launch():
         fast_cuda.merge_staging(*merge_args)
 
+    # K5's lookup floor: K2 on exactly its valid sampled keys; K6's: an
+    # empty kernel on its grid
+    every = torch.ones_like(hs, dtype=torch.bool)
+    k2_same = kernel_ab.device_ms(
+        lambda: probe_cuda.lookup_ecs_aux(hs, ls, every, *geo), 50)
+    k6_floor = kernel_ab.device_ms(  # A1's grid is K6's: 256 reads a block
+        lambda: accumulate_cuda.empty_launch(B, single.device, False), 50)
+
     k5 = record(err5, kernel_ab.device_ms(k5_launch, 50),
                 cuda_ms(lambda: probe.sample_classify(mates, L, k, stride,
                                                       *geo), 3),
@@ -477,16 +490,64 @@ def check_fast(tag, di, mates, L, stride, dense):
         f"{float(equal.float().mean()):.6f}, a strict subset "
         f"{int((inside & ~equal & whole).sum())}, dense row not whole "
         f"{int((~whole).sum())}")
+    plan = fast_cuda.sample_plan(L, k, stride, n_seg)
     for name, r, extra in (
             ("K5", k5, f"{hs.numel()} valid sampled lanes, {rows} distinct "
-                       f"home rows, {nkeys} distinct keys found"),
-            ("K6", k6, f"{nu} unit rows")):
+                       f"home rows, {nkeys} distinct keys found; K2 on the "
+                       f"same valid keys {k2_same:.6f} ms (K5 x"
+                       f"{k5['ms'] / k2_same:.3f} of it); a warp {plan.reads}"
+                       f" reads, {plan.S} sampled columns a segment"),
+            ("K6", k6, f"{nu} unit rows; empty launch of its grid "
+                       f"{k6_floor:.6f} ms")):
         log(f"[{name} {tag} s={stride}] max_abs_err {r['max_abs_err']}, "
             f"kernel {r['ms']:.6f} ms (device time; back to back "
             f"{times[name][0]:.6f} ms, host enqueue {times[name][1]:.3f} "
             f"us), plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} "
             f"ms (share {r['bound_ms'] / r['ms']:.6f}); {extra}")
     return k5, k6
+
+
+def readback_gap(step, reps: int = 10) -> None:
+    """Trace ``reps`` calls of the fast map step with ``torch.profiler`` and
+    print the card's idle time between each K5's end and the start of the
+    next kernel (the unit count's readback lies between them), and the
+    device-to-host copy inside that gap, over the K5 launches the trace
+    holds (a trace may lose some); fails only when it holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    ev = sorted(((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda t: t[0])
+    gaps, copies = [], []
+    for i, (_, end, name) in enumerate(ev):
+        if "sample_kernel" not in name:
+            continue
+        later = [e for e in ev[i + 1:]
+                 if "emcpy" not in e[2] and "emset" not in e[2]]
+        if not later:  # the trace lost the kernel after this K5
+            continue
+        copy = [e for e in ev[i + 1:] if "emcpy" in e[2] and e[0] >= end]
+        gaps.append(later[0][0] - end)
+        if copy and copy[0][0] < later[0][0]:
+            copies.append(copy[0][1] - copy[0][0])
+    check(bool(gaps), "the fast map step trace holds no K5 launch followed "
+          "by a kernel")
+    log(f"[map step fast s=16 readback] card idle from K5's end to the next "
+        f"kernel's start, over the {len(gaps)} K5 launches of {reps} traced "
+        f"steps that the trace holds with a kernel after them: mean "
+        f"{sum(gaps) / len(gaps):.3f} us, min {min(gaps):.3f}, max "
+        f"{max(gaps):.3f} (the unit count's device-to-host copy inside it: "
+        f"{len(copies)} copies, mean "
+        f"{sum(copies) / max(len(copies), 1):.3f} us)")
 
 
 def compare_kernels(work: Path, batches, keep_inputs=None):
@@ -519,8 +580,10 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         *upload_mate(batches[0], L, dev), L, index.k)
     c1, c1_got = check_lookup("config 1", index, di, *c1_lanes)
     log_heads("config 1", c1_got[0], c1_lanes[2])
-    check_fast("config 1", di, [upload_mate(batches[0], L, dev)], L, 16,
-               sig_cuda.read_signatures(c1_got[0], c1_lanes[2], 16))
+    for stride in (16, 2):
+        check_fast("config 1", di, [upload_mate(batches[0], L, dev)], L,
+                   stride, sig_cuda.read_signatures(c1_got[0], c1_lanes[2],
+                                                    16))
     del di, c1_lanes, c1_got
 
     index = KMerIndex.load(str(work / "c2.npz"))
@@ -562,7 +625,15 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
     C = 16
     if keep_inputs:
         torch.save({"ecs": ecs.cpu(), "valid": valid.cpu(), "max_ecs": C,
-                    "num_ecs": index.num_ecs}, keep_inputs)
+                    "num_ecs": index.num_ecs,
+                    "fast": {"mates": [tuple(t.cpu() for t in m)
+                                       for m in mates],
+                             "table": di.table.cpu(), "stash": di.stash.cpu(),
+                             "main_slots": di.main_slots,
+                             "stash_slots": di.stash_slots,
+                             "bucket": di.bucket, "L": L, "k": k,
+                             "max_ecs": C, "strides": [16, 8]}},
+                   keep_inputs)
     log_heads("config 2", ecs, valid)
     got = sig_cuda.read_signatures(ecs, valid, C)
     ref = sig_cuda.plain(ecs, valid, C)
@@ -582,7 +653,8 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
 
     sig, mapped = got
     out["K5"], out["K6"] = check_fast("config 2", di, mates, L, 16, got)
-    check_fast("config 2", di, mates, L, 8, got)
+    for stride in (8, 2):
+        check_fast("config 2", di, mates, L, stride, got)
     weights = torch.ones(B, dtype=torch.int32, device=dev)
     tables = []
     for fold in (accumulate_cuda.fold_batch, accumulate_cuda.plain):
@@ -679,6 +751,10 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
             f"{fast_ms:.6f} ms (the unit count's readback included), "
             f"{B / fast_ms * 1e3:.0f} pairs/s; dense {step_ms:.6f} ms")
     fcfg = dataclasses.replace(cfg, probe_sample=16)
+    readback_gap(lambda: map_step(
+        di, fcfg, tables[0], mates[0][0], mates[0][2], weights,
+        codes2=mates[1][0], lengths2=mates[1][2], bad=mates[0][1],
+        bad2=mates[1][1], pad_len=L, audit=True))
     fast_tables = [make_sig_table(22, C, num_ecs=index.num_ecs, device=dev)
                    for _ in range(2)]
     map_step(di, fcfg, fast_tables[0], mates[0][0], mates[0][2], weights,
@@ -1551,7 +1627,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keep-inputs", metavar="PATH",
-                    help="write K3's inputs of the config-2 batch there, for "
+                    help="write K3's and fast mode's inputs of the config-2 "
+                    "batch there, for "
                     "python -m seekmer_tpu_torch.utils.kernel_ab, and config "
                     "2's EC table to PATH.c2_ec.npz")
     args = ap.parse_args(argv)

@@ -12,13 +12,75 @@ kernels.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build, pack_cuda, probe_cuda, sig_cuda
-from .probe import AUX_BITS, FastSteps
+from .probe import AUX_BITS, FastSteps, sample_columns
 from .probe import merge_staging as plain_merge
 from .probe import sample_classify as plain_sample
 from .probe import two_phase_signatures as _two_phase
+
+SAMPLED_LANES = 256  # sampled lanes a K5 warp aims at: 8 rounds of 32
+MAX_WARPS = 8  # K5's warps a block
+SMEM_BLOCK = 232_448  # shared memory a block can use on Hopper (227 KB)
+
+
+class SamplePlan(NamedTuple):
+    """How K5 cuts a batch: S sampled columns a segment; a warp's tile of
+    ``reads`` whole reads (at most 32 segments, one a lane for the
+    reduce); ``keys`` slots for their sampled lanes (a multiple of 32: one
+    validity ballot each 32, ``keys / 32`` of them, more than 8 only when
+    one read's segments have more than 256 sampled columns between them);
+    ``warp_bytes`` of shared memory a warp; ``warps`` a block, as many of 8
+    as fit. The rest is the carve of a warp's shared memory, which this
+    plan owns (``csrc/sample.cu`` only checks that each part fits), in
+    bytes from its start: mate g's staged 2-bit span at ``g * mate_at``
+    and its bad-bitmask span at ``g * mate_at + bad_at``, then the keys
+    (8 bytes each), the ballots (4 bytes each 32 keys) and the needy
+    segments (32 bytes)."""
+
+    S: int
+    reads: int
+    keys: int
+    warp_bytes: int
+    warps: int
+    bad_at: int
+    mate_at: int
+    keys_at: int
+    bits_at: int
+    useg_at: int
+
+
+def _span_bytes(n: int) -> int:
+    """Shared memory a staged row span of n bytes needs: the kernel copies
+    it from the 16-byte chunk that holds its first byte and reads 16 bytes
+    from an 8-byte word at or before its last."""
+    return ((n + 30) & ~15) + 16
+
+
+def sample_plan(L: int, k: int, stride: int, n_seg: int) -> SamplePlan:
+    """K5's plan for segments of padded length L at stride ``stride``;
+    raises when one read's rows and keys do not fit a block's shared
+    memory."""
+    S = len(sample_columns(L - k + 1, stride))
+    per_read = n_seg * S
+    reads = max(1, min(32 // n_seg, SAMPLED_LANES // per_read))
+    keys = -(-reads * per_read // 32) * 32
+    bad_at = _span_bytes(reads * ((L + 3) // 4))
+    mate_at = bad_at + _span_bytes(reads * ((L + 7) // 8))
+    keys_at = n_seg * mate_at
+    bits_at = keys_at + 8 * keys
+    useg_at = bits_at + keys // 8
+    warp_bytes = (useg_at + 32 + 15) & ~15
+    warps = min(MAX_WARPS, SMEM_BLOCK // warp_bytes)
+    if warps < 1:
+        raise ValueError(f"padded length {L} at stride {stride}: a read's "
+                         f"rows and keys take {warp_bytes} bytes of shared "
+                         f"memory, more than a block has ({SMEM_BLOCK})")
+    return SamplePlan(S, reads, keys, warp_bytes, warps, bad_at, mate_at,
+                      keys_at, bits_at, useg_at)
 
 
 def sample_classify(mates, L: int, k: int, stride: int, table,
@@ -75,14 +137,18 @@ def launch_sample(mates, L: int, k: int, stride: int, table,
              torch.empty(B * n_seg, dtype=torch.int32, device=dev))
     _build.require_cuda("sample_classify", *(t for m in mates for t in m),
                         table, stash, single, slot, count, *units)
-    fn = _build.function("seekmer_sample_classify", 15, 10)
+    if table.data_ptr() % 16 or stash.data_ptr() % 16:
+        raise ValueError("tables must start on a 16-byte boundary (the "
+                         "kernel reads their rows as 16-byte vectors)")
+    plan = sample_plan(L, k, stride, n_seg)
+    fn = _build.function("seekmer_sample_classify", 15, 20)
     _build.check(fn(*(t.data_ptr() for t in mates[0]),
                     *(t.data_ptr() for t in mates[-1]), table.data_ptr(),
                     stash.data_ptr(), single.data_ptr(), slot.data_ptr(),
                     count.data_ptr(), *(t.data_ptr() for t in units),
                     _build.stream_of(single), dev.index, B, n_seg, L, k,
                     max(stride, 2), main_slots // bucket,
-                    stash_slots // bucket, bucket, AUX_BITS),
+                    stash_slots // bucket, bucket, AUX_BITS, *plan),
                  "sample_classify")
     sample_classify.launches += 1
     return single, slot, count, units
@@ -123,6 +189,7 @@ def merge_staging(single, slot, sig_d, mapped_d, max_ecs: int):
 
 
 merge_staging.launches = 0
+
 
 KERNELS = FastSteps(sample_classify, pack_cuda.pack_canonical_2bit,
                     probe_cuda.lookup_ecs, sig_cuda.read_signatures,

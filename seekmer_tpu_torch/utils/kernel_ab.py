@@ -1,17 +1,21 @@
-"""Timers for K3 (signatures) and A1 (accumulate) on one card, and the same
-timings of two checkouts of the port in turns.
+"""Timers for K3 (signatures), A1 (accumulate), K5 and K6 (fast mode's
+sample and merge) on one card, and the same timings of two checkouts of
+the port in turns.
 
     python -m seekmer_tpu_torch.utils.kernel_ab INPUTS A B [--rounds 3]
 
 INPUTS is a file of one batch's K3 inputs (``ecs`` int32 [B, P], ``valid``
-bool [B, P], ``max_ecs`` and the index's ``num_ecs``) as ``chip_smoke.py
---keep-inputs INPUTS`` writes it for a paired config-2 batch. A and B are
-checkouts of the repository, for example a parent commit and a change
+bool [B, P], ``max_ecs`` and the index's ``num_ecs``) and, under ``fast``,
+the batch's mates and the index's device tables, as ``chip_smoke.py
+--keep-inputs INPUTS`` writes them for a paired config-2 batch. A and B
+are checkouts of the repository, for example a parent commit and a change
 unpacked with ``git archive``. Each round runs
 A and B, which one first alternating, each in a process of its own that
 imports the port from its checkout and times that checkout's kernels with
 the timers below (this file's, whichever side is timed), on the same
-inputs: K3, then A1 on the signatures K3 made. Needs a CUDA card.
+inputs: K3, then A1 on the signatures K3 made, then K5 at strides 16 and
+8 and K6 on what the checkout's own K5, K1, K2 and K3 make at 16. Needs a
+CUDA card.
 
 Device times are taken with the card kept busy while the host enqueues the
 call (``torch.cuda._sleep`` before the start event), so they hold the
@@ -146,6 +150,33 @@ def time_a1(sig, mapped, weights, num_ecs: int, bits: int = 22,
     return out
 
 
+def time_fast(fast: dict, dev, reps: int = 50) -> dict:
+    """K5 (no readback) at each of ``fast["strides"]`` and K6 on the merge
+    inputs of the first stride (K5, then K1, K2 and K3 on its units, this
+    checkout's kernels all), on one batch's mates and index tables. Device
+    ms. (K6's grid, 256 reads a block, is A1's: ``time_a1``'s
+    ``floor_ms`` is its empty launch.)"""
+    from seekmer_tpu_torch.ops import fast_cuda, pack_cuda, probe_cuda, \
+        sig_cuda
+
+    mates = [tuple(t.to(dev) for t in m) for m in fast["mates"]]
+    geo = (fast["table"].to(dev), fast["main_slots"], fast["stash"].to(dev),
+           fast["stash_slots"], fast["bucket"])
+    L, k, C = fast["L"], fast["k"], fast["max_ecs"]
+    out = {}
+    for s in fast["strides"]:
+        out[f"K5_s{s}_ms"] = device_ms(
+            lambda: fast_cuda.launch_sample(mates, L, k, s, *geo), reps)
+    single, slot, units = fast_cuda.sample_classify(mates, L, k,
+                                                    fast["strides"][0], *geo)
+    hi, lo, valid = pack_cuda.pack_canonical_2bit(*units, L, k)
+    sig_d, mapped_d = sig_cuda.read_signatures(
+        probe_cuda.lookup_ecs(hi, lo, valid, *geo), valid, C)
+    out["K6_ms"] = device_ms(lambda: fast_cuda.merge_staging(
+        single, slot, sig_d, mapped_d, C), reps)
+    return out
+
+
 def _child(inputs: str) -> None:
     import torch
 
@@ -159,6 +190,8 @@ def _child(inputs: str) -> None:
     weights = torch.ones(sig.shape[0], dtype=torch.int32, device=dev)
     out = {"K3": time_k3(ecs, valid, C),
            "A1": time_a1(sig, mapped, weights, data["num_ecs"])}
+    if "fast" in data:
+        out["fast"] = time_fast(data["fast"], dev)
     print(json.dumps(out))
 
 

@@ -659,7 +659,7 @@ def _check_sample(mates, L, k, stride, geo):
 
 
 @pytest.mark.parametrize("which", ["default", "stash"])
-@pytest.mark.parametrize("stride", [2, 16])
+@pytest.mark.parametrize("stride", [2, 16, 8, 3])
 @pytest.mark.parametrize("n_seg", [1, 2], ids=["single", "paired"])
 def test_sample_kernel(dev, world, which, stride, n_seg):
     """K5 on reads with errors, junk, N bases, ragged lengths and
@@ -684,6 +684,77 @@ def test_sample_kernel(dev, world, which, stride, n_seg):
                                       | (occ[:, 1].astype(np.int64)
                                          & 0xFFFFFFFF)).to(dev)
         assert bool(torch.isin(keys, stash_keys).any())
+
+
+@pytest.fixture(scope="module")
+def wide_index():
+    """An index at k = 29, the widest key the kernels take."""
+    rng = np.random.default_rng(29)
+    names, seqs = random_transcriptome(rng, num_transcripts=100, min_len=300,
+                                       max_len=1500, shared_prefix_frac=0.5)
+    return seqs, build_index_from_seqs(names, seqs, cfg=IndexConfig(k=29))
+
+
+def _edge_mates(dev, rng, seqs, B, L, n_seg, read_len, view):
+    """Mates of reads up to ``read_len`` bp (ragged, 2% errors, junk, N
+    bases) padded to L, with all-invalid mates (every base N) every 13
+    reads and pad rows (length 0) every 29; with ``view`` each tensor is a
+    view that starts one row into a larger one, so its rows do not start
+    on a 16-byte boundary."""
+    mates = []
+    for g in range(n_seg):
+        codes, _ = simulate_packed_batches(rng, seqs, 1, B, read_len=read_len,
+                                           error_rate=0.02)
+        padded = np.full((B, L), 4, np.uint8)
+        padded[:, :read_len] = codes[0]
+        dead = rng.random(B) < 0.2
+        padded[dead, :read_len] = rng.integers(0, 4, size=(int(dead.sum()),
+                                                           read_len))
+        padded[rng.random((B, L)) < 0.005] = 4
+        lengths = rng.integers(0, read_len + 1, size=B).astype(np.int32)
+        lengths[rng.random(B) < 0.5] = read_len
+        padded[g::13] = 4
+        lengths[g::29] = 0
+        packed, bad = enc.pack_codes_2bit(padded)
+        arrays = (packed, bad, lengths)
+        if view:
+            arrays = tuple(np.concatenate([a[-1:], a]) for a in arrays)
+        t = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        mates.append(tuple(x[1:] for x in t) if view else t)
+    return mates
+
+
+@pytest.mark.parametrize("case", [
+    # L, k, stride, n_seg, B, read length, views
+    (256, 29, 2, 2, 1001, 250, False),   # 115 columns a segment, a read a warp
+    (256, 29, 3, 1, 999, 200, True),     # S > 32 single-end, unaligned rows
+    (128, 29, 8, 2, 4099, 100, False),   # 9 pairs a warp, 4099 % 9 = 4
+    (100, 29, 16, 2, 777, 100, True),    # rows of 25 and 13 bytes
+    (37, 29, 4, 1, 501, 37, False),      # 3 sampled columns, 32 reads a warp
+    (29, 29, 2, 2, 300, 29, True),       # one window a segment
+], ids=["L256-s2", "L256-s3-single", "L128-s8", "L100-s16", "L37-s4",
+        "L29-s2"])
+def test_sample_kernel_edges(dev, wide_index, case):
+    """K5 against the plain sample_classify at k = 29 on the plan's edges:
+    s = 2 at L 256 (more than 32 sampled columns a segment), B not a
+    multiple of the reads a warp takes, rows whose widths are not
+    multiples of 4 or 8 bytes (the units' copies in narrower vectors),
+    all-invalid mates and pad rows, and tensors whose rows start off a
+    16-byte boundary; then the whole fast route against the plain one."""
+    L, k, stride, n_seg, B, read_len, view = case
+    seqs, index = wide_index
+    assert index.k == k
+    di = DeviceIndex.from_host(index, dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    rng = np.random.default_rng(L + stride)
+    mates = _edge_mates(dev, rng, seqs, B, L, n_seg, read_len, view)
+    got, _ = _check_sample(mates, L, k, stride, geo)
+    assert 0 < got[2][0].shape[0] < B * n_seg
+    sig, mapped = fast_cuda.two_phase_signatures(mates, L, k, stride, 16,
+                                                 *geo)
+    want = probe.two_phase_signatures(mates, L, k, stride, 16, *geo)
+    _eq(sig, want[0])
+    _eq(mapped, want[1])
 
 
 def test_sample_kernel_no_unit_and_every_unit(dev):
@@ -747,15 +818,16 @@ def _merge_inputs(dev, B, n_seg, C, nu_share, seed):
             for a in (single, slot, sig_d, mapped_d)]
 
 
-@pytest.mark.parametrize("C", [16, 5, 1, 64])
+@pytest.mark.parametrize("C", [16, 5, 1, 64, 32, 33, 2, 17])
 @pytest.mark.parametrize("n_seg", [1, 2], ids=["single", "paired"])
 @pytest.mark.parametrize("nu_share", [0.0, 0.4, 1.0], ids=["nu0", "some",
                                                           "all"])
 def test_merge_kernel(dev, n_seg, C, nu_share):
     """K6 against the plain merge: overlapping lists, more than C distinct
     values (over), complex units (forced unmapped), empty units, no unit
-    and every segment a unit; at C = 64 a block's rows need more than 48
-    KB of shared memory; B not a multiple of the block."""
+    and every segment a unit; C 1, 2, 5, 16, 17, 32, 33 and 64 (at C = 64
+    a block's rows need more than 48 KB of shared memory); B not a
+    multiple of the block."""
     args = _merge_inputs(dev, 20001, n_seg, C, nu_share, seed=C + n_seg)
     before = fast_cuda.merge_staging.launches
     got = fast_cuda.merge_staging(*args, C)

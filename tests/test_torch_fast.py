@@ -10,8 +10,13 @@
 - The cases of ``tests/test_map_device.py``'s fast-mode tests, run on the
   port (fast against dense, invariants, the cap that changes nothing).
 - Numpy models of the arithmetic of K5 (``csrc/sample.cu``: a sampled
-  window from the row's bytes, the any-valid-window scan) and K6
-  (``csrc/merge.cu``: the two-way merge) against the plain versions; the kernels themselves are held to the plain versions on the
+  window from the staged row bytes, the closed-form valid-window test,
+  the warp's plan, and its tiles whole: compaction of the valid keys
+  into lookup rounds, the reduce and classification a lane a segment,
+  the slots and the units' rows) and K6 (``csrc/merge.cu``: the merge by
+  rank of the lists' first 4 values in registers, the two-way merge of
+  longer lists) against the plain
+  versions; the kernels themselves are held to the plain versions on the
   card (``tests/test_torch_cuda.py``).
 - ``infer --probe-sample 4 --device cpu`` against the JAX CLI.
 """
@@ -334,54 +339,86 @@ def test_all_invalid_segment_is_never_a_unit(paired):
 
 # ---- numpy models of the kernels' arithmetic --------------------------------
 
-
-def sampled_window_model(packed, bad, lengths, L_, k, cols):
-    """K5's window of each sampled column, as ``csrc/sample.cu`` computes
-    it: the 8 bytes of the row from byte c / 4 (zeros past the row) shifted
-    by 2 (c % 4) bases, the 5 bitmask bytes from byte c / 8 shifted by c %
-    8, then ``kmer.cuh``'s closed form at q = 0 without clearing bad bases
-    (a window with one is invalid and never looked up). Returns (hi, lo,
-    valid) of shape (B, len(cols))."""
-    def le(rows, start, n):
-        pad = np.zeros((rows.shape[0], rows.shape[1] + n), np.uint8)
-        pad[:, :rows.shape[1]] = rows
-        b = pad[:, start[:, None] + np.arange(n)].astype(U64)
-        return np.bitwise_or.reduce(
-            b << (U64(8) * np.arange(n, dtype=U64)), axis=-1)
-
-    c = np.asarray(cols)
-    W = le(packed, c >> 2, 8) >> (U64(2) * (c & 3).astype(U64))
-    nb = (le(bad, c >> 3, 5) >> (c & 7).astype(U64)) & U64((1 << k) - 1)
-    R = ~W & U64((1 << 2 * k) - 1)
-    F = _brev64(((W >> U64(1)) & PAIRS) | ((W & PAIRS) << U64(1))) >> U64(
-        64 - 2 * k)
-    canon = np.minimum(F, R)
-    lo_bits = U64(2 * (k - k // 2))
-    valid = (c[None, :] + k <= np.minimum(lengths, L_)[:, None]) & (nb == 0)
-    return ((canon >> lo_bits).astype(np.int32),
-            (canon & ((U64(1) << lo_bits) - U64(1))).astype(np.int32), valid)
+M64 = (1 << 64) - 1
 
 
-def has_valid_window_model(bad_row, length, k):
-    """K5's scan for k consecutive good bases within the length."""
-    run = 0
-    for i in range(length):
-        if (int(bad_row[i >> 3]) >> (i & 7)) & 1:
-            run = 0
-        else:
-            run += 1
-            if run >= k:
-                return True
+def bytes8(span, off):
+    """``csrc/sample.cu`` ``bytes8``: the 8 bytes of a staged span from byte
+    ``off``, little-endian, from two aligned 8-byte words and a funnel
+    shift."""
+    w, sh = off >> 3, (off & 7) * 8
+    lo = int.from_bytes(bytes(span[8 * w:8 * w + 8]), "little")
+    hi = int.from_bytes(bytes(span[8 * w + 8:8 * w + 16]), "little")
+    return ((lo >> sh) | (hi << (64 - sh))) & M64 if sh else lo
+
+
+def has_window_model(span, off, n, k):
+    """K5's closed-form test that the first n bases of a bad-bitmask row
+    (from byte ``off`` of ``span``) hold k good bases in a row: 64 bases a
+    step, doubling shift-ands inside the word, the run carried across
+    words."""
+    carry, w = 0, 0
+    while 64 * w < n:
+        good = ~bytes8(span, off + 8 * w) & M64
+        if n - 64 * w < 64:
+            good &= (1 << (n - 64 * w)) - 1
+        full = good == M64
+        zeros = ~good & M64
+        trail = 64 if full else (zeros & -zeros).bit_length() - 1
+        if carry + trail >= k:
+            return True
+        r, span_ = good, 1
+        while span_ < k:
+            sh = min(span_, k - span_)
+            r &= r >> sh
+            span_ += sh
+        if r:
+            return True
+        carry = carry + 64 if full else 64 - zeros.bit_length()
+        w += 1
     return False
+
+
+def _staged(rng, rows, misalign):
+    """A batch's rows as K5 stages a span of them: the rows' bytes at
+    ``misalign`` bytes into a 16-byte chunk, garbage before and after
+    (the bytes past a row are other rows or the region's padding, never
+    zeros)."""
+    flat = np.ascontiguousarray(rows).reshape(-1)
+    span = rng.integers(0, 256, size=misalign + flat.size + 48).astype(
+        np.uint8)
+    span[misalign:misalign + flat.size] = flat
+    return span
+
+
+def window_model(span, pre, bspan, bpre, c, k, length):
+    """K5's window at column c of a row staged at byte ``pre`` of ``span``
+    (its bad bitmask at ``bpre`` of ``bspan``), as ``csrc/sample.cu``
+    computes it: the 8 bytes from row byte c / 4 shifted by 2 (c % 4)
+    bases, the 8 bitmask bytes from byte c / 8 shifted by c % 8, then
+    ``kmer.cuh``'s closed form at q = 0 without clearing bad bases (a
+    window with one is invalid and never looked up). Bytes past the row
+    are whatever follows it. Returns None for an invalid window, else its
+    (hi, lo)."""
+    nb = (bytes8(bspan, bpre + (c >> 3)) >> (c & 7)) & ((1 << k) - 1)
+    if c + k > length or nb:
+        return None
+    W = np.array([bytes8(span, pre + (c >> 2)) >> (2 * (c & 3))], U64)
+    R = int(~W[0] & U64((1 << 2 * k) - 1))
+    F = int(_brev64(((W >> U64(1)) & PAIRS)
+                    | ((W & PAIRS) << U64(1)))[0]) >> (64 - 2 * k)
+    canon, lo_bits = min(F, R), 2 * (k - k // 2)
+    return canon >> lo_bits, canon & ((1 << lo_bits) - 1)
 
 
 @pytest.mark.parametrize("k", range(1, 30))
 def test_sampled_window_model_matches_jax(k):
     """The model of K5's window arithmetic against the port's plain
     ``pack_canonical`` (held to JAX's in ``test_torch_pack_lookup.py``) at
-    the sampled columns, on rows not a multiple of 4 or 8 bases long, so
-    the last loads run past the row; and its valid-window scan against the
-    plain valid windows."""
+    the sampled columns, on rows not a multiple of 4 or 8 bases long, read
+    from a staged span that starts inside a 16-byte chunk and holds
+    garbage past its rows; and its closed-form valid-window test against
+    the plain valid windows."""
     r = np.random.default_rng(k)
     L_ = 101
     codes = r.integers(0, 4, size=(40, L_)).astype(np.uint8)
@@ -394,15 +431,273 @@ def test_sampled_window_model_matches_jax(k):
     P = L_ - k + 1
     hi, lo, valid = (a.numpy() for a in pack_canonical(
         torch.from_numpy(codes), torch.from_numpy(lengths), k))
+    pre, bpre = int(r.integers(0, 16)), int(r.integers(0, 16))
+    span, bspan = _staged(r, packed, pre), _staged(r, bad, bpre)
     for stride in (2, 16):
-        cols = probe.sample_columns(P, stride)
-        mh, ml, mv = sampled_window_model(packed, bad, lengths, L_, k, cols)
-        np.testing.assert_array_equal(mv, valid[:, cols])
-        np.testing.assert_array_equal(mh[mv], hi[:, cols][mv])
-        np.testing.assert_array_equal(ml[mv], lo[:, cols][mv])
-    scan = [has_valid_window_model(bad[i], min(int(lengths[i]), L_), k)
-            for i in range(40)]
+        for c in probe.sample_columns(P, stride):
+            for i in range(40):
+                got = window_model(span, pre + i * packed.shape[1], bspan,
+                                   bpre + i * bad.shape[1], c, k,
+                                   min(int(lengths[i]), L_))
+                assert (got is not None) == valid[i, c]
+                if got is not None:
+                    assert got == (hi[i, c], lo[i, c])
+    scan = [has_window_model(bspan, bpre + i * bad.shape[1],
+                             min(int(lengths[i]), L_), k) for i in range(40)]
     np.testing.assert_array_equal(scan, valid.any(axis=1))
+
+
+@pytest.mark.parametrize("k", range(1, 30))
+def test_has_window_closed_form(k):
+    """The closed-form valid-window test against the plain
+    ``valid.any(dim=1)`` for random bitmasks (sparse and dense bad bases,
+    runs of exactly k - 1, k and k + 1 good bases, across 64-base words),
+    each length 0..L on one row, at L from 25 to 256."""
+    r = np.random.default_rng(100 + k)
+    for L_ in (25, 31, 63, 64, 65, 100, 128, 129, 200, 256):
+        if L_ < k:
+            continue
+        B = L_ + 1
+        density = r.choice([0.02, 0.1, 0.3, 0.7], size=B)
+        bad = r.random((B, L_)) < density[:, None]
+        for i in range(8):  # one run of k - 1 + i % 3 good bases
+            run = k - 1 + i % 3
+            at = int(r.integers(0, max(L_ - run, 0) + 1))
+            bad[i] = True
+            bad[i, at:at + run] = False
+        codes = np.where(bad, 4, 0).astype(np.uint8)
+        lengths = r.permutation(B).astype(np.int32)  # each of 0..L once
+        _, bad_rows = enc.pack_codes_2bit(codes)
+        want = pack_canonical(torch.from_numpy(codes),
+                              torch.from_numpy(lengths), k)[2].any(dim=1)
+        pre = int(r.integers(0, 16))
+        span = _staged(r, bad_rows, pre)
+        got = [has_window_model(span, pre + i * bad_rows.shape[1],
+                                min(int(lengths[i]), L_), k)
+               for i in range(B)]
+        np.testing.assert_array_equal(got, want.numpy(), err_msg=f"L={L_}")
+
+
+def sample_model(mates, L_, k, stride, geo, seed=0):
+    """K5 as ``csrc/sample.cu`` runs it, warp tile by warp tile of
+    ``fast_cuda.sample_plan``: the tile's rows staged from inside a 16-byte
+    chunk, the sampled lanes 32 a step with their validity ballots, the
+    valid keys compacted at their ranks and looked up in rounds of 32, a
+    segment's ECs found at the ranks the ballots' prefix counts give, the
+    reduce and classification a lane a segment, the closed-form window
+    test, and the units' slots consecutive from a running count (tile
+    order: here equal to the plain order) with their rows copied in
+    vectors of the largest of 8, 4, 2, 1 bytes that divides a row.
+    Returns (single, slot, units) as ``probe.sample_classify``."""
+    rng = np.random.default_rng(seed)
+    n_seg = len(mates)
+    plan = fast_cuda.sample_plan(L_, k, stride, n_seg)
+    S, s, P = plan.S, max(stride, 2), L_ - k + 1
+    Sp, Sb = (L_ + 3) // 4, (L_ + 7) // 8
+    packed = [m[0].numpy() for m in mates]
+    bad = [m[1].numpy() for m in mates]
+    lens = [m[2].numpy() for m in mates]
+    B = lens[0].shape[0]
+    single = np.zeros((B, n_seg), np.int32)
+    slot = np.zeros((B, n_seg), np.int32)
+    u_packed = np.zeros((B * n_seg, Sp), np.uint8)
+    u_bad = np.zeros((B * n_seg, Sb), np.uint8)
+    u_len = np.zeros(B * n_seg, np.int32)
+    count = 0
+    for b0 in range(0, B, plan.reads):
+        R = min(plan.reads, B - b0)
+        nseg, lanes = R * n_seg, R * n_seg * S
+        assert nseg <= 32 and lanes <= plan.keys
+        spans = []
+        for g in range(n_seg):
+            pp, pb = (int(x) for x in rng.integers(0, 16, size=2))
+            spans.append((_staged(rng, packed[g][b0:b0 + R], pp), pp,
+                          _staged(rng, bad[g][b0:b0 + R], pb), pb))
+        seg_len = [max(0, min(int(lens[sg % n_seg][b0 + sg // n_seg]), L_))
+                   for sg in range(nseg)]
+        keys, bits = [], []
+        for j in range(-(-lanes // 32)):
+            ballot = 0
+            for lane in range(32):
+                q = 32 * j + lane
+                if q >= lanes:
+                    continue
+                sg = q // S
+                r, g = sg // n_seg, sg % n_seg
+                span, pp, bspan, pb = spans[g]
+                key = window_model(span, pp + r * Sp, bspan, pb + r * Sb,
+                                   min((q - sg * S) * s, P - 1), k,
+                                   seg_len[sg])
+                if key is not None:
+                    ballot |= 1 << lane
+                    keys.append(key)
+            bits.append(ballot)
+        ecs = []
+        for base in range(0, len(keys), 32):  # full rounds but the last
+            hk = torch.tensor([h for h, _ in keys[base:base + 32]],
+                              dtype=torch.int32)
+            lk = torch.tensor([x for _, x in keys[base:base + 32]],
+                              dtype=torch.int32)
+            ecs += probe.lookup_ecs(hk, lk, torch.ones_like(hk, dtype=bool),
+                                    *geo).tolist()
+
+        def valid_before(pos):
+            n = sum(bin(bits[j]).count("1") for j in range(pos >> 5))
+            if pos & 31:
+                n += bin(bits[pos >> 5] & ((1 << (pos & 31)) - 1)).count("1")
+            return n
+
+        mx, ok = [], []
+        for sg in range(nseg):
+            hits = [e for e in ecs[valid_before(sg * S):
+                                   valid_before((sg + 1) * S)] if e >= 0]
+            mx.append(max(hits, default=-1))
+            ok.append(not hits or min(hits) == mx[-1])
+        needy = []
+        for sg in range(nseg):
+            r, g = sg // n_seg, sg % n_seg
+            rd = range(r * n_seg, r * n_seg + n_seg)
+            resolved = (any(mx[x] >= 0 for x in rd)
+                        and all(ok[x] for x in rd))
+            single[b0 + r, g] = mx[sg] if ok[sg] and mx[sg] >= 0 else SIG_PAD
+            _, _, bspan, pb = spans[g]
+            need = (not resolved and (not ok[sg] or mx[sg] < 0)
+                    and has_window_model(bspan, pb + r * Sb, seg_len[sg], k))
+            slot[b0 + r, g] = count + len(needy) if need else -1
+            if need:
+                u_len[count + len(needy)] = lens[g][b0 + r]
+                needy.append(sg)
+        for dst, w, which in ((u_packed, Sp, 0), (u_bad, Sb, 2)):
+            V = 8 if w % 8 == 0 else 4 if w % 4 == 0 else 2 if w % 2 == 0 \
+                else 1
+            flat = dst.reshape(-1)
+            for t in range(len(needy) * (w // V)):
+                i, o = divmod(t, w // V)
+                o *= V
+                sg = needy[i]
+                r, g = sg // n_seg, sg % n_seg
+                v = bytes8(spans[g][which], spans[g][which + 1] + r * w + o)
+                at = (count + i) * w + o
+                flat[at:at + V] = np.frombuffer(
+                    v.to_bytes(8, "little")[:V], np.uint8)
+        count += len(needy)
+    return (torch.from_numpy(single), torch.from_numpy(slot),
+            tuple(torch.from_numpy(a[:count])
+                  for a in (u_packed, u_bad, u_len)))
+
+
+@pytest.fixture(scope="module")
+def wide_world():
+    """An index at k = 29 and 120 read pairs of 40-256 bp in the 256 length
+    bucket (errors, N bases, junk, an all-N row every 17)."""
+    from seekmer_tpu_torch.config import IndexConfig
+    from seekmer_tpu_torch.index.build import \
+        build_index_from_seqs as t_build
+
+    rng = np.random.default_rng(57)
+    names, seqs = random_transcriptome(rng, num_transcripts=20, min_len=400,
+                                       max_len=900, shared_prefix_frac=0.6)
+    index = t_build(names, seqs, cfg=IndexConfig(k=29))
+    sim = simulate_reads(rng, seqs, num_reads=90, read_len=256, paired=True,
+                         mean_frag=400.0, error_rate=0.02)
+    junk = ["".join(rng.choice(list("ACGT"), size=256)) for _ in range(60)]
+    segs = []
+    for reads in (list(sim.reads1) + junk[:30], list(sim.reads2) + junk[30:]):
+        codes = np.full((len(reads), 256), 4, np.uint8)
+        lengths = np.zeros(len(reads), np.int32)
+        for i, rd in enumerate(reads):
+            rd = rd[:int(rng.integers(40, 257))]
+            codes[i, :len(rd)] = enc.seq_to_codes(rd)
+            lengths[i] = len(rd)
+        codes[rng.random(codes.shape) < 0.005] = 4
+        codes[::17] = 4
+        segs.append((codes, lengths))
+    di = DeviceIndex.from_host(index, "cpu")
+    return index.k, segs, (di.table, di.main_slots, di.stash,
+                           di.stash_slots, di.bucket)
+
+
+@pytest.mark.parametrize("case", ["single-16", "paired-16", "paired-8",
+                                  "paired-2", "wide-paired-2",
+                                  "wide-single-3"])
+def test_sample_model_matches_plain(world, wide_world, case):
+    """The model of K5's warp tiles against the plain ``sample_classify``:
+    single ECs, slots and the units' rows equal, unit order included; at L
+    96 and k = 25 (B = 360 is not a multiple of the reads a warp takes at
+    s = 8 or 16), and at L 256, k = 29, s = 2 and 3, where a segment has
+    more than 32 sampled columns and a warp takes one read."""
+    wide = case.startswith("wide")
+    paired = "paired" in case
+    stride = int(case.rsplit("-", 1)[1])
+    if wide:
+        k, segs, geo = wide_world
+        L_ = 256
+    else:
+        index, r1, r2 = world
+        k, L_, geo = index.k, L, _geo(index)
+        segs = [_codes(r1), _codes(r2)]
+    mates = _mates(segs[:2 if paired else 1])
+    plan = fast_cuda.sample_plan(L_, k, stride, len(mates))
+    assert (plan.S > 32) == (stride <= 3)
+    assert (plan.reads == 1) == (plan.S * len(mates) > 128)
+    got = sample_model(mates, L_, k, stride, geo, seed=stride)
+    want = probe.sample_classify(mates, L_, k, stride, *geo)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert 0 < want[2][0].shape[0] < mates[0][0].shape[0] * len(mates)
+
+
+def _staged_need(n):
+    """Shared memory a staged span of n bytes touches at most: copied in
+    16-byte chunks from the chunk that holds its first byte (up to 15
+    bytes in), and read 16 bytes at a time from the 8-byte word that
+    holds a window's first byte."""
+    return max(16 * -(-(15 + n) // 16), 8 * ((15 + n - 1) // 8) + 16)
+
+
+@pytest.mark.parametrize("n_seg", [1, 2])
+def test_sample_plan(n_seg):
+    """K5's warp plan for every (L, k, s) on a grid that covers the lengths
+    the wrapper takes: S is the number of sampled columns (the kernel's
+    closed form of it), a tile has at least one read, at most 32 segments
+    (a lane a segment) and as many reads as fit 256 sampled lanes; its
+    keys hold every sampled lane with less than a round to spare (rounds
+    of 32 loop over a segment when S > 32); each part of its carve has
+    the bytes the kernel touches there, aligned for its loads, and the
+    shared memory of a block of its warps fits the card."""
+    for k in range(1, 30):
+        for L_ in [*range(k, 300, 7), 512, 1000, 1024]:
+            if L_ < k:
+                continue
+            P = L_ - k + 1
+            for s in (2, 3, 4, 8, 16, 64, 1000):
+                p = fast_cuda.sample_plan(L_, k, s, n_seg)
+                assert p.S == len(probe.sample_columns(P, s)) == (
+                    (P + s - 1) // s + ((P - 1) % s != 0))
+                lanes = p.reads * n_seg * p.S
+                assert 1 <= p.reads and p.reads * n_seg <= 32
+                assert p.reads == 1 or lanes <= fast_cuda.SAMPLED_LANES
+                assert (p.reads * n_seg == 32 or p.reads == 1
+                        or lanes + n_seg * p.S > fast_cuda.SAMPLED_LANES)
+                assert p.keys % 32 == 0 and lanes <= p.keys < lanes + 32
+                rows = (p.reads * ((L_ + 3) // 4), p.reads * ((L_ + 7) // 8))
+                assert p.bad_at >= _staged_need(rows[0])
+                assert p.mate_at - p.bad_at >= _staged_need(rows[1])
+                assert p.keys_at >= n_seg * p.mate_at
+                assert p.bits_at - p.keys_at >= 8 * p.keys
+                assert p.useg_at - p.bits_at >= 4 * (p.keys // 32)
+                assert 32 <= p.warp_bytes - p.useg_at < 48
+                assert p.bad_at % 16 == p.mate_at % 16 == 0  # 16-byte copies
+                assert p.keys_at % 8 == p.bits_at % 4 == 0
+                assert p.warp_bytes % 16 == 0
+                assert 1 <= p.warps <= fast_cuda.MAX_WARPS
+                assert p.warps * p.warp_bytes <= fast_cuda.SMEM_BLOCK
+    # the shapes the map step runs: config 2 at s = 16 and 8, config 1
+    assert fast_cuda.sample_plan(128, 25, 16, 2)[:3] == (8, 16, 256)
+    assert fast_cuda.sample_plan(128, 25, 8, 2)[:3] == (14, 9, 256)
+    assert fast_cuda.sample_plan(128, 25, 16, 1)[:3] == (8, 32, 256)
 
 
 def merge_model(single, slot, sig_d, mapped_d, C_):
@@ -436,6 +731,28 @@ def merge_model(single, slot, sig_d, mapped_d, C_):
             n += 1
         mapped[b] = 0 < n <= C_ and not forced
     return sig, mapped
+
+
+def _staging(r, B, n_seg, C_, n_vals, unit_share=0.4):
+    """Random merge inputs: single ECs (some SIG_PAD), units whose rows
+    are empty, full (C values), mapped or complex (more than C distinct,
+    unmapped), drawing from n_vals values so that lists share some."""
+    single = np.where(r.random((B, n_seg)) < 0.7,
+                      r.integers(0, n_vals, (B, n_seg)),
+                      SIG_PAD).astype(np.int32)
+    need = r.random((B, n_seg)) < unit_share
+    single[need] = SIG_PAD
+    nu = int(need.sum())
+    slot = np.full((B, n_seg), -1, np.int32)
+    slot[need] = np.arange(nu)
+    sig_d = np.full((nu, C_), SIG_PAD, np.int32)
+    mapped_d = np.zeros(nu, bool)
+    for u in range(nu):
+        n = int(r.choice([0, C_, int(r.integers(0, C_ + 3))]))
+        vals = np.sort(r.choice(max(n_vals, n), size=n, replace=False))
+        sig_d[u, :min(n, C_)] = vals[:C_]
+        mapped_d[u] = 0 < n <= C_
+    return single, slot, sig_d, mapped_d
 
 
 @pytest.mark.parametrize("n_seg", [1, 2])
@@ -473,6 +790,24 @@ def test_merge_model_and_unit_order(n_seg):
         *(torch.from_numpy(a) for a in (single, slot2, sig_d[perm],
                                         mapped_d[perm])), C_)
     assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
+
+
+@pytest.mark.parametrize("C_", [*range(1, 33), 40])
+@pytest.mark.parametrize("n_seg", [1, 2])
+def test_merge_model_every_width(n_seg, C_):
+    """K6's two-way merge against ``merge_staging`` at C 1..32 and 40:
+    full rows, lists that share values (values drawn from 2C or from C),
+    empty lists, no unit and every segment a unit."""
+    r = np.random.default_rng(1000 * n_seg + C_)
+    for n_vals, share in ((2 * C_ + 1, 0.4), (C_ + 1, 0.8), (3, 1.0),
+                          (2 * C_, 0.0)):
+        single, slot, sig_d, mapped_d = _staging(r, 64, n_seg, C_, n_vals,
+                                                 share)
+        args = [torch.from_numpy(a) for a in (single, slot, sig_d, mapped_d)]
+        want = probe.merge_staging(*args, C_)
+        got = merge_model(single, slot, sig_d, mapped_d, C_)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        np.testing.assert_array_equal(got[1], want[1].numpy())
 
 
 # ---- the CLI --------------------------------------------------------------
