@@ -10,13 +10,15 @@ tests.test_torch_bootstrap``.)
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit, build the eight kernels from
+1. print the card's name and power limit, build the nine kernels from
    ``seekmer_tpu_torch/csrc`` with nvcc (sm_90a, one nvcc per source);
 2. make two worlds from a seed and index them through the port's CLI: the
    config-1 world (1000 random transcripts, 4 x 65,536 single-end 100 bp
    reads) and the config-2 GENCODE-scale isoform world (20,000 genes,
    4 x 65,536 read pairs of 100 bp, fragments 200 +- 20,
-   sig_table_bits=22);
+   sig_table_bits=22, indexed with a GTF of its genes), and fuse's input:
+   10 gene pairs x 100 error-free chimeric read pairs, then the first
+   config-2 batch;
 3. hold each kernel against its plain PyTorch version on the card and time
    both with CUDA events, beside the least time the card could take for
    the same work (bytes over 3.35 TB/s, or FP32 operations over 67
@@ -47,7 +49,17 @@ Phases; any failure exits non-zero:
    the card's idle time at the fast step's unit-count readback from a
    ``torch.profiler`` trace (``[map step fast s=16 readback]``), and the
    fast step's table held against the plain route's on the same card
-   tensors;
+   tensors; strided mode's K7 bit for bit against its plain version and
+   against K2's result on the same windows (every dense hit equal, every
+   difference a fill over a dense miss) on the config-2 batch (each mate a
+   segment) at strides 2, 4, 8 and 16 and the config-1 batch at 4, timed
+   beside K2 on the whole batch and on exactly the keys K7 looks up
+   (``[K7 strided ...]``); K3 with ``segments=2`` (fusion mode's per-mate
+   signatures) against its plain version (``[K3 segments=2 config 2]``),
+   and those signatures folded by A1 into a 2C-wide table with no per-EC
+   vector, every read through the CAS as in ``fuse``, against its plain
+   version, with the table's fill and overflow
+   (``[A1 accumulate fusion width]``);
 4. run ``infer --device cuda`` of the port's CLI on both worlds with every
    kernel's launch count set to 0 just before and read just after:
    config 1 with ``--bootstrap 100`` (the dense route, through K4; the
@@ -60,10 +72,15 @@ Phases; any failure exits non-zero:
    then ``infer --probe-sample 16`` on both (fast
    mode: config 1's mapped and unmapped counts checked against the port's
    plain fast path on the CPU; config 2 paired with the FLD estimated and
-   its mapped count beside the dense run's); check the outputs and print
-   the stage rates;
-5. trace the map stage (``Mapper.run`` fed as ``infer`` feeds it, dense
-   and then fast at s = 16), a fixed 480-iteration EM and a fixed
+   its mapped count beside the dense run's), then ``infer --probe-stride
+   4`` on both (strided mode: K7 launched and no standalone K2; config
+   1's MapResult on the card equal to the plain strided path on the CPU;
+   mapped counts beside the dense runs'); check the outputs and print the
+   stage rates; then ``fuse`` at config 2 (every injected gene pair called
+   with its support; ``fusion.detect_fusions_files`` with
+   ``MapConfig(probe_stride=4)`` giving the same table);
+5. trace the map stage (``Mapper.run`` fed as ``infer`` feeds it, dense,
+   then fast at s = 16, then strided at s = 4), a fixed 480-iteration EM and a fixed
    480-iteration 100-replicate bootstrap on both worlds with
    ``torch.profiler``; print each stage's wall time untraced and traced,
    its device busy time, and the device time per kernel or copy. On
@@ -111,6 +128,9 @@ READ_LEN = 100
 SEED = 0
 C1_TRANSCRIPTS = 1000
 C2_GENES = 20000
+FUSION_GENES = 10  # gene pairs injected into fuse's input at config 2
+FUSION_PAIRS = 100  # chimeric read pairs each
+STRIDES = (2, 4, 8, 16)  # K7 at config 2; infer and fuse run at s = 4
 DEVICE = "cuda"
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_S = 3.35e12
@@ -176,21 +196,57 @@ def make_worlds(work: Path):
     t0 = time.perf_counter()
     names, seqs, genes = isoform_transcriptome(rng, num_genes=C2_GENES)
     write_fasta(str(work / "c2.fa"), names, seqs)
+    with open(work / "c2.gtf", "w") as fh:
+        for n, g in zip(names, genes):
+            fh.write(f"chr1\tsim\ttranscript\t1\t2\t.\t+\t.\t"
+                     f'gene_id "{g}"; transcript_id "{n}";\n')
     c1, c2, _ = simulate_packed_pairs(rng, seqs, BATCHES, B, READ_LEN,
                                       mean_frag=200.0, sd_frag=20.0)
     for name, codes in (("c2_1.fq", c1), ("c2_2.fq", c2)):
         write_fastq(str(work / name),
                     reads_from_codes(codes.reshape(-1, READ_LEN)))
     batch2 = (c1[0], c2[0])
+    injected = write_fusion_pairs(work, names, seqs, genes, batch2)
     t_sim = time.perf_counter() - t0
     t0 = time.perf_counter()
-    check(cli.main(["index", str(work / "c2.fa"), str(work / "c2.npz")]) == 0,
+    check(cli.main(["index", str(work / "c2.fa"), str(work / "c2.npz"),
+                    "--gtf", str(work / "c2.gtf")]) == 0,
           "config-2 index build")
     log(f"[setup] config-2 world: {len(seqs)} transcripts from {C2_GENES} "
         f"genes, "
         f"{BATCHES * B} pairs; simulate {t_sim:.1f} s, index build + save "
         f"{time.perf_counter() - t0:.1f} s")
-    return batch1, batch2
+    return batch1, batch2, injected
+
+
+def write_fusion_pairs(work: Path, names, seqs, genes, batch2):
+    """``fuse``'s input at config 2: FUSION_PAIRS chimeric read pairs (mate
+    1 from a transcript of gene A, mate 2 the reverse complement of the
+    same span of a transcript of gene B, error-free) for each of
+    FUSION_GENES gene pairs drawn from a seed, then the first config-2
+    batch. Returns the injected gene pairs."""
+    import numpy as np
+
+    from seekmer_tpu_torch.utils.simulate import write_fastq
+
+    first = {}
+    for s, g in zip(seqs, genes):
+        if len(s) >= 2 * READ_LEN + FUSION_PAIRS and g not in first:
+            first[g] = s
+    picked = np.random.default_rng(SEED + 1).choice(
+        sorted(first), size=2 * FUSION_GENES, replace=False)
+    injected = [(str(picked[2 * i]), str(picked[2 * i + 1]))
+                for i in range(FUSION_GENES)]
+    comp = str.maketrans("ACGT", "TGCA")
+    r1, r2 = [], []
+    for ga, gb in injected:
+        for i in range(FUSION_PAIRS):
+            r1.append(first[ga][i:i + READ_LEN])
+            r2.append(first[gb][i:i + READ_LEN][::-1].translate(comp))
+    for name, reads, codes in (("fuse_1.fq", r1, batch2[0]),
+                               ("fuse_2.fq", r2, batch2[1])):
+        write_fastq(str(work / name), reads + reads_from_codes(codes))
+    return injected
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -507,6 +563,86 @@ def check_fast(tag, di, mates, L, stride, dense):
     return k5, k6
 
 
+def check_strided(tag, di, hi, lo, valid, dense, stride, segments):
+    """K7 against its plain version on one batch's windows ([B, W], W =
+    segments x P; a pair's mates are two segments), bit for bit, and
+    against K2's result ``dense`` on the same windows: every dense hit
+    equal, every difference a fill over a dense miss, invalid windows MISS.
+    Timed (device time with the card kept busy) beside K2 on the whole
+    batch and on exactly the keys K7 looks up: each segment's valid sampled
+    windows (P - 1 twice where it is a multiple of s, as K7 looks it up
+    twice) and its needy windows. The bound counts, by K2's model, the hi
+    slab of each distinct home row of those keys and two 32-byte sectors of
+    each distinct key found, plus the 32-byte sectors of hi and lo that
+    hold one of those windows, all of valid, and the ec write. Returns K7's
+    record."""
+    import torch
+
+    from seekmer_tpu_torch.ops import probe, probe_cuda, strided_cuda
+    from seekmer_tpu_torch.ops.hash import hash_kmer
+    from seekmer_tpu_torch.utils import kernel_ab
+
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    got = strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, stride,
+                                          segments=segments)
+    err = max_abs_diff(got, strided_cuda.plain(hi, lo, valid, *geo, stride,
+                                               segments))
+    hit = valid & (dense >= 0)
+    div = valid & (got != dense)
+    check(err == 0, f"K7 {tag} s={stride}: max_abs_err {err}")
+    check(torch.equal(got[hit], dense[hit]) and bool((dense[div] == -1).all())
+          and bool((got[div] >= 0).all()) and bool((got[~valid] == -1).all()),
+          f"K7 {tag} s={stride}: breaks the dense invariants against K2")
+
+    B, W = hi.shape
+    P = W // segments
+    h, l_, v = (x.reshape(B * segments, P) for x in (hi, lo, valid))
+    cols = torch.tensor(probe.strided_columns(P, stride), device=hi.device)
+    _, need = probe.strided_fill(h, l_, v, *geo, stride)
+    vs = v[:, cols]
+    hs = torch.cat([h[:, cols][vs], h[need]])
+    ls = torch.cat([l_[:, cols][vs], l_[need]])
+    # hi and lo are read only at those windows: their distinct sectors of
+    # 8 int32 (both contiguous, so window c of segment row r is r P + c)
+    flat = torch.arange(h.numel(), device=hi.device).reshape(h.shape)
+    sectors = int(torch.unique(torch.cat([flat[:, cols][vs], flat[need]])
+                               // 8).numel())
+    every = torch.ones_like(hs, dtype=torch.bool)
+    rows = int(torch.unique(hash_kmer(hs, ls)
+                            & (di.main_slots // di.bucket - 1)).numel())
+    found = probe.lookup_ecs(hs, ls, every, *geo) >= 0
+    nkeys = int(torch.unique((hs[found].to(torch.int64) << 32)
+                             | (ls[found].to(torch.int64) & 0xFFFFFFFF))
+                .numel())
+    n_valid, n_samp, n_need = int(valid.sum()), int(vs.sum()), int(need.sum())
+    rec = record(
+        err, kernel_ab.device_ms(lambda: strided_cuda.lookup_ecs_strided(
+            hi, lo, valid, *geo, stride, segments=segments), 50),
+        cuda_ms(lambda: strided_cuda.plain(hi, lo, valid, *geo, stride,
+                                           segments), 3),
+        (2 * 32 * sectors + nbytes(valid, got) + rows * 4 * di.bucket
+         + nkeys * 64) / HBM_BYTES_S, "bytes")
+    k2_whole = kernel_ab.device_ms(
+        lambda: probe_cuda.lookup_ecs_aux(hi, lo, valid, *geo), 50)
+    k2_same = kernel_ab.device_ms(
+        lambda: probe_cuda.lookup_ecs_aux(hs, ls, every, *geo), 50)
+    log(f"[K7 strided {tag} s={stride}] {B} reads x {segments} segments of "
+        f"{P} windows ({n_valid} valid), {cols.numel()} sampled columns a "
+        f"segment: {n_samp} valid sampled keys, {n_need} needy windows "
+        f"({n_need / max(n_valid, 1):.6f} of the valid), {int(div.sum())} "
+        f"filled over a dense miss; max_abs_err {err}, kernel "
+        f"{rec['ms']:.6f} ms (device time), plain {rec['plain_ms']:.6f} ms, "
+        f"bound {rec['bound_ms']:.6f} ms (share "
+        f"{rec['bound_ms'] / rec['ms']:.6f}; {rows} distinct home rows, "
+        f"{nkeys} distinct keys found, {sectors} of {-(-h.numel() // 8)} "
+        f"sectors of hi and of lo); K2 on the whole batch "
+        f"{k2_whole:.6f} ms (K7 x{rec['ms'] / k2_whole:.3f}), K2 on exactly "
+        f"K7's {hs.numel()} keys {k2_same:.6f} ms (K7 x"
+        f"{rec['ms'] / k2_same:.3f}); a warp's tile "
+        f"{strided_cuda.strided_plan(P, stride).segs} segments")
+    return rec
+
+
 def readback_gap(step, reps: int = 10) -> None:
     """Trace ``reps`` calls of the fast map step with ``torch.profiler`` and
     print the card's idle time between each K5's end and the start of the
@@ -550,6 +686,29 @@ def readback_gap(step, reps: int = 10) -> None:
         f"{sum(copies) / max(len(copies), 1):.3f} us)")
 
 
+def a1_tables_diff(tables, B: int, what: str):
+    """Two A1 tables folded from the same rows (the kernel's, then the
+    plain version's): their merged signatures and fingerprint keys must be
+    equal. Returns the largest difference of counts, overflow and
+    collisions, and the kernel table's MapResult."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch.map.driver import merge_sig_rows
+    from seekmer_tpu_torch.map.signature import table_to_host
+
+    mk, mp = (merge_sig_rows(*table_to_host(t), B, int(t.overflow),
+                             int(t.collisions)) for t in tables)
+    check(np.array_equal(mk.sigs, mp.sigs), f"{what}: merged signatures "
+          "differ")
+    keys = [np.sort(t.key.view(torch.int64).cpu().numpy().ravel())
+            for t in tables]
+    check(np.array_equal(*keys), f"{what}: fingerprint keys differ")
+    err = int(np.abs(mk.sig_counts - mp.sig_counts).max(initial=0))
+    return max(err, abs(mk.overflow - mp.overflow),
+               abs(mk.collisions - mp.collisions)), mk
+
+
 def compare_kernels(work: Path, batches, keep_inputs=None):
     """Each kernel against its plain version at one paired config-2 batch's
     shapes, with the bytes each must move at the least (each input read
@@ -580,6 +739,7 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         *upload_mate(batches[0], L, dev), L, index.k)
     c1, c1_got = check_lookup("config 1", index, di, *c1_lanes)
     log_heads("config 1", c1_got[0], c1_lanes[2])
+    check_strided("config 1", di, *c1_lanes, c1_got[0], 4, 1)
     for stride in (16, 2):
         check_fast("config 1", di, [upload_mate(batches[0], L, dev)], L,
                    stride, sig_cuda.read_signatures(c1_got[0], c1_lanes[2],
@@ -651,29 +811,62 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         f"{out['K3']['plain_ms']:.6f} ms, bound {out['K3']['bound_ms']:.6f} ms"
         f" (share {out['K3']['bound_ms'] / out['K3']['ms']:.6f})")
 
+    # fusion mode's K3: a signature a mate side by side, mapped the AND
+    got2 = sig_cuda.read_signatures(ecs, valid, C, segments=2)
+    err2 = max(max_abs_diff(g, r) for g, r in
+               zip(got2, sig_cuda.plain(ecs, valid, C, 2)))
+    out["K3"]["max_abs_err"] = max(out["K3"]["max_abs_err"], err2)
+    seg_ms = kernel_ab.device_ms(
+        lambda: sig_cuda.read_signatures(ecs, valid, C, segments=2), 50)
+    log(f"[K3 segments=2 config 2] [{B}, {ecs.shape[1]}] as two mates of "
+        f"{P} windows, C={C} each: max_abs_err {err2}, kernel {seg_ms:.6f} ms "
+        f"(device time; dense K3 on the same rows {k3['ms']:.6f} ms), "
+        f"mapped {int(got2[1].sum())} (dense {int(got[1].sum())}), bound "
+        f"{nbytes(ecs, valid, *got2) / HBM_BYTES_S * 1e3:.6f} ms")
+
+    # fusion mode's A1: those signatures into a 2C-wide table with no
+    # per-EC vector (num_ecs=0), so every read takes the CAS route, as in
+    # fuse; held to the plain version as the dense fold is below
+    weights = torch.ones(B, dtype=torch.int32, device=dev)
+
+    def fresh_fused():
+        return make_sig_table(22, 2 * C, num_ecs=0, device=dev)
+
+    fused = []
+    for fold in (accumulate_cuda.fold_batch, accumulate_cuda.plain):
+        t = fresh_fused()
+        fold(t, *got2, weights=weights, audit=True)
+        fused.append(t)
+    fused_err, fm = a1_tables_diff(fused, B, "A1 at fusion width")
+    S = fused[0].count.numel() - 1
+    fill = int((fused[0].count[:S] > 0).sum())
+    fused_ms = kernel_ab.device_ms(
+        lambda t: accumulate_cuda.fold_batch(t, *got2, weights=weights,
+                                             audit=True), 20, fresh_fused)
+    log(f"[A1 accumulate fusion width] {B} pairs into a [{S}, {2 * C}] "
+        f"table with no per-EC vector: max_abs_err {fused_err}, "
+        f"{fill} of {S} slots filled ({fill / S:.6f}), "
+        f"{fm.sigs.shape[0]} distinct pair signatures, mapped {fm.mapped}, "
+        f"overflow {fm.overflow}, collisions {fm.collisions}; claim + audit "
+        f"on an empty table {fused_ms:.6f} ms (device time)")
+    check(fm.overflow == 0, f"fusion table overflow {fm.overflow}")
+
+    for stride in STRIDES:
+        rec = check_strided("config 2", di, hi, lo, valid, ecs, stride, 2)
+        if stride == 4:  # infer and fuse run at s = 4
+            out["K7"] = rec
+
     sig, mapped = got
     out["K5"], out["K6"] = check_fast("config 2", di, mates, L, 16, got)
     for stride in (8, 2):
         check_fast("config 2", di, mates, L, stride, got)
-    weights = torch.ones(B, dtype=torch.int32, device=dev)
     tables = []
     for fold in (accumulate_cuda.fold_batch, accumulate_cuda.plain):
         t = make_sig_table(22, C, num_ecs=index.num_ecs, device=dev)
         fold(t, sig, mapped, weights=weights)
         tables.append(t)
-    merged = []
-    for t in tables:
-        s, c = table_to_host(t)
-        merged.append(merge_sig_rows(s, c, B, int(t.overflow),
-                                     int(t.collisions)))
-    mk, mp = merged
-    check(np.array_equal(mk.sigs, mp.sigs), "A1 merged signatures differ")
-    err = int(np.abs(mk.sig_counts - mp.sig_counts).max(initial=0))
-    err = max(err, abs(mk.overflow - mp.overflow),
-              abs(mk.collisions - mp.collisions))
-    keys = [np.sort(t.key.view(torch.int64).cpu().numpy().ravel())
-            for t in tables]
-    check(np.array_equal(*keys), "A1 fingerprint keys differ")
+    err, mk = a1_tables_diff(tables, B, "A1")
+    err = max(err, fused_err)
     multi = int(((sig[:, 1] != 0x7FFFFFFF) & mapped).sum())
 
     # first fold into an empty table: every distinct signature is claimed
@@ -708,8 +901,8 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         tables[1], sig, mapped, weights=weights), 5)
     log(f"[A1 accumulate] {B} reads ({multi} multi-EC) at sig_table_bits=22: "
         f"{mk.sigs.shape[0]} merged signatures, overflow {mk.overflow}, "
-        f"collisions {mk.collisions}; max_abs_err {err} (this batch and a "
-        f"pre-seeded colliding table); bound {out['A1']['bound_ms']:.6f} ms")
+        f"collisions {mk.collisions}; max_abs_err {err} (this batch, the "
+        f"fusion-width table and a pre-seeded colliding table); bound {out['A1']['bound_ms']:.6f} ms")
     log(f"[A1 accumulate] empty table (claims), device time: claim "
         f"{a1['claim_ms']:.6f} ms, claim + audit {a1['claim_audit_ms']:.6f} "
         f"ms (share {out['A1']['bound_ms'] / a1['claim_audit_ms']:.6f}); "
@@ -1259,16 +1452,18 @@ def compare_csr_em(ec, lengths):
 def reset_launches():
     from seekmer_tpu_torch.ops import (accumulate_cuda, em_csr_cuda,
                                        em_cuda, fast_cuda, pack_cuda,
-                                       probe_cuda, sig_cuda)
+                                       probe_cuda, sig_cuda, strided_cuda)
 
     for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
                sig_cuda.read_signatures, accumulate_cuda.fold_batch,
                em_cuda.em_fixed_point, fast_cuda.sample_classify,
-               fast_cuda.merge_staging, em_csr_cuda.em_steps):
+               fast_cuda.merge_staging, em_csr_cuda.em_steps,
+               strided_cuda.lookup_ecs_strided):
         fn.launches = 0
 
 
-DENSE_ONLY = ("sample", "merge")  # fast mode's kernels
+FAST = ("sample", "merge")  # fast mode's kernels
+STRIDED = ("strided",)  # strided mode's
 
 
 def run_infer(work: Path, tag: str, argv, unused=(), name=None):
@@ -1334,7 +1529,8 @@ def end_to_end(work: Path):
 
     out, info, l1 = run_infer(work, "c1", [
         str(work / "c1.fq"), "--em-tolerance", "1e-6", "--em-max-iters",
-        "2000", "--bootstrap", "100", "--seed", "1"], unused=DENSE_ONLY)
+        "2000", "--bootstrap", "100", "--seed", "1"],
+        unused=(*FAST, *STRIDED))
     index = KMerIndex.load(str(work / "c1.npz"))
     check_bootstrap("c1", out, info, index.num_transcripts)
     em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
@@ -1364,7 +1560,7 @@ def end_to_end(work: Path):
     out2, info2, l2 = run_infer(work, "c2", [
         str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
         "--sig-table-bits", "22", "--bootstrap", "100"],
-        unused=("em", *DENSE_ONLY))
+        unused=("em", *FAST, *STRIDED))
     fld = info2["fld"]
     check(fld is not None, "config-2 FLD was not estimated")
     log(f"[c2 fld] mean {fld['mean']:.6f} (simulated 200), sd "
@@ -1388,7 +1584,7 @@ def end_to_end(work: Path):
     # fast mode: config 1 against the port's plain fast path on the CPU
     _, info3, l3 = run_infer(work, "c1", [str(work / "c1.fq"),
                                           "--probe-sample", "16"],
-                             unused=("em",), name="c1_fast")
+                             unused=("em", *STRIDED), name="c1_fast")
     t0 = time.perf_counter()
     ref3 = cpu_map(work, index, MapConfig(batch_size=B, probe_sample=16))
     check(info3["probe_sample"] == 16
@@ -1403,8 +1599,8 @@ def end_to_end(work: Path):
         f"{time.perf_counter() - t0:.1f} s)")
     _, info4, l4 = run_infer(work, "c2", [
         str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
-        "--sig-table-bits", "22", "--probe-sample", "16"], unused=("em",),
-        name="c2_fast")
+        "--sig-table-bits", "22", "--probe-sample", "16"],
+        unused=("em", *STRIDED), name="c2_fast")
     fld4 = info4["fld"]
     check(fld4 is not None and abs(fld4["mean"] - 200.0) < 10.0
           and abs(fld4["sd"] - 20.0) < 10.0 and fld4["samples"] > 1000,
@@ -1416,11 +1612,120 @@ def end_to_end(work: Path):
         f"{info2['mapped']}), unmapped {info4['unmapped']} (dense "
         f"{info2['unmapped']}); FLD mean {fld4['mean']:.6f}, sd "
         f"{fld4['sd']:.6f}, {fld4['samples']} samples")
+    # strided mode, s = 4, both worlds: K7 in place of K2; config 1's
+    # MapResult on the card against the plain strided path on the CPU
+    _, info5, l5 = run_infer(work, "c1", [str(work / "c1.fq"),
+                                          "--probe-stride", "4"],
+                             unused=("em", "lookup", *FAST),
+                             name="c1_strided")
+    t0 = time.perf_counter()
+    scfg = MapConfig(batch_size=B, probe_stride=4)
+    ref5, card5 = cpu_map(work, index, scfg), cpu_map(work, index, scfg,
+                                                      DEVICE)
+    r, c = ref5["result"], card5["result"]
+    check(np.array_equal(r.sigs, c.sigs)
+          and np.array_equal(r.sig_counts, c.sig_counts)
+          and (r.total_reads, r.mapped, r.overflow, r.collisions)
+          == (c.total_reads, c.mapped, c.overflow, c.collisions),
+          "config-1 strided MapResult on the card differs from the plain "
+          "strided path on the CPU")
+    check(info5["probe_stride"] == 4
+          and (info5["mapped"], info5["unmapped"])
+          == (ref5["mapped"], ref5["unmapped"]),
+          f"config-1 strided mapped {info5['mapped']} / unmapped "
+          f"{info5['unmapped']} != the plain strided path on the CPU "
+          f"{ref5['mapped']} / {ref5['unmapped']}")
+    log(f"[c1_strided reference] MapResult on the card equal to the plain "
+        f"strided path on the CPU ({r.sigs.shape[0]} signatures, mapped "
+        f"{r.mapped}); infer mapped {info5['mapped']}, unmapped "
+        f"{info5['unmapped']} (dense {info['mapped']} / {info['unmapped']}, "
+        f"difference {info5['mapped'] - info['mapped']}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    _, info6, l6 = run_infer(work, "c2", [
+        str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
+        "--sig-table-bits", "22", "--probe-stride", "4"],
+        unused=("em", "lookup", *FAST), name="c2_strided")
+    fld6 = info6["fld"]
+    check(fld6 is not None and abs(fld6["mean"] - 200.0) < 10.0
+          and info6["total_reads"] == BATCHES * B
+          and info6["mapped"] > 0.8 * BATCHES * B,
+          f"config-2 strided mapped {info6['mapped']}, FLD {fld6}")
+    log(f"[c2_strided check] mapped {info6['mapped']} (dense "
+        f"{info2['mapped']}, difference {info6['mapped'] - info2['mapped']})"
+        f", unmapped {info6['unmapped']} (dense {info2['unmapped']}); FLD "
+        f"mean {fld6['mean']:.6f}, sd {fld6['sd']:.6f}")
     # A3: one launch a fixed point, no host read between its blocks
-    a3 = [l["em_csr"] for l in (l1, l2, l3, l4)]
-    check(a3 == [1, 2, 1, 1], f"A3 launches per infer run {a3}, expected one "
-          "a fixed point: [1, 2, 1, 1]")
-    return {k: l1[k] + l2[k] + l3[k] + l4[k] for k in l1}
+    runs = (l1, l2, l3, l4, l5, l6)
+    a3 = [l["em_csr"] for l in runs]
+    check(a3 == [1, 2, 1, 1, 1, 1], f"A3 launches per infer run {a3}, "
+          "expected one a fixed point: [1, 2, 1, 1, 1, 1]")
+    return {k: sum(l[k] for l in runs) for k in l1}
+
+
+def fuse_check(work: Path, injected) -> dict:
+    """``fuse`` at config 2 (the index with its gene map) on the chimeric
+    pairs and the first config-2 batch, through the CLI: every injected
+    gene pair must be a candidate with at least its injected support; the
+    other candidates are counted. Then ``fusion.detect_fusions_files``
+    with ``MapConfig(probe_stride=4)`` (strided + fusion; the CLI has no
+    stride flag) must give the same table and tallies. Returns the
+    launches of the two runs, each counted from 0."""
+    from seekmer_tpu_torch import MapConfig, cli, fusion
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.io.writer import write_fusions
+
+    f1, f2 = str(work / "fuse_1.fq"), str(work / "fuse_2.fq")
+    out = work / "fuse_out"
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["fuse", str(work / "c2.npz"), str(out), f1, "--mates", f2,
+                   "--sig-table-bits", "22", "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    dense = cli.kernel_launches()
+    check(rc == 0, f"fuse exit {rc}")
+    for kernel, n in dense.items():
+        used = kernel in ("pack", "lookup", "signature", "accumulate")
+        check((n > 0) == used, f"fuse: kernel {kernel} launched {n} times")
+    info = json.loads((out / "run_info.json").read_text())
+    table = (out / "fusions.tsv").read_text().splitlines()
+    rows = {tuple(sorted(r.split("\t")[:2])): r.split("\t")
+            for r in table[1:]}
+    support = []
+    for ga, gb in injected:
+        row = rows.get(tuple(sorted((ga, gb))))
+        check(row is not None and int(row[2]) >= FUSION_PAIRS,
+              f"fuse: injected pair {ga}, {gb} not called with its "
+              f"{FUSION_PAIRS} pairs: {row}")
+        support.append(int(row[2]) + int(row[3]))
+    log(f"[fuse config 2] {info['pairs_total']} pairs ({FUSION_GENES} gene "
+        f"pairs x {FUSION_PAIRS} chimeric + the first config-2 batch): "
+        f"{info['candidates']} candidates, every injected pair called "
+        f"(support {min(support)}-{max(support)}), {len(rows) - len(injected)}"
+        f" other candidates; concordant {info['concordant']}, same-gene "
+        f"{info['same_gene_discordant']}, ambiguous {info['ambiguous']}, "
+        f"unresolved {info['unresolved']}, split reads {info['split_reads']};"
+        f" CLI wall {wall:.1f} s, kernel launches {dense}")
+
+    index = KMerIndex.load(str(work / "c2.npz"))
+    reset_launches()
+    rep = fusion.detect_fusions_files(
+        index, [f1], [f2], cfg=MapConfig(sig_table_bits=22, probe_stride=4),
+        device=DEVICE)
+    strided = cli.kernel_launches()
+    check(strided["strided"] > 0 and strided["lookup"] == 0,
+          f"strided fusion run: kernel launches {strided}")
+    write_fusions(str(work / "fuse_s4.tsv"), rep)
+    same = ((work / "fuse_s4.tsv").read_text().splitlines() == table
+            and (rep.pairs_total, rep.concordant, rep.same_gene_discordant,
+                 rep.ambiguous, rep.unresolved, rep.split_reads)
+            == tuple(info[k] for k in ("pairs_total", "concordant",
+                                       "same_gene_discordant", "ambiguous",
+                                       "unresolved", "split_reads")))
+    check(same, "fusion with probe_stride=4 gives another report than fuse")
+
+    log(f"[fuse config 2 s=4] detect_fusions_files with probe_stride=4: the "
+        f"same table and tallies as fuse; kernel launches {strided}")
+    return {k: dense[k] + strided[k] for k in dense}
 
 
 def cpu_reference(work: Path, index, em_cfg) -> dict:
@@ -1442,21 +1747,22 @@ def cpu_reference(work: Path, index, em_cfg) -> dict:
     return dict(ref, tpm=tpm_from_alpha(alpha, index.lengths, x64).numpy())
 
 
-def cpu_map(work: Path, index, cfg) -> dict:
-    """The config-1 reads mapped under ``cfg`` on the CPU through the port's
-    plain versions: mapped and unmapped counted as the Quantifier counts
-    them (reads whose signature resolves to no transcript are dropped from
-    the mapped), and the resolved ECs."""
+def cpu_map(work: Path, index, cfg, device="cpu") -> dict:
+    """The config-1 reads mapped under ``cfg`` on ``device`` (the CPU: the
+    port's plain versions): the MapResult, mapped and unmapped counted as
+    the Quantifier counts them (reads whose signature resolves to no
+    transcript are dropped from the mapped), and the resolved ECs."""
     from seekmer_tpu_torch.io.fastq import batch_reads_native
     from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
     from seekmer_tpu_torch.utils.prefetch import device_put_batches
 
-    result = Mapper(index, cfg, device="cpu").run(device_put_batches(
-        batch_reads_native([str(work / "c1.fq")], cfg), "cpu"))
+    mapper = Mapper(index, cfg, device=device)
+    result = mapper.run(device_put_batches(
+        batch_reads_native([str(work / "c1.fq")], cfg), mapper.device))
     members, counts, dropped = resolve_signatures(result, index)
     return {"mapped": result.mapped - dropped,
             "unmapped": result.total_reads - result.mapped + dropped,
-            "members": members, "counts": counts}
+            "members": members, "counts": counts, "result": result}
 
 
 def em_tpm_error(index, ref, em_cfg) -> float:
@@ -1535,7 +1841,8 @@ def report_stage(name: str, run):
 
 
 def profile_stages(work: Path, keep_inputs=None) -> dict:
-    """Trace the map stage (dense, then fast at s = 16), a fixed
+    """Trace the map stage (dense, then fast at s = 16, then strided at
+    s = 4), a fixed
     480-iteration EM and a fixed 480-iteration 100-replicate bootstrap on
     both worlds; on the world that takes the batched CSR bootstrap route,
     hold A3 against its plain version and time it first
@@ -1581,6 +1888,9 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
         fast = dataclasses.replace(cfg, probe_sample=16)
         report_stage(f"{tag} map fast s=16",
                      lambda trace: map_run(trace, fast))
+        strided = dataclasses.replace(cfg, probe_stride=4)
+        report_stage(f"{tag} map strided s=4",
+                     lambda trace: map_run(trace, strided))
         members, counts, _ = resolve_signatures(result, index)
         if keep_inputs and paired:
             np.savez(f"{keep_inputs}.c2_ec.npz", counts=counts,
@@ -1619,6 +1929,8 @@ KERNELS = [
      "seekmer_tpu/ops/probe.py:481"),
     ("A3", "em_csr", "seekmer_tpu_torch/csrc/em_csr.cu",
      "seekmer_tpu/em/bootstrap.py:86"),
+    ("K7", "strided", "seekmer_tpu_torch/csrc/strided.cu",
+     "seekmer_tpu/ops/probe.py:493"),
 ]
 
 
@@ -1662,9 +1974,12 @@ def main(argv=None) -> int:
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "build"))
     try:
-        timing = compare_kernels(work, make_worlds(work), args.keep_inputs)
+        *batches, injected = make_worlds(work)
+        timing = compare_kernels(work, batches, args.keep_inputs)
         timing["K4"] = compare_em_kernel(work)
         launches = end_to_end(work)
+        fused = fuse_check(work, injected)
+        launches = {k: launches[k] + fused[k] for k in launches}
         timing.update(profile_stages(work, args.keep_inputs))
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -1,12 +1,13 @@
 """Command-line interface of the port: ``index`` (the host index build,
 ``_add_index`` and ``cmd_index`` copied from ``seekmer_tpu/cli.py``; the
-file loads in either package) and ``infer`` on one device, ``--device
-cuda`` by default.
+file loads in either package), ``infer`` and ``fuse`` on one device,
+``--device cuda`` by default.
 
 ``infer`` estimates the fragment-length distribution of paired runs unless
 ``--fragment-length`` or ``--fragment-sd`` is given, runs ``--bootstrap``
-replicates, and maps in fast mode with ``--probe-sample N`` (N >= 2). It
-parses every ``infer`` flag of the JAX CLI:
+replicates, maps in fast mode with ``--probe-sample N`` (N >= 2) and in
+strided mode with ``--probe-stride N`` (N > 1). It parses every ``infer``
+flag of the JAX CLI:
 
 - ``--sample-fallback`` (validated, then ignored: the port re-probes every
   fallback unit in one pass) and ``--io-workers`` go into ``MapConfig``;
@@ -15,9 +16,12 @@ parses every ``infer`` flag of the JAX CLI:
   fields for them the port ignores (``config.py``); ``--checkpoint-every``
   is accepted and means nothing without ``--checkpoint``;
 - the features the port does not have yet (``--checkpoint``,
-  ``--pack-cache``, ``--probe-stride`` > 1, ``--trace-dir``, sharding,
-  ``--distributed``) are refused with an error naming their ROADMAP.md
-  item, as ``fuse`` is.
+  ``--pack-cache``, ``--trace-dir``, sharding, ``--distributed``) are
+  refused with an error naming their ROADMAP.md item.
+
+``fuse`` (``_add_fuse`` and ``cmd_fuse`` after ``seekmer_tpu/cli.py``)
+takes the JAX CLI's arguments and ``--device``, and writes the same
+``fusions.tsv`` and ``run_info.json``.
 """
 
 from __future__ import annotations
@@ -102,6 +106,10 @@ def _add_infer(sub):
                         "samples name one EC resolve early, the rest "
                         "re-probe densely (an approximation; 0 = exact "
                         "dense)")
+    p.add_argument("--probe-stride", type=int, default=1,
+                   help="strided mode: probe every Nth window and fill the "
+                        "gaps from the index's EC run lengths, probing the "
+                        "windows neither side covers (1 = every window)")
     p.add_argument("--sample-fallback", type=float, default=0.0,
                    help="the JAX package's fast-mode phase-2 cap fraction; "
                         "validated and ignored here")
@@ -120,11 +128,30 @@ def _add_infer(sub):
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--pack-cache", nargs="?", const="auto", default=None)
-    p.add_argument("--probe-stride", type=int, default=1)
     p.add_argument("--trace-dir", default=None)
     p.add_argument("--data-shards", type=int, default=1)
     p.add_argument("--index-shards", type=int, default=1)
     p.add_argument("--distributed", action="store_true")
+    return p
+
+
+def _add_fuse(sub):
+    p = sub.add_parser("fuse", help="call fusion-transcript candidates from "
+                                    "discordant read pairs")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("index", help="index file from `index`")
+    p.add_argument("output_dir", help="output directory")
+    p.add_argument("fastq", nargs="+", help="mate-1 FASTQ(.gz) files")
+    p.add_argument("--mates", nargs="+", required=True,
+                   help="mate-2 FASTQ(.gz) files")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; the run "
+                        "fails rather than fall back when it is absent)")
+    p.add_argument("--batch-size", type=int, default=65536)
+    p.add_argument("--max-ecs-per-read", type=int, default=16)
+    p.add_argument("--sig-table-bits", type=int, default=20)
+    p.add_argument("--min-count", type=int, default=2,
+                   help="minimum supporting pairs per candidate")
     return p
 
 
@@ -140,8 +167,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="command", required=True)
     _add_index(sub)
     _add_infer(sub)
-    fuse = sub.add_parser("fuse", help="fusion calling (not ported yet)")
-    fuse.add_argument("rest", nargs=argparse.REMAINDER)
+    _add_fuse(sub)
     return ap
 
 
@@ -150,8 +176,6 @@ def _refuse_unported(args) -> None:
         raise NotPorted("--checkpoint", "Checkpoints")
     if args.pack_cache is not None:
         raise NotPorted("--pack-cache", "Pack cache")
-    if args.probe_stride > 1:
-        raise NotPorted("--probe-stride > 1", "Strided mode")
     if args.trace_dir:
         raise NotPorted("--trace-dir", "Tooling")
     if args.data_shards != 1 or args.index_shards != 1:
@@ -163,7 +187,7 @@ def _refuse_unported(args) -> None:
 def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers in this process."""
     from .ops import (accumulate_cuda, em_csr_cuda, em_cuda, fast_cuda,
-                      pack_cuda, probe_cuda, sig_cuda)
+                      pack_cuda, probe_cuda, sig_cuda, strided_cuda)
 
     return {"pack": pack_cuda.pack_canonical_2bit.launches,
             "lookup": probe_cuda.lookup_ecs_aux.launches,
@@ -172,7 +196,8 @@ def kernel_launches() -> dict:
             "em": em_cuda.em_fixed_point.launches,
             "sample": fast_cuda.sample_classify.launches,
             "merge": fast_cuda.merge_staging.launches,
-            "em_csr": em_csr_cuda.em_steps.launches}
+            "em_csr": em_csr_cuda.em_steps.launches,
+            "strided": strided_cuda.lookup_ecs_strided.launches}
 
 
 def cmd_infer(args) -> int:
@@ -194,6 +219,7 @@ def cmd_infer(args) -> int:
                       max_ecs_per_read=args.max_ecs_per_read,
                       sig_table_bits=args.sig_table_bits,
                       paired_end=bool(args.mates),
+                      probe_stride=args.probe_stride,
                       probe_sample=args.probe_sample,
                       sample_fallback_frac=args.sample_fallback,
                       io_workers=args.io_workers,
@@ -253,6 +279,8 @@ def cmd_infer(args) -> int:
             "bootstrap_samples": args.bootstrap,
             # 0 = dense, exact; >= 2 = fast mode's approximation
             "probe_sample": args.probe_sample,
+            # 1 = every window probed; > 1 = strided mode
+            "probe_stride": args.probe_stride,
             "start_time": start_time,
             "timings": result.timings,
             "index": args.index,
@@ -267,6 +295,41 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_fuse(args) -> int:
+    from .config import MapConfig
+    from .fusion import detect_fusions_files
+    from .index.store import KMerIndex
+    from .io.writer import write_fusions, write_run_info
+    from .map.driver import check_device
+
+    device = check_device(args.device)
+    index = KMerIndex.load(args.index)
+    cfg = MapConfig(batch_size=args.batch_size,
+                    max_ecs_per_read=args.max_ecs_per_read,
+                    sig_table_bits=args.sig_table_bits)
+    report = detect_fusions_files(index, args.fastq, args.mates, cfg=cfg,
+                                  min_count=args.min_count, device=device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    out = os.path.join(args.output_dir, "fusions.tsv")
+    write_fusions(out, report)
+    write_run_info(
+        os.path.join(args.output_dir, "run_info.json"),
+        {
+            "pairs_total": report.pairs_total,
+            "candidates": len(report.candidates),
+            "split_reads": report.split_reads,
+            "concordant": report.concordant,
+            "same_gene_discordant": report.same_gene_discordant,
+            "ambiguous": report.ambiguous,
+            "unresolved": report.unresolved,
+            "min_count": args.min_count,
+            "index": args.index,
+        },
+    )
+    logging.info("wrote %s (%d candidates)", out, len(report.candidates))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -278,4 +341,6 @@ def main(argv=None) -> int:
         return cmd_index(args)
     if args.command == "infer":
         return cmd_infer(args)
-    raise NotPorted("fuse", "Fusion mode")
+    if args.command == "fuse":
+        return cmd_fuse(args)
+    raise AssertionError(args.command)

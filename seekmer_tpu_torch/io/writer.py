@@ -1,8 +1,8 @@
 """Abundance output: the ``target_id, length, eff_length, est_counts, tpm``
 table, the gene table, kallisto-compatible ``abundance.h5``, bootstrap
-replicates and the JSON run info. The port's copy of
-``seekmer_tpu/io/writer.py`` without ``write_fusions`` (fusion mode is not
-ported); both write byte-equal tables from equal inputs."""
+replicates, the JSON run info and the fusion candidate table. The port's
+copy of ``seekmer_tpu/io/writer.py``; both write byte-equal tables from
+equal inputs."""
 
 from __future__ import annotations
 
@@ -122,3 +122,14 @@ def read_abundance(path: str) -> Dict[str, np.ndarray]:
         "est_counts": np.array(counts),
         "tpm": np.array(tpm),
     }
+
+
+def write_fusions(path: str, report) -> None:
+    """Fusion candidate table (``fusion.py`` ``FusionReport``)."""
+    with open(path, "w") as fh:
+        fh.write("gene1\tgene2\tsupporting_pairs\tsplit_reads\t"
+                 "transcripts1\ttranscripts2\n")
+        for c in report.candidates:
+            fh.write(f"{c.gene1}\t{c.gene2}\t{c.count}\t{c.split_reads}\t"
+                     f"{','.join(c.transcripts1)}\t"
+                     f"{','.join(c.transcripts2)}\n")

@@ -1,15 +1,22 @@
 """Single-device mapping driver: read batches -> map step -> signature
 table -> merged signature counts. Counterpart of
-``seekmer_tpu/map/driver.py``, dense and fast mode.
+``seekmer_tpu/map/driver.py``: dense, fast, strided and fusion mode.
 
 A dense map step is pack (K1) -> lookup with the stash (K2) -> signatures
 (K3) -> accumulate (A1), each a kernel on a CUDA device and its plain
 PyTorch version on the CPU. A fast one (``MapConfig.probe_sample`` >= 2)
 is sample + probe + classify (K5) -> K1, K2 and K3 on the segments that
-need a dense re-probe -> merge (K6) -> A1 (``ops/fast_cuda.py``). The
-table stays on the device across batches; the host only streams, packs
-and uploads reads, and merges and resolves the distinct signatures once
-at the end.
+need a dense re-probe -> merge (K6) -> A1 (``ops/fast_cuda.py``). A
+strided one (``MapConfig.probe_stride`` > 1) packs every window as dense
+mode does and replaces K2 with K7 (``ops/strided_cuda.py``), each mate of
+a pair a segment of its own, so that run-length coverage never crosses
+the mate boundary. Fusion mode (``MapConfig.fusion_pairs``, paired reads
+only) keeps each mate's signature: K3 writes them side by side at width
+2C, mapped is the AND of the mates', and the table has no per-EC vector,
+so A1 folds every read through its fingerprint table. Strided and fusion
+mode combine. The table stays on the device across batches; the host
+only streams, packs and uploads reads, and merges and resolves the
+distinct signatures once at the end.
 
 Fast mode has no fallback cap here: every needy segment is re-probed in
 one pass, so ``MapConfig.sample_fallback_frac`` is validated by the config
@@ -17,6 +24,8 @@ and ignored, and the JAX package's cap calibration
 (``_pick_fallback_frac``, ``FALLBACK_FRAC_GRID``,
 ``Mapper._resolve_fallback_frac``, an extra classify-stage program on the
 first batch) and its ``_probe_stage`` bisect hook have no counterpart.
+Strided mode has no cap either: K7 looks up every uncovered window in the
+same launch.
 
 ``MapConfig.pack_backend``, ``probe_backend`` and ``sig_backend`` choose
 between XLA and Pallas in the JAX package and are ignored here: which
@@ -43,7 +52,7 @@ from ..config import MapConfig
 from ..index.store import KMerIndex
 from ..io.fastq import ReadBatch, pack_batch_2bit
 from ..ops import (accumulate_cuda, fast_cuda, pack_cuda, probe_cuda,
-                   sig_cuda)
+                   sig_cuda, strided_cuda)
 from ..ops.probe import device_table_layout
 from .signature import SIG_PAD, SigTable, make_sig_table, table_to_host
 
@@ -77,18 +86,6 @@ def to_device(x, device: torch.device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def check_map_config(cfg: MapConfig) -> None:
-    """Raise on the mapping modes this port does not have yet."""
-    if cfg.probe_stride > 1:
-        raise NotImplementedError(
-            "probe_stride > 1 (strided mode) is not ported yet: ROADMAP.md, "
-            "still to port, 'Strided mode'")
-    if cfg.fusion_pairs:
-        raise NotImplementedError(
-            "fusion_pairs is not ported yet: ROADMAP.md, still to port, "
-            "'Fusion mode'")
-
-
 @dataclasses.dataclass
 class DeviceIndex:
     """Index tables resident on one device, in the slab layout."""
@@ -117,15 +114,15 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
              bad2=None, pad_len: int | None = None,
              audit: bool | None = None) -> SigTable:
     """One mapping step on 2-bit packed reads (``pad_len`` is the unpacked
-    padded length). Dense mode packs paired reads' windows side by side into
-    one (B, 2P) lookup and takes the union of their EC hits; fast mode
+    padded length). Dense and strided mode pack paired reads' windows side
+    by side into one (B, 2P) lookup; dense mode takes the union of their EC
+    hits in one signature, fusion mode one signature a mate. Fast mode
     (``probe_sample`` >= 2) resolves each mate as a segment of its own."""
-    check_map_config(cfg)
     if pad_len is None:
         raise ValueError("map_step takes 2-bit packed reads (pad_len set)")
     if audit is None:
         audit = cfg.collision_audit
-    if cfg.probe_sample >= 2:
+    if cfg.probe_sample >= 2:  # MapConfig rules out stride and fusion here
         mates = [(codes, bad, lengths)]
         if codes2 is not None:
             mates.append((codes2, bad2, lengths2))
@@ -135,6 +132,9 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
         return accumulate_cuda.fold_batch(table, sig, mapped, weights=weights,
                                           sig_probe=cfg.sig_probe,
                                           audit=audit)
+    if cfg.fusion_pairs and codes2 is None:
+        raise ValueError("fusion_pairs needs paired-end reads: a fusion "
+                         "signature is one per mate (MapConfig.fusion_pairs)")
     out, P = None, max(pad_len - di.k + 1, 0)
     if codes2 is not None:
         shape = (codes.shape[0], 2 * P)
@@ -146,9 +146,16 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
     if codes2 is not None:
         pack_cuda.pack_canonical_2bit(codes2, bad2, lengths2, pad_len, di.k,
                                       out=out, offset=P)
-    ecs = probe_cuda.lookup_ecs(hi, lo, valid, di.table, di.main_slots,
-                                di.stash, di.stash_slots, di.bucket)
-    sig, mapped = sig_cuda.read_signatures(ecs, valid, cfg.max_ecs_per_read)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    if cfg.probe_stride > 1:
+        ecs = strided_cuda.lookup_ecs_strided(
+            hi, lo, valid, *geo, cfg.probe_stride,
+            segments=1 if codes2 is None else 2)
+    else:
+        ecs = probe_cuda.lookup_ecs(hi, lo, valid, *geo)
+    sig, mapped = sig_cuda.read_signatures(
+        ecs, valid, cfg.max_ecs_per_read,
+        segments=2 if cfg.fusion_pairs else 1)
     return accumulate_cuda.fold_batch(table, sig, mapped, weights=weights,
                                       sig_probe=cfg.sig_probe, audit=audit)
 
@@ -215,14 +222,18 @@ class Mapper:
 
     def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
                  device="cuda"):
-        check_map_config(cfg)
         self.device = check_device(device)
         self.index = index
         self.cfg = cfg
         self.device_index = DeviceIndex.from_host(index, self.device)
-        self.table = make_sig_table(cfg.sig_table_bits, cfg.max_ecs_per_read,
-                                    num_ecs=index.num_ecs,
-                                    device=self.device)
+        # fusion rows hold a signature a mate side by side, which the
+        # per-EC direct vector cannot count: the placeholder vector sends
+        # every read through the fingerprint table, as in the JAX package
+        self.table = make_sig_table(
+            cfg.sig_table_bits,
+            cfg.max_ecs_per_read * (2 if cfg.fusion_pairs else 1),
+            num_ecs=0 if cfg.fusion_pairs else index.num_ecs,
+            device=self.device)
         self.total_reads = 0
         self._fed_batches = 0
 

@@ -78,13 +78,30 @@ def sig_table_from_numpy(fields: Mapping[str, np.ndarray],
         for f in SigTable._fields})
 
 
-def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int):
+def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int,
+                    segments: int = 1):
     """Per-read sorted distinct EC ids, capped.
 
     ecs int32[B, P] (-1 = miss), valid bool[B, P]. Returns (sig int32[B, C]
     padded with SIG_PAD, mapped bool[B]); mapped is False for zero hits or
     more than C distinct ids ("complex").
+
+    ``segments`` > 1 splits each row into that many equal segments (fusion
+    mode's mates: 2) and returns their signatures side by side, sig
+    int32[B, segments x C], with mapped the AND of the segments', as the
+    JAX package's fusion branch does with one call a mate
+    (``seekmer_tpu/map/driver.py:301-306``).
     """
+    if segments > 1:
+        B, W = ecs.shape
+        if W % segments:
+            raise ValueError(f"window axis {W} is not {segments} equal "
+                             "segments")
+        sig, mapped = read_signatures(ecs.reshape(B * segments, -1),
+                                      valid.reshape(B * segments, -1),
+                                      max_ecs)
+        return (sig.reshape(B, segments * max_ecs),
+                mapped.reshape(B, segments).all(dim=1))
     x = torch.where(valid & (ecs >= 0), ecs, SIG_PAD).to(torch.int32)
     s = torch.sort(x, dim=1).values
     prev = torch.cat([torch.full_like(s[:, :1], -1), s[:, :-1]], dim=1)

@@ -1,9 +1,11 @@
-"""Bucketized k-mer lookup and fast mode's two-phase probe, plain PyTorch.
+"""Bucketized k-mer lookup, fast mode's two-phase probe and strided mode's
+lookup, plain PyTorch.
 
 Counterpart of ``seekmer_tpu/ops/probe.py`` ``_bucket_lookup``,
-``lookup_ecs_aux``, ``lookup_ecs`` and ``two_phase_signatures``. These run
-on CPU tensors and are what the lookup kernel (``ops/probe_cuda.py``) and
-fast mode's kernels (``ops/fast_cuda.py``) are held against.
+``lookup_ecs_aux``, ``lookup_ecs``, ``two_phase_signatures`` and
+``lookup_ecs_strided``. These run on CPU tensors and are what the lookup
+kernel (``ops/probe_cuda.py``), fast mode's kernels (``ops/fast_cuda.py``)
+and strided mode's (``ops/strided_cuda.py``) are held against.
 
 The JAX ``_lookup_flat`` block-compacts the rare lanes that must consult
 the stash into capped rounds under a ``while_loop``, so the second gather
@@ -267,3 +269,74 @@ def two_phase_signatures(mates, L: int, k: int, stride: int, max_ecs: int,
                             device=single.device)
         mapped_d = torch.empty(0, dtype=torch.bool, device=single.device)
     return steps.merge(single, slot, sig_d, mapped_d, max_ecs)
+
+
+# ---- strided mode: sampled probe + run-length gap fill ---------------------
+
+
+def strided_columns(P: int, stride: int) -> list:
+    """Strided mode's sampled columns of a segment of P windows: 0, s, 2s,
+    ... below P, then P - 1 always, even when it is already one of them
+    (``seekmer_tpu/ops/probe.py:519-520`` appends it unconditionally, and
+    the last gap's right sample is that extra column)."""
+    return list(range(0, P, stride)) + [P - 1]
+
+
+def lookup_ecs_strided(hi, lo, valid, table, main_slots: int, stash,
+                       stash_slots: int, bucket: int, stride: int):
+    """Strided lookup of one segment a row, (hi, lo, valid) [B, P] -> ec
+    int32 [B, P], equal to ``seekmer_tpu/ops/probe.py:493-585``
+    ``lookup_ecs_strided`` bit for bit.
+
+    The sampled columns (:func:`strided_columns`) are looked up with their
+    aux, the EC run length d ("d adjacent windows share this EC in every
+    indexed context"). A gap window p between samples pl and pr takes the
+    left sample's EC when it hit and d_l >= p - pl, else the right
+    sample's when it hit and d_r >= pr - p; sampled windows keep their own
+    result; valid windows covered from neither side are looked up as they
+    are. Invalid windows are MISS.
+
+    The JAX form block-compacts the uncovered windows into capped rounds
+    (``block_compact``, ``max_blocks``) and drains the residue with a
+    ``while_loop``: that only schedules work under XLA's static shapes.
+    Here every needy window goes through :func:`lookup_ecs` in one pass.
+    """
+    if stride <= 1:
+        return lookup_ecs(hi, lo, valid, table, main_slots, stash,
+                          stash_slots, bucket)
+    geo = (table, main_slots, stash, stash_slots, bucket)
+    ec, need = strided_fill(hi, lo, valid, *geo, stride)
+    if bool(need.any()):
+        ones = torch.ones(int(need.sum()), dtype=torch.bool,
+                          device=hi.device)
+        ec[need] = lookup_ecs(hi[need], lo[need], ones, *geo)
+    return torch.where(valid, ec, MISS).to(torch.int32)
+
+
+def strided_fill(hi, lo, valid, table, main_slots: int, stash,
+                 stash_slots: int, bucket: int, stride: int):
+    """The sampled lookup and the fill of :func:`lookup_ecs_strided`:
+    returns (ec int32 [B, P], the sampled windows' results and the filled
+    ones, MISS elsewhere; need bool [B, P], the valid windows neither
+    sample covers, which are looked up as they are)."""
+    B, P = hi.shape
+    s = stride
+    if P == 0:
+        return (torch.empty((B, 0), dtype=torch.int32, device=hi.device),
+                torch.zeros((B, 0), dtype=torch.bool, device=hi.device))
+    cols = torch.tensor(strided_columns(P, s), device=hi.device)
+    ec_s, d_s = lookup_ecs_aux(hi[:, cols], lo[:, cols], valid[:, cols],
+                               table, main_slots, stash, stash_slots, bucket)
+    pos = torch.arange(P, device=hi.device)
+    gap = pos // s  # left sample gap, right sample gap + 1
+    pl = gap * s
+    pr = torch.clamp(pl + s, max=P - 1)
+    ec_l, d_l = ec_s[:, gap], d_s[:, gap]
+    ec_r, d_r = ec_s[:, gap + 1], d_s[:, gap + 1]
+    cov_l = (ec_l >= 0) & (d_l >= pos - pl)
+    cov_r = (ec_r >= 0) & (d_r >= pr - pos)
+    is_sample = (pos % s == 0) | (pos == P - 1)
+    sampled = torch.where(pos == P - 1, ec_s[:, -1:], ec_l)
+    fill = torch.where(cov_l, ec_l, torch.where(cov_r, ec_r, MISS))
+    ec = torch.where(is_sample, sampled, fill).to(torch.int32)
+    return ec, ~is_sample & ~cov_l & ~cov_r & valid

@@ -7,7 +7,8 @@ warp owns a read and keeps its windows in registers; it sorts only the
 heads of the row's runs of equal EC ids (at most 32 on nearly every read,
 one to a lane, with a shuffle network), and sorts the whole row in
 registers on the rare read with more. It is bounded by the bytes of its
-inputs.
+inputs. With ``segments`` = 2 (fusion mode) the warp does the same for
+each half of the row in turn and writes the two signatures side by side.
 """
 
 from __future__ import annotations
@@ -23,17 +24,25 @@ from . import _build
 MAX_W = 1024
 
 
-def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int):
-    """Per-read sorted distinct EC ids, capped.
+def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int,
+                    segments: int = 1):
+    """Per-read sorted distinct EC ids, capped, one signature a segment.
 
-    ecs int32[B, P] (-1 = miss), valid bool[B, P]; returns (sig int32[B, C]
-    padded with SIG_PAD, mapped bool[B]) with mapped = 1 <= n_distinct <= C.
-    CPU tensors take the plain version; CUDA tensors the kernel.
+    ecs int32[B, W] (-1 = miss), valid bool[B, W], W = segments x P;
+    returns (sig int32[B, segments x C] padded with SIG_PAD, segment g's
+    signature in columns [g C, g C + C), and mapped bool[B], the AND over
+    the segments of 1 <= n_distinct <= C). ``segments`` = 2 is fusion
+    mode's pair of mates. CPU tensors take the plain version; CUDA tensors
+    the kernel.
     """
     if ecs.device.type == "cpu":
-        return plain(ecs, valid, max_ecs)
-    B, P = ecs.shape
+        return plain(ecs, valid, max_ecs, segments)
+    B, W = ecs.shape
     C = max_ecs
+    if segments not in (1, 2) or W % segments:
+        raise ValueError(f"the kernel takes 1 or 2 equal segments a row, "
+                         f"got {segments} over a window axis of {W}")
+    P = W // segments
     if P > MAX_W:
         raise ValueError(f"window axis {P} exceeds the kernel's {MAX_W}")
     if C < 1:
@@ -43,12 +52,13 @@ def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int):
     if valid.dtype != torch.bool:
         valid = valid.to(torch.bool)
     _build.require_cuda("read_signatures", ecs, valid)
-    sig = torch.empty((B, C), dtype=torch.int32, device=ecs.device)
+    sig = torch.empty((B, segments * C), dtype=torch.int32,
+                      device=ecs.device)
     mapped = torch.empty(B, dtype=torch.bool, device=ecs.device)
-    fn = _build.function("seekmer_read_signatures", 5, 4)
+    fn = _build.function("seekmer_read_signatures", 5, 5)
     _build.check(fn(ecs.data_ptr(), valid.data_ptr(), sig.data_ptr(),
                     mapped.data_ptr(), _build.stream_of(ecs),
-                    ecs.device.index, B, P, C),
+                    ecs.device.index, B, P, C, segments),
                  "read_signatures")
     read_signatures.launches += 1
     return sig, mapped

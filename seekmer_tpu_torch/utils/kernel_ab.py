@@ -1,6 +1,6 @@
 """Timers for K3 (signatures), A1 (accumulate), K5 and K6 (fast mode's
-sample and merge) on one card, and the same timings of two checkouts of
-the port in turns.
+sample and merge) and K7 (strided lookup) on one card, and the same
+timings of two checkouts of the port in turns.
 
     python -m seekmer_tpu_torch.utils.kernel_ab INPUTS A B [--rounds 3]
 
@@ -14,8 +14,9 @@ A and B, which one first alternating, each in a process of its own that
 imports the port from its checkout and times that checkout's kernels with
 the timers below (this file's, whichever side is timed), on the same
 inputs: K3, then A1 on the signatures K3 made, then K5 at strides 16 and
-8 and K6 on what the checkout's own K5, K1, K2 and K3 make at 16. Needs a
-CUDA card.
+8 and K6 on what the checkout's own K5, K1, K2 and K3 make at 16, then,
+where the checkout has them, K7 at strides 16 and 4 and K3 with
+``segments=2`` on the batch's windows packed by K1. Needs a CUDA card.
 
 Device times are taken with the card kept busy while the host enqueues the
 call (``torch.cuda._sleep`` before the start event), so they hold the
@@ -177,6 +178,36 @@ def time_fast(fast: dict, dev, reps: int = 50) -> dict:
     return out
 
 
+def time_k7(fast: dict, dev, strides=(16, 4), reps: int = 50) -> dict:
+    """K7 (strided lookup) on the batch's windows, both mates packed by K1
+    into one (B, 2P) row as the map step packs them, each mate a segment,
+    and K3 with ``segments=2`` on K2's result for those windows (fusion
+    mode's signatures). Device ms; empty where the checkout has no K7."""
+    import torch
+
+    from seekmer_tpu_torch.ops import pack_cuda, probe_cuda, sig_cuda
+    try:
+        from seekmer_tpu_torch.ops import strided_cuda
+    except ImportError:
+        return {}
+    mates = [tuple(t.to(dev) for t in m) for m in fast["mates"]]
+    geo = (fast["table"].to(dev), fast["main_slots"], fast["stash"].to(dev),
+           fast["stash_slots"], fast["bucket"])
+    L, k, C = fast["L"], fast["k"], fast["max_ecs"]
+    B, P = mates[0][0].shape[0], L - k + 1
+    out = tuple(torch.empty((B, 2 * P), dtype=dt, device=dev)
+                for dt in (torch.int32, torch.int32, torch.bool))
+    for i, m in enumerate(mates):
+        pack_cuda.pack_canonical_2bit(*m, L, k, out=out, offset=i * P)
+    hi, lo, valid = out
+    res = {f"K7_s{s}_ms": device_ms(lambda: strided_cuda.lookup_ecs_strided(
+        hi, lo, valid, *geo, s, segments=2), reps) for s in strides}
+    ecs = probe_cuda.lookup_ecs(hi, lo, valid, *geo)
+    res["K3_segments2_ms"] = device_ms(
+        lambda: sig_cuda.read_signatures(ecs, valid, C, segments=2), reps)
+    return res
+
+
 def _child(inputs: str) -> None:
     import torch
 
@@ -192,6 +223,7 @@ def _child(inputs: str) -> None:
            "A1": time_a1(sig, mapped, weights, data["num_ecs"])}
     if "fast" in data:
         out["fast"] = time_fast(data["fast"], dev)
+        out["strided"] = time_k7(data["fast"], dev)
     print(json.dumps(out))
 
 

@@ -33,6 +33,7 @@ from seekmer_tpu_torch.ops import (
     probe,
     probe_cuda,
     sig_cuda,
+    strided_cuda,
 )
 from seekmer_tpu_torch.ops.probe import device_table_layout
 from seekmer_tpu_torch.utils.simulate import (
@@ -1367,3 +1368,209 @@ def test_em_csr_kernel_wide_range_values(dev, B):
         for g, w in zip(got, want):
             _eq(g.cpu(), w)
         assert bool(torch.isfinite(got[1]).all())
+
+
+# ---- strided mode (K7) and fusion mode (K3 segments, A1 at width 2C) ------
+
+
+def _strided_lanes(dev, index, seqs, rng, B, read_len, error_rate, paired):
+    """(hi, lo, valid) [B, W] of simulated reads with errors through K1,
+    W = P or 2P (a pair's mates side by side), with an all-invalid row, an
+    N run and a pad row of length 0."""
+    from seekmer_tpu_torch.utils.simulate import simulate_reads
+
+    L = read_len
+    P = L - index.k + 1
+    parts = []
+    for _ in range(2 if paired else 1):
+        sim = simulate_reads(rng, seqs, num_reads=B, read_len=L,
+                             error_rate=error_rate)
+        codes = np.full((B, L), 4, np.uint8)
+        lengths = np.full(B, L, np.int32)
+        for i, r in enumerate(sim.reads1):
+            c = enc.seq_to_codes(r)
+            codes[i, :c.size] = c
+            lengths[i] = c.size
+        codes[3] = 4  # an all-N read
+        codes[5, 20:45] = 4  # a run of N bases
+        lengths[7] = 0  # a pad row
+        packed, bad = (torch.from_numpy(a).to(dev)
+                       for a in enc.pack_codes_2bit(codes))
+        parts.append(pack_cuda.pack_canonical_2bit(
+            packed, bad, torch.from_numpy(lengths).to(dev), L, index.k))
+    lanes = tuple(torch.cat([p[i] for p in parts], dim=1).contiguous()
+                  for i in range(3))
+    assert lanes[0].shape == (B, P * len(parts))
+    return lanes
+
+
+@pytest.fixture(scope="module")
+def k29_world(world):
+    _, seqs, _ = world
+    return build_index_from_seqs([f"t{i}" for i in range(len(seqs))], seqs,
+                                 cfg=IndexConfig(k=29))
+
+
+@pytest.mark.parametrize("which", ["default", "stash", "k29"])
+@pytest.mark.parametrize("stride", [2, 3, 4, 8, 16])
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+@pytest.mark.parametrize("read_len", [100, 97], ids=["P_even", "P_odd"])
+def test_strided_kernel(dev, world, k29_world, which, stride, paired,
+                        read_len):
+    """K7 against its plain version, bit for bit: single-end and a pair's
+    mates as two segments of one row, P even and odd at k = 25 (76 / 73
+    windows; 72 / 69 at k = 29), stash hits (the bucket-4 index), errors,
+    all-invalid and pad rows; one launch a call."""
+    rng, seqs, idx = world
+    index = k29_world if which == "k29" else idx[which]
+    di = DeviceIndex.from_host(index, dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    hi, lo, valid = _strided_lanes(dev, index, seqs, rng, 3001, read_len,
+                                   0.01, paired)
+    segs = 2 if paired else 1
+    before = strided_cuda.lookup_ecs_strided.launches
+    got = strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, stride,
+                                          segments=segs)
+    torch.cuda.synchronize()
+    assert strided_cuda.lookup_ecs_strided.launches == before + 1
+    want = strided_cuda.plain(hi, lo, valid, *geo, stride, segs)
+    _eq(got, want)
+    dense = probe_cuda.lookup_ecs(hi, lo, valid, *geo)
+    hit = valid & (dense >= 0)
+    assert torch.equal(got[hit], dense[hit])
+    assert bool((got[~valid] == -1).all())
+
+
+def test_strided_kernel_every_window_needy(dev, world):
+    """A table with no run lengths (aux 0): no sample covers a gap, so every
+    valid non-sampled window goes through the needy rounds, and the result
+    equals dense mode."""
+    rng, seqs, idx = world
+    index = idx["default"]
+    table = index.table.copy()
+    table[:, 3] = 0
+    stash = index.stash.copy()
+    stash[:, 3] = 0
+    dt = torch.from_numpy(probe.device_table_layout(table, index.bucket))
+    ds = torch.from_numpy(probe.device_table_layout(stash, index.bucket))
+    geo = (dt.to(dev), index.main_slots, ds.to(dev), index.stash_slots,
+           index.bucket)
+    hi, lo, valid = _strided_lanes(dev, index, seqs, rng, 2000, 100, 0.0,
+                                   True)
+    got = strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, 4,
+                                          segments=2)
+    _eq(got, strided_cuda.plain(hi, lo, valid, *geo, 4, 2))
+    _eq(got, probe_cuda.lookup_ecs(hi, lo, valid, *geo))
+
+
+def test_strided_wrapper_never_falls_back(dev, world, monkeypatch):
+    """A CUDA tensor goes through K7 or raises: a failing launch raises,
+    and the plain version is never called."""
+    rng, seqs, idx = world
+    di = DeviceIndex.from_host(idx["default"], dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    hi, lo, valid = _strided_lanes(dev, idx["default"], seqs, rng, 64, 100,
+                                   0.0, False)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(strided_cuda, "_plain", no_plain)
+    monkeypatch.setattr(strided_cuda, "plain", no_plain)
+    strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, 4)
+    with pytest.raises(ValueError, match="strides of 2"):
+        strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, 1)
+    with pytest.raises(ValueError, match="equal segments"):
+        strided_cuda.lookup_ecs_strided(hi[:, :75], lo[:, :75],
+                                        valid[:, :75], *geo, 4, segments=2)
+    # a plan the kernel's launcher refuses: the launch fails and raises
+    monkeypatch.setattr(strided_cuda, "strided_plan",
+                        lambda P, s: strided_cuda.StridedPlan(P, 1))
+    with pytest.raises(RuntimeError, match="strided_lookup failed"):
+        strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, 4)
+
+
+@pytest.mark.parametrize("P,C", [(104, 16), (101, 16), (76, 8), (488, 16),
+                                 (3, 4)])
+def test_signature_kernel_segments(dev, world, P, C):
+    """K3 with segments=2 against its plain version (one signature a half,
+    side by side, mapped the AND): the 16-byte path (P % 4 == 0, the second
+    half at a 16-byte offset) and the one-window path (P = 101, 3);
+    adversarial rows as halves and rows whose runs meet at the boundary."""
+    r = np.random.default_rng(P)
+    B = 5000
+    ecs = r.integers(0, 40, (B, 2 * P)).astype(np.int32)
+    ecs[r.random((B, 2 * P)) < 0.1] = -1
+    ecs[:500] = np.repeat(r.integers(0, 4, (500, 1)), 2 * P, axis=1)
+    valid = r.random((B, 2 * P)) < 0.95
+    adv, adv_valid = adversarial_rows(P, C, seed=P)
+    n = adv.shape[0] // 2 * 2
+    ecs = np.concatenate([ecs, adv[:n].reshape(n // 2, 2 * P)])
+    valid = np.concatenate([valid, adv_valid[:n].reshape(n // 2, 2 * P)])
+    e, v = (torch.from_numpy(a).to(dev) for a in (ecs, valid))
+    before = sig_cuda.read_signatures.launches
+    got = sig_cuda.read_signatures(e, v, C, segments=2)
+    torch.cuda.synchronize()
+    assert sig_cuda.read_signatures.launches == before + 1
+    want = sig_cuda.plain(e, v, C, 2)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    assert got[0].shape == (e.shape[0], 2 * C)
+    halves = [sig_cuda.read_signatures(e[:, g * P:(g + 1) * P].contiguous(),
+                                       v[:, g * P:(g + 1) * P].contiguous(),
+                                       C) for g in range(2)]
+    _eq(got[0], torch.cat([halves[0][0], halves[1][0]], dim=1))
+    _eq(got[1], halves[0][1] & halves[1][1])
+
+
+@pytest.mark.parametrize("C", [8, 16])
+def test_accumulate_kernel_fusion_width(dev, world, C):
+    """A1 at width 2C (16 and 32) on a table with no per-EC vector
+    (num_ecs=0, every read through the CAS), as fusion mode folds its
+    per-mate signatures: equal merged counts and fingerprint keys."""
+    rng, seqs, idx = world
+    di = DeviceIndex.from_host(idx["default"], dev)
+    tables = [make_sig_table(12, 2 * C, num_ecs=0, device=dev)
+              for _ in range(2)]
+    for batch in range(3):
+        ecs, valid = _paired_lanes(dev, rng, seqs, di, 4096)
+        sig, mapped = sig_cuda.read_signatures(ecs, valid, C, segments=2)
+        _fold_both(tables, sig, mapped, None, batch != 1)
+    res = _same_tables(tables)
+    assert res.sigs.shape[1] == 2 * C and res.overflow == 0
+    assert tables[0].ec_count.shape == (1,)
+
+
+@pytest.mark.parametrize("mode", ["strided_single", "strided_paired",
+                                  "fusion", "fusion_strided"])
+def test_strided_and_fusion_mapper_on_card_matches_cpu(dev, world, mode):
+    """The Mapper on the card in strided and fusion mode equals the same
+    Mapper on the CPU; strided runs launch K7 and no standalone K2."""
+    rng, seqs, idx = world
+    index = idx["default"]
+    B, L = 1024, 100
+    paired = mode != "strided_single"
+    if paired:
+        c1, c2, _ = simulate_packed_pairs(rng, seqs, 3, B, read_len=L,
+                                          error_rate=0.01)
+    else:
+        c1, _ = simulate_packed_batches(rng, seqs, 3, B, read_len=L)
+    ln = np.full(B, L, np.int32)
+    w = np.ones(B, np.int32)
+    batches = [ReadBatch(c1[i], ln, w, codes2=c2[i] if paired else None,
+                         lengths2=ln if paired else None) for i in range(3)]
+    cfg = MapConfig(batch_size=B, sig_table_bits=14, paired_end=paired,
+                    probe_stride=1 if mode == "fusion" else 4,
+                    fusion_pairs=mode.startswith("fusion"))
+    k2, k7 = (probe_cuda.lookup_ecs_aux.launches,
+              strided_cuda.lookup_ecs_strided.launches)
+    got = Mapper(index, cfg, device=dev).run(batches)
+    k2, k7 = (probe_cuda.lookup_ecs_aux.launches - k2,
+              strided_cuda.lookup_ecs_strided.launches - k7)
+    assert (k2, k7) == ((3, 0) if mode == "fusion" else (0, 3))
+    want = Mapper(index, cfg, device="cpu").run(batches)
+    np.testing.assert_array_equal(got.sigs, want.sigs)
+    np.testing.assert_array_equal(got.sig_counts, want.sig_counts)
+    assert (got.mapped, got.overflow, got.collisions) == (
+        want.mapped, want.overflow, want.collisions)
+    assert got.mapped > 0.5 * got.total_reads

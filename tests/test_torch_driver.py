@@ -79,11 +79,22 @@ def test_mapper_matches_jax(world, paired, packed):
 
 
 def test_mapper_refuses_unported_modes(world):
-    index, _, _ = world
-    for cfg in (MapConfig(probe_stride=2),
-                MapConfig(paired_end=True, fusion_pairs=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Mapper(port_index(index), port_config(cfg), device="cpu")
+    """Strided and fusion mode are ported: the Mapper takes both, alone and
+    together. What stays refused is what the JAX package refuses: fast mode
+    with either (MapConfig), and fusion on single-end reads (a fusion
+    signature is one a mate)."""
+    index, r1, _ = world
+    for kw in (dict(probe_stride=2), dict(paired_end=True, fusion_pairs=True),
+               dict(paired_end=True, fusion_pairs=True, probe_stride=4)):
+        Mapper(port_index(index), TMapConfig(**kw), device="cpu")
+    for kw in (dict(probe_sample=4, probe_stride=2),
+               dict(probe_sample=4, paired_end=True, fusion_pairs=True)):
+        with pytest.raises(ValueError, match="probe_sample"):
+            TMapConfig(**kw)
+    cfg = MapConfig(batch_size=64, sig_table_bits=10, fusion_pairs=True)
+    with pytest.raises(ValueError, match="paired-end"):
+        Mapper(port_index(index), port_config(cfg), device="cpu").run(
+            batch_reads(r1[:64], cfg))
 
 
 def test_mapper_cuda_without_card_raises(world):

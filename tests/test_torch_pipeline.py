@@ -105,9 +105,9 @@ def test_cli_index_and_infer(world):
     assert info["device"] == "cpu"
     assert set(info["kernel_launches"]) == {"pack", "lookup", "signature",
                                             "accumulate", "em", "sample",
-                                            "merge", "em_csr"}
+                                            "merge", "em_csr", "strided"}
     assert info["fld"] is None and info["bootstrap_samples"] == 0
-    assert info["probe_sample"] == 0
+    assert info["probe_sample"] == 0 and info["probe_stride"] == 1
     assert not os.path.exists(os.path.join(out, "bootstrap.npz"))
 
 
@@ -137,7 +137,6 @@ def test_cli_bootstrap_writes_replicates(world):
 @pytest.mark.parametrize("argv,item", [
     (["--checkpoint", "ck.npz"], "Checkpoints"),
     (["--pack-cache"], "Pack cache"),
-    (["--probe-stride", "4"], "Strided mode"),
     (["--trace-dir", "trace"], "Tooling"),
     (["--data-shards", "2"], "Multi-GPU"),
     (["--distributed"], "Multi-GPU"),
@@ -211,11 +210,6 @@ def test_cli_flags_reach_the_config(world, monkeypatch):
     with pytest.raises(ValueError, match="sample_fallback_frac"):
         cli.main(["infer", idx, out, files["se"], "--device", "cpu",
                   "--probe-sample", "8", "--sample-fallback", "2"])
-
-
-def test_cli_refuses_fuse():
-    with pytest.raises(SystemExit, match="ROADMAP.md.*Fusion mode"):
-        cli.main(["fuse", "index.npz", "out", "r1.fq", "--mates", "r2.fq"])
 
 
 def test_cuda_requested_without_card_raises(world):

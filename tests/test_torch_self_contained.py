@@ -129,16 +129,25 @@ assert cli.main(["infer", work + "/index.npz", work + "/out", work + "/r1.fq",
                  "--mates", work + "/r2.fq", "--bootstrap", "2",
                  "--device", "cpu", "--batch-size", "256",
                  "--sig-table-bits", "10"]) == 0
+assert cli.main(["infer", work + "/index.npz", work + "/out_s4",
+                 work + "/r1.fq", "--mates", work + "/r2.fq",
+                 "--probe-stride", "4", "--device", "cpu",
+                 "--batch-size", "256", "--sig-table-bits", "10"]) == 0
+assert cli.main(["fuse", work + "/index.npz", work + "/fuse_out",
+                 work + "/r1.fq", "--mates", work + "/r2.fq", "--device",
+                 "cpu", "--batch-size", "256", "--sig-table-bits", "10",
+                 "--min-count", "1"]) == 0
 assert sys.modules["jax"] is None and sys.modules["seekmer_tpu"] is None
 print("BLOCKED_OK")
 """
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
-    """Every module of the port imports, and ``index`` then a paired
-    ``infer --device cpu --bootstrap 2`` succeed, in a process where JAX
-    and ``seekmer_tpu`` cannot be imported; the abundance equals that of
-    the same run with both importable."""
+    """Every module of the port imports, and ``index``, a paired ``infer
+    --device cpu --bootstrap 2``, a strided ``infer --probe-stride 4`` and
+    ``fuse`` succeed, in a process where JAX and ``seekmer_tpu`` cannot be
+    imported; their abundance and fusion tables equal those of the same
+    runs with both importable."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     outs = []
     for blocked in (True, False):
@@ -154,7 +163,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
                            timeout=300)
         assert r.returncode == 0, r.stderr[-3000:]
         assert "BLOCKED_OK" in r.stdout
-        outs.append((work / "out" / "abundance.tsv").read_bytes())
+        outs.append([(work / name).read_bytes() for name in (
+            "out/abundance.tsv", "out_s4/abundance.tsv",
+            "fuse_out/fusions.tsv")])
     assert outs[0] == outs[1]
 
 
