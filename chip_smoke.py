@@ -54,7 +54,9 @@ Phases; any failure exits non-zero:
    difference a fill over a dense miss) on the config-2 batch (each mate a
    segment) at strides 2, 4, 8 and 16 and the config-1 batch at 4, timed
    beside K2 on the whole batch and on exactly the keys K7 looks up
-   (``[K7 strided ...]``); K3 with ``segments=2`` (fusion mode's per-mate
+   (``[K7 strided ...]``), with its plan (segments a tile, tiles, resident
+   warps, staging bytes a warp) and the build's registers and spill
+   bytes for the form it ran (``[K7 strided ... tiles]``); K3 with ``segments=2`` (fusion mode's per-mate
    signatures) against its plain version (``[K3 segments=2 config 2]``),
    and those signatures folded by A1 into a 2C-wide table with no per-EC
    vector, every read through the CAS as in ``fuse``, against its plain
@@ -98,7 +100,10 @@ Phases; any failure exits non-zero:
    replicates and at 1, float32 and float64, beside its bound (inputs and outputs once a
    launch, the iterations' operations), its plain blocked loop and two
    cuSPARSE products an iteration. ``infer`` must launch A3 once a fixed
-   point.
+   point. Then A4, ``log_likelihood``'s per-EC sums in nnz order
+   (``[A4 ec_sum config 2]``), bit for bit against its plain version on
+   the card and the CPU, timed beside it and ``index_add_``; ``infer``
+   launches it once a run.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -638,9 +643,41 @@ def check_strided(tag, di, hi, lo, valid, dense, stride, segments):
         f"sectors of hi and of lo); K2 on the whole batch "
         f"{k2_whole:.6f} ms (K7 x{rec['ms'] / k2_whole:.3f}), K2 on exactly "
         f"K7's {hs.numel()} keys {k2_same:.6f} ms (K7 x"
-        f"{rec['ms'] / k2_same:.3f}); a warp's tile "
-        f"{strided_cuda.strided_plan(P, stride).segs} segments")
+        f"{rec['ms'] / k2_same:.3f})")
+    sms = torch.cuda.get_device_properties(hi.device).multi_processor_count
+    plan = strided_cuda.strided_plan(P, stride, B * segments, sms)
+    resident = strided_cuda.resident_warps(sms, plan.blocks)
+    vec4 = P % 4 == 0
+    regs, spill = build_info(f"strided_kernelILi{di.bucket}ELb{int(vec4)}E")
+    log(f"[K7 strided {tag} s={stride} tiles] a tile {plan.segs} segments, "
+        f"{-(-B * segments // plan.segs)} tiles, resident warps {resident} "
+        f"({plan.blocks} blocks an SM of {strided_cuda.WARPS} warps), "
+        f"staging 2 x {plan.stage} bytes of {plan.warp_bytes} a warp, "
+        f"{'4 windows' if vec4 else 'one window'} a lane; kernel "
+        f"(G={di.bucket}) {regs} registers, {spill} spill bytes")
     return rec
+
+
+def build_info(name: str):
+    """(registers, spill store + load bytes) of the kernel whose mangled
+    name holds ``name``, from the ``-Xptxas -v`` report of the loaded
+    library's build."""
+    from seekmer_tpu_torch.ops import _build
+
+    regs = spill = None
+    current = False
+    for line in _build.log_path().read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = name in line
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = nums[1] + nums[2]  # stack frame, stores, loads
+        elif current and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+    check(regs is not None and spill is not None,
+          f"no ptxas report of {name} in {_build.log_path().name}")
+    return regs, spill
 
 
 def readback_gap(step, reps: int = 10) -> None:
@@ -1449,6 +1486,71 @@ def compare_csr_em(ec, lengths):
                   "bytes" if b_bytes >= b_ops else "operations", library_ms)
 
 
+def check_ec_sum(ec, lengths):
+    """A4 (``em_csr_cuda.ec_sums``, ``log_likelihood``'s per-EC sums) at
+    config 2's EC table on the terms ``log_likelihood`` sums (theta / eff
+    of each member, alpha from a seeded generator): bit for bit against
+    its plain version on the card and on the CPU; device time (card kept
+    busy) beside the plain version (one elementwise add a rank, as many
+    ranks as the largest EC has members), ``index_add_`` (the library
+    call, atomics in no fixed order) and the bytes bound (w and ec_ids
+    read, the sums written); and the host wall of a call with the read
+    back ``log_likelihood`` does, for A4, the plain version and
+    ``index_add_``. Returns A4's record."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch import EMConfig
+    from seekmer_tpu_torch.em.em import effective_lengths, ordered_sum
+    from seekmer_tpu_torch.ops import em_csr_cuda
+    from seekmer_tpu_torch.utils import kernel_ab
+
+    dev = ec.counts.device
+    E, nnz = ec.num_ecs, ec.ec_ids.numel()
+    alpha = torch.from_numpy(np.random.default_rng(SEED).random(
+        ec.num_transcripts)).to(ec.counts.dtype).to(dev)
+    eff = effective_lengths(lengths, EMConfig(), alpha.dtype, dev)
+    theta = alpha / ordered_sum(alpha)
+    w = theta[ec.txp_ids] / eff[ec.txp_ids]
+    ids = ec.ec_ids
+    got = em_csr_cuda.ec_sums(w, ids, E)
+    plain = em_csr_cuda.plain_ec_sums(w, ids, E)
+    cpu = em_csr_cuda.plain_ec_sums(w.cpu(), ids.cpu(), E)
+    err = float((got - plain).abs().max())
+    check(torch.equal(got, plain) and torch.equal(got.cpu(), cpu),
+          f"A4 ec_sum config 2: differs from its plain version (max abs "
+          f"err {err})")
+
+    def library():
+        return torch.zeros(E, dtype=w.dtype, device=dev).index_add_(0, ids, w)
+
+    largest = int(torch.bincount(ids, minlength=E).max())
+    ms = kernel_ab.device_ms(lambda: em_csr_cuda.ec_sums(w, ids, E), 50)
+    plain_ms = cuda_ms(lambda: em_csr_cuda.plain_ec_sums(w, ids, E), 3)
+    library_ms = kernel_ab.device_ms(library, 50)
+
+    def host_ms(fn, reps=10):
+        fn().cpu()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn().cpu()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    walls = [host_ms(f) for f in (
+        lambda: em_csr_cuda.ec_sums(w, ids, E),
+        lambda: em_csr_cuda.plain_ec_sums(w, ids, E), library)]
+    bound_s = nbytes(w, ids, got) / HBM_BYTES_S
+    log(f"[A4 ec_sum config 2] {E} ECs, nnz {nnz}, the largest EC "
+        f"{largest} members; max_abs_err {err} (the plain version on the "
+        f"card and on the CPU: equal bits), kernel {ms:.6f} ms (device "
+        f"time, the CSR offsets' search included), plain {plain_ms:.6f} ms, "
+        f"index_add_ {library_ms:.6f} ms, bound {bound_s * 1e3:.6f} ms "
+        f"(share {bound_s * 1e3 / ms:.6f}); host wall a call with the read "
+        f"back: A4 {walls[0]:.6f} ms, plain {walls[1]:.6f} ms, index_add_ "
+        f"{walls[2]:.6f} ms")
+    return record(err, ms, plain_ms, bound_s, "bytes", library_ms)
+
+
 def reset_launches():
     from seekmer_tpu_torch.ops import (accumulate_cuda, em_csr_cuda,
                                        em_cuda, fast_cuda, pack_cuda,
@@ -1458,7 +1560,7 @@ def reset_launches():
                sig_cuda.read_signatures, accumulate_cuda.fold_batch,
                em_cuda.em_fixed_point, fast_cuda.sample_classify,
                fast_cuda.merge_staging, em_csr_cuda.em_steps,
-               strided_cuda.lookup_ecs_strided):
+               strided_cuda.lookup_ecs_strided, em_csr_cuda.ec_sums):
         fn.launches = 0
 
 
@@ -1846,7 +1948,9 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
     480-iteration EM and a fixed 480-iteration 100-replicate bootstrap on
     both worlds; on the world that takes the batched CSR bootstrap route,
     hold A3 against its plain version and time it first
-    (``compare_csr_em``), and return its record as {"A3": record}. With
+    (``compare_csr_em``); hold A4 against its plain version at config
+    2's EC table (``check_ec_sum``); return their records as {"A3":
+    record, "A4": record}. With
     ``keep_inputs``, write config 2's EC table to
     ``keep_inputs``.c2_ec.npz."""
     import numpy as np
@@ -1901,6 +2005,8 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
         dense = use_dense(ec, boot, 100)
         if not dense:
             out["A3"] = compare_csr_em(ec, index.lengths)
+        if paired:
+            out["A4"] = check_ec_sum(ec, index.lengths)
         log(f"[profile {tag} em] nnz {ec.ec_ids.numel()}, {ec.num_ecs} ECs")
         report_stage(f"{tag} em", lambda trace: traced(lambda: (
             run_em(ec, index.lengths, fixed)[0].sum().item()), trace))
@@ -1908,7 +2014,8 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
             f"{'dense (K4)' if dense else 'batched CSR (A3)'} route")
         report_stage(f"{tag} bootstrap", lambda trace: traced(lambda: (
             run_bootstrap(ec, index.lengths, boot)[0].sum().item()), trace))
-    check("A3" in out, "no world took the batched CSR route")
+    check("A3" in out and "A4" in out,
+          "no world took the batched CSR route, or A4 was not checked")
     return out
 
 
@@ -1931,6 +2038,8 @@ KERNELS = [
      "seekmer_tpu/em/bootstrap.py:86"),
     ("K7", "strided", "seekmer_tpu_torch/csrc/strided.cu",
      "seekmer_tpu/ops/probe.py:493"),
+    ("A4", "ec_sum", "seekmer_tpu_torch/csrc/em_csr.cu",
+     "seekmer_tpu/em/em.py:441"),
 ]
 
 
@@ -1967,7 +2076,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"[build] {lib.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+    for line in _build.log_path().read_text().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             log(f"[build] {line.strip()}")
 

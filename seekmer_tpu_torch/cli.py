@@ -197,7 +197,8 @@ def kernel_launches() -> dict:
             "sample": fast_cuda.sample_classify.launches,
             "merge": fast_cuda.merge_staging.launches,
             "em_csr": em_csr_cuda.em_steps.launches,
-            "strided": strided_cuda.lookup_ecs_strided.launches}
+            "strided": strided_cuda.lookup_ecs_strided.launches,
+            "ec_sum": em_csr_cuda.ec_sums.launches}
 
 
 def cmd_infer(args) -> int:

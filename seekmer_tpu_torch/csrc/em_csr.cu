@@ -501,7 +501,50 @@ Params<F> params(const void* alpha0, void* out, void* prev, const void* n,
                    (F)rel_tol, (F)abs_floor, (F)count_floor};
 }
 
+// A4: each EC's sum of its members' terms w in CSR order from 0, d_c =
+// ((0 + w_z0) + w_z0+1) + ..., the order of the CPU's index_add_ and of
+// the E-phase above, so the card gives the CPU's bits (log_likelihood's
+// denominators; seekmer_tpu/em/em.py:441 summed them by XLA's
+// segment_sum). A thread an EC: only the adds chain, the loads of a row
+// are independent and unrolled ahead of them.
+template <typename F>
+__global__ void ec_sum_kernel(const F* __restrict__ w,
+                              const int32_t* __restrict__ ec_off,
+                              F* __restrict__ out, int E) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < E; c += stride) {
+    const int end = ec_off[c + 1];
+    F d = 0;
+#pragma unroll 8
+    for (int z = ec_off[c]; z < end; ++z) d = add(d, __ldg(w + z));
+    out[c] = d;
+  }
+}
+
+template <typename F>
+int ec_sum(const void* w, const void* ec_off, void* out, int E,
+           cudaStream_t st) {
+  constexpr int kThreads = 256;
+  ec_sum_kernel<F><<<seekmer::grid_for(E, kThreads), kThreads, 0, st>>>(
+      (const F*)w, (const int32_t*)ec_off, (F*)out, E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// A4: out[c] = the sum of w[ec_off[c]:ec_off[c + 1]] in order from 0, for
+// the E ECs of a CSR (ec_off int32, E + 1 entries); float64 when dbl.
+extern "C" int seekmer_ec_sum(const void* w, const void* ec_off, void* out,
+                              void* stream, int64_t device, int64_t E,
+                              int64_t dbl) {
+  if (E < 0 || E >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice((int)device);
+  if (err != cudaSuccess) return (int)err;
+  if (E == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return dbl ? ec_sum<double>(w, ec_off, out, (int)E, st)
+             : ec_sum<float>(w, ec_off, out, (int)E, st);
+}
 
 // {blocks the card holds at once, shared-memory bytes each may take}.
 extern "C" int seekmer_em_csr_shape(void* out, int64_t device, int64_t dbl) {

@@ -284,16 +284,37 @@ def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
     return alpha, it
 
 
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a 1-D tensor by a fixed pairwise tree of elementwise adds
+    (x padded with zeros to a power of two; element i pairs with element i
+    + half), so the CPU and the card add in the same order and give the
+    same bits, as a reduction kernel of either does not."""
+    n = x.numel()
+    if n <= 1:
+        return x.sum()
+    x = torch.cat([x, x.new_zeros((1 << (n - 1).bit_length()) - n)])
+    while x.numel() > 1:
+        half = x.numel() // 2
+        x = x[:half] + x[half:]
+    return x[0]
+
+
 def log_likelihood(ec: ECTable, alpha, eff) -> torch.Tensor:
     """L = sum_c n_c log(sum_{t in c} theta_t / eff_t), theta = alpha
-    normalized; ECs with no mass contribute 0."""
-    theta = alpha / torch.clamp(alpha.sum(), min=1e-300)
+    normalized; ECs with no mass contribute 0. A 0-d tensor on the host,
+    with the same bits from the CPU and the card: every sum is taken in one
+    fixed order (:func:`ordered_sum`; each EC's in nnz order,
+    ``em_csr_cuda.ec_sums``: A4 on the card), and the logs are taken on
+    the host, as the card's ``log`` may round otherwise."""
+    from ..ops import em_csr_cuda
+
+    theta = alpha / torch.clamp(ordered_sum(alpha), min=1e-300)
     w = theta[ec.txp_ids] / eff[ec.txp_ids]
-    denom = torch.zeros(ec.num_ecs, dtype=w.dtype, device=w.device)
-    denom.index_add_(0, ec.ec_ids, w)
-    return torch.where((ec.counts > 0) & (denom > 0),
-                       ec.counts * torch.log(torch.clamp(denom, min=1e-300)),
-                       0.0).sum()
+    denom = em_csr_cuda.ec_sums(w, ec.ec_ids, ec.num_ecs).cpu()
+    counts = ec.counts.cpu()
+    return ordered_sum(torch.where(
+        (counts > 0) & (denom > 0),
+        counts * torch.log(torch.clamp(denom, min=1e-300)), 0.0))
 
 
 def tpm_from_alpha(alpha, lengths, cfg: EMConfig):

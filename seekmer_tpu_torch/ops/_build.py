@@ -6,9 +6,10 @@ with a plain C interface, at first use, into ``build/seekmer_tpu_torch/``
 at the repository root. One ``nvcc`` per source keeps the build as long
 as its slowest source rather than the sum of all, as sources are added
 under the fixed time limit of ``chip_smoke.py``, which builds them all.
-``-Xptxas -v`` writes each kernel's registers and spills to ``build.log``.
 The library's file name carries a hash of the sources and flags, so an
-edited source is never served by a stale build.
+edited source is never served by a stale build; ``-Xptxas -v`` writes each
+kernel's registers and spills to a log of the same name beside it
+(:func:`log_path`), so the report always describes the library loaded.
 It is loaded with ``ctypes``; every pointer and the stream are passed as
 ``c_void_p``, integers as ``c_int64`` and floating-point parameters as
 ``c_double``, and every C entry returns a CUDA error code (0 on success),
@@ -61,6 +62,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libseekmer_kernels_{h.hexdigest()[:12]}.so"
 
 
+def log_path() -> Path:
+    """The compiler's report (registers, spills) of :func:`library_path`'s
+    build."""
+    return library_path().with_suffix(".log")
+
+
 def _run_all(cmds):
     """Run the commands concurrently; returns (log text, failed stderr)."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -77,8 +84,8 @@ def _run_all(cmds):
 
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
-    library path. The compiler's report (registers, spills) is kept in
-    ``build.log`` beside it."""
+    library path. The compiler's report (registers, spills) is kept
+    beside it (:func:`log_path`)."""
     out = library_path()
     if out.exists():
         return out
@@ -94,7 +101,7 @@ def build() -> Path:
             link, failed = _run_all(
                 [[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
             log += link
-        (BUILD_DIR / "build.log").write_text(log)
+        log_path().write_text(log)
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         # atomic: a concurrent loader sees all or nothing

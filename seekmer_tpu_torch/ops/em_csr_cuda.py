@@ -416,3 +416,55 @@ def em_steps(alpha: torch.Tensor, counts: torch.Tensor, scale: torch.Tensor,
 
 
 em_steps.launches = 0
+
+
+def plain_ec_sums(w: torch.Tensor, ec_ids: torch.Tensor,
+                  E: int) -> torch.Tensor:
+    """A4's plain version: each EC's sum of the terms w[nnz] (``ec_ids``
+    sorted), added in nnz order from 0, the order in which ``index_add_``
+    adds on the CPU, by one elementwise add a rank over the ECs that have
+    a term of that rank (ECs by size, largest first): the same bits on
+    either device. Reads the sizes' histogram back once."""
+    size = torch.bincount(ec_ids, minlength=E)
+    order = torch.sort(size, descending=True, stable=True).indices
+    start = (torch.cumsum(size, 0) - size)[order]
+    # ECs with more than r terms, for each rank r
+    longer = E - torch.cumsum(torch.bincount(size), 0)[:-1].cpu()
+    acc = w.new_zeros(E)
+    for r, k in enumerate(longer.tolist()):
+        acc[:k] += w[start[:k] + r]
+    return torch.empty_like(acc).index_copy_(0, order, acc)
+
+
+def ec_sums(w: torch.Tensor, ec_ids: torch.Tensor, E: int) -> torch.Tensor:
+    """A4: each EC's sum of the terms w[nnz] (``ec_ids`` sorted, int64), in
+    nnz order from 0, [E] of w's type: the order of the CPU's
+    ``index_add_`` and of A3's E-phase, so the card gives the CPU's bits,
+    which ``index_add_``'s atomics on the card do not. CPU tensors take
+    the plain version; CUDA tensors the kernel (float32 or float64, one
+    launch after the CSR offsets, no read back)."""
+    if w.device.type == "cpu":
+        return plain_ec_sums(w, ec_ids, E)
+    if w.dtype not in DTYPES or w.dim() != 1 or ec_ids.shape != w.shape:
+        raise ValueError("ec_sums takes float32 or float64 w [nnz] and its "
+                         "ec_ids [nnz]")
+    if w.numel() >= 2**31 or E >= 2**31:
+        raise ValueError("EC tables of 2^31 entries or more do not fit "
+                         "A4's int32 offsets")
+    if E == 0:
+        return w.new_empty(0)
+    # the CSR offsets of the sorted ids: where each EC's run starts
+    ec_off = torch.searchsorted(ec_ids, torch.arange(
+        E + 1, dtype=ec_ids.dtype, device=w.device)).to(torch.int32)
+    w = w.contiguous()
+    out = torch.empty(E, dtype=w.dtype, device=w.device)
+    _build.require_cuda("ec_sums", w, ec_off, out)
+    fn = _build.function("seekmer_ec_sum", 4, 3)
+    _build.check(fn(w.data_ptr(), ec_off.data_ptr(), out.data_ptr(),
+                    _build.stream_of(w), w.device.index, E,
+                    int(w.dtype == torch.float64)), "ec_sum")
+    ec_sums.launches += 1
+    return out
+
+
+ec_sums.launches = 0

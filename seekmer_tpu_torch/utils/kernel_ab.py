@@ -3,6 +3,7 @@ sample and merge) and K7 (strided lookup) on one card, and the same
 timings of two checkouts of the port in turns.
 
     python -m seekmer_tpu_torch.utils.kernel_ab INPUTS A B [--rounds 3]
+        [--k7-segs 4,7,14]
 
 INPUTS is a file of one batch's K3 inputs (``ecs`` int32 [B, P], ``valid``
 bool [B, P], ``max_ecs`` and the index's ``num_ecs``) and, under ``fast``,
@@ -15,8 +16,12 @@ imports the port from its checkout and times that checkout's kernels with
 the timers below (this file's, whichever side is timed), on the same
 inputs: K3, then A1 on the signatures K3 made, then K5 at strides 16 and
 8 and K6 on what the checkout's own K5, K1, K2 and K3 make at 16, then,
-where the checkout has them, K7 at strides 16 and 4 and K3 with
-``segments=2`` on the batch's windows packed by K1. Needs a CUDA card.
+where the checkout has them, K7 at strides 16, 8, 4 and 2 and K3 with
+``segments=2`` on the batch's windows packed by K1. ``--k7-segs`` also
+times K7 under tiles of each of those sizes of segments, where the
+checkout's plan has a carve (``strided_cuda._carve``) and it fits a warp's
+share of shared memory at 4 blocks an SM, each checked bit for bit against
+the checkout's own plan. Needs a CUDA card.
 
 Device times are taken with the card kept busy while the host enqueues the
 call (``torch.cuda._sleep`` before the start event), so they hold the
@@ -178,9 +183,12 @@ def time_fast(fast: dict, dev, reps: int = 50) -> dict:
     return out
 
 
-def time_k7(fast: dict, dev, strides=(16, 4), reps: int = 50) -> dict:
+def time_k7(fast: dict, dev, strides=(16, 8, 4, 2), reps: int = 50,
+            segs=()) -> dict:
     """K7 (strided lookup) on the batch's windows, both mates packed by K1
     into one (B, 2P) row as the map step packs them, each mate a segment,
+    under the checkout's plan and under tiles of each size in ``segs``
+    (where they fit: the module's ``strided_plan`` replaced while timed),
     and K3 with ``segments=2`` on K2's result for those windows (fusion
     mode's signatures). Device ms; empty where the checkout has no K7."""
     import torch
@@ -200,15 +208,38 @@ def time_k7(fast: dict, dev, strides=(16, 4), reps: int = 50) -> dict:
     for i, m in enumerate(mates):
         pack_cuda.pack_canonical_2bit(*m, L, k, out=out, offset=i * P)
     hi, lo, valid = out
-    res = {f"K7_s{s}_ms": device_ms(lambda: strided_cuda.lookup_ecs_strided(
-        hi, lo, valid, *geo, s, segments=2), reps) for s in strides}
+    res = {}
+    own = strided_cuda.strided_plan
+    for s in strides:
+        def call(s=s):
+            return strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, s,
+                                                   segments=2)
+
+        res[f"K7_s{s}_ms"] = device_ms(call, reps)
+        if not hasattr(strided_cuda, "_carve"):
+            continue
+        ref, S = call(), -(-P // s) + 1
+        for n in segs:
+            if (strided_cuda._carve(P, S, n)[-1]
+                    > strided_cuda.warp_budget(strided_cuda.MIN_BLOCKS)):
+                continue
+            strided_cuda.strided_plan = lambda *a, n=n: (
+                strided_cuda.StridedPlan(S, n, strided_cuda.MIN_BLOCKS,
+                                         *strided_cuda._carve(P, S, n)))
+            try:
+                if not torch.equal(call(), ref):
+                    raise AssertionError(f"K7 at s={s} under tiles of {n} "
+                                         f"segments differs from its plan")
+                res[f"K7_s{s}_segs{n}_ms"] = device_ms(call, reps)
+            finally:
+                strided_cuda.strided_plan = own
     ecs = probe_cuda.lookup_ecs(hi, lo, valid, *geo)
     res["K3_segments2_ms"] = device_ms(
         lambda: sig_cuda.read_signatures(ecs, valid, C, segments=2), reps)
     return res
 
 
-def _child(inputs: str) -> None:
+def _child(inputs: str, k7_segs=()) -> None:
     import torch
 
     from seekmer_tpu_torch.ops import sig_cuda
@@ -223,15 +254,15 @@ def _child(inputs: str) -> None:
            "A1": time_a1(sig, mapped, weights, data["num_ecs"])}
     if "fast" in data:
         out["fast"] = time_fast(data["fast"], dev)
-        out["strided"] = time_k7(data["fast"], dev)
+        out["strided"] = time_k7(data["fast"], dev, segs=k7_segs)
     print(json.dumps(out))
 
 
-def run_side(checkout: str, inputs: str) -> dict:
+def run_side(checkout: str, inputs: str, k7_segs: str = "") -> dict:
     env = dict(os.environ, PYTHONPATH=checkout)
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        inputs], cwd=checkout, env=env, capture_output=True,
-                       text=True, check=True)
+                        inputs, "--k7-segs", k7_segs], cwd=checkout, env=env,
+                       capture_output=True, text=True, check=True)
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
@@ -241,17 +272,19 @@ def main(argv=None) -> int:
     ap.add_argument("a", nargs="?")
     ap.add_argument("b", nargs="?")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--k7-segs", default="",
+                    help="comma-separated tile sizes to time K7 under too")
     ap.add_argument("--child", action="store_true")
     args = ap.parse_args(argv)
     if args.child:
-        _child(args.inputs)
+        _child(args.inputs, [int(x) for x in args.k7_segs.split(",") if x])
         return 0
     inputs = os.path.abspath(args.inputs)
     sides = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
     readings = {}
     for r in range(args.rounds):
         for side in ("AB" if r % 2 == 0 else "BA"):
-            got = run_side(sides[side], inputs)
+            got = run_side(sides[side], inputs, args.k7_segs)
             print(f"round {r} {side} ({sides[side]}): {json.dumps(got)}",
                   flush=True)
             for k, rec in got.items():

@@ -1178,8 +1178,9 @@ def test_infer_on_card_launches_a3_on_both_csr_routes(dev, world, tmp_path):
     single = info["em_iterations"] // 16
     boot = int(info["timings"]["bootstrap_iterations"]) // 16
     assert single > 0 and boot > 0
-    assert (d["em_csr"], d["em"]) == (2, 0)
-    assert runs["x64_cpu"][1]["em_csr"] == 0
+    assert (d["em_csr"], d["em"], d["ec_sum"]) == (2, 0, 1)
+    assert runs["x64_cpu"][1]["em_csr"] == runs["x64_cpu"][1]["ec_sum"] == 0
+    assert info["log_likelihood"] == runs["x64_cpu"][0]["log_likelihood"]
     assert info["em_iterations"] == runs["x64_cpu"][0]["em_iterations"]
     np.testing.assert_array_equal(runs["x64"][2]["est_counts"],
                                   runs["x64_cpu"][2]["est_counts"])
@@ -1483,11 +1484,167 @@ def test_strided_wrapper_never_falls_back(dev, world, monkeypatch):
     with pytest.raises(ValueError, match="equal segments"):
         strided_cuda.lookup_ecs_strided(hi[:, :75], lo[:, :75],
                                         valid[:, :75], *geo, 4, segments=2)
-    # a plan the kernel's launcher refuses: the launch fails and raises
+    # a plan the kernel's launcher refuses (a carve with no room for the
+    # slots): the launch fails and raises
+    real = strided_cuda.strided_plan
     monkeypatch.setattr(strided_cuda, "strided_plan",
-                        lambda P, s: strided_cuda.StridedPlan(P, 1))
+                        lambda *a: real(*a)._replace(queue_at=0))
     with pytest.raises(RuntimeError, match="strided_lookup failed"):
         strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, 4)
+
+
+def _card_plan(dev, P, stride, n_seg):
+    return strided_cuda.strided_plan(P, stride, n_seg,
+                                     torch.cuda.get_device_properties(
+                                         dev).multi_processor_count)
+
+
+@pytest.mark.parametrize("case", ["short_last_tile", "unaligned_P75",
+                                  "valid_off_16B"])
+@pytest.mark.parametrize("stride", [2, 4, 16])
+def test_strided_kernel_tiles_and_starts(dev, world, case, stride):
+    """K7 against its plain version, bit for bit, where its tiles and
+    staging meet their edges: a batch of more segments than the card holds
+    warps whose last tile is shorter than the rest (so every warp walks
+    several tiles and carries needy keys across them); a ``[:, 1:]`` slice
+    made contiguous (P = 75: tiles start anywhere in a 16-byte chunk, the
+    scalar fill); valid one byte past a 16-byte boundary (P = 76, the
+    4-window fill)."""
+    rng, seqs, idx = world
+    di = DeviceIndex.from_host(idx["default"], dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    if case == "short_last_tile":
+        B = 9001
+        while True:  # pairs: 2 B segments, more than the card's warps
+            plan = _card_plan(dev, 76, stride, 2 * B)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            if (2 * B) % plan.segs and -(-2 * B // plan.segs) > (
+                    strided_cuda.resident_warps(sms, plan.blocks)):
+                break
+            B += 1
+        hi, lo, valid = _strided_lanes(dev, idx["default"], seqs, rng, B,
+                                       100, 0.01, True)
+        segs = 2
+    else:
+        hi, lo, valid = _strided_lanes(dev, idx["default"], seqs, rng, 3001,
+                                       100, 0.01, False)
+        segs = 1
+        if case == "unaligned_P75":
+            hi, lo, valid = (x[:, 1:].contiguous() for x in (hi, lo, valid))
+        else:
+            flat = torch.zeros(valid.numel() + 17, dtype=torch.bool,
+                               device=dev)
+            off = (16 - flat.data_ptr() % 16) % 16 + 1
+            valid = flat[off:off + valid.numel()].view(valid.shape).copy_(
+                valid)
+            assert valid.is_contiguous() and valid.data_ptr() % 16 == 1
+    P = hi.shape[1] // segs
+    before = dict(strided_cuda.lookup_ecs_strided.paths)
+    got = strided_cuda.lookup_ecs_strided(hi, lo, valid, *geo, stride,
+                                          segments=segs)
+    torch.cuda.synchronize()
+    path = "vec4" if P % 4 == 0 else "scalar"
+    assert strided_cuda.lookup_ecs_strided.paths[path] == before[path] + 1
+    _eq(got, strided_cuda.plain(hi, lo, valid, *geo, stride, segs))
+
+
+def test_strided_kernel_both_fill_paths_ran(dev, world):
+    """One batch of P = 76 windows (the 4-window fill, an int4 of ec a
+    lane) and one of P = 73 (the scalar fill) each launch their path once,
+    and each equals the plain version."""
+    rng, seqs, idx = world
+    di = DeviceIndex.from_host(idx["default"], dev)
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    ran = {}
+    for read_len in (100, 97):
+        lanes = _strided_lanes(dev, idx["default"], seqs, rng, 2000,
+                               read_len, 0.01, False)
+        before = dict(strided_cuda.lookup_ecs_strided.paths)
+        got = strided_cuda.lookup_ecs_strided(*lanes, *geo, 8)
+        _eq(got, strided_cuda.plain(*lanes, *geo, 8))
+        after = strided_cuda.lookup_ecs_strided.paths
+        ran[read_len] = {k: after[k] - before[k] for k in after}
+    assert ran == {100: {"vec4": 1, "scalar": 0},
+                   97: {"vec4": 0, "scalar": 1}}
+
+
+def _ll_table(E, T, big, seed):
+    """A random EC table on the CPU: 1-3 members an EC (nnz ~ 2 E, as
+    config 2's 83,019 ECs hold 168,900), one EC of ``big`` members, an
+    empty EC, zero counts and zero alpha."""
+    from seekmer_tpu_torch.em.em import build_ec_table
+
+    rng = np.random.default_rng(seed)
+    members = [np.sort(rng.choice(T, size=int(rng.choice([1, 2, 3],
+                                                          p=[.4, .3, .3])),
+                                  replace=False)).astype(np.int32)
+               for _ in range(E)]
+    members[1] = members[1][:0]
+    members[2] = np.sort(rng.choice(T, size=big, replace=False)).astype(
+        np.int32)
+    counts = rng.integers(0, 400, size=E).astype(np.float64)
+    counts[::9] = 0
+    alpha = rng.random(T) * 80
+    alpha[::11] = 0
+    eff = np.maximum(rng.integers(250, 3000, size=T) - 180.0, 1.0)
+    return members, counts, alpha, eff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("size", ["tiny", "config2"])
+def test_log_likelihood_on_card_equals_cpu_bits(dev, dtype, size):
+    """em.log_likelihood on CUDA tensors gives equal bits in two runs and
+    the CPU's bits, on a tiny table and on one of config 2's size (83,019
+    ECs, 57,273 transcripts, an EC of 300 members)."""
+    from seekmer_tpu_torch.em.em import build_ec_table, log_likelihood
+
+    E, T, big = (150, 60, 40) if size == "tiny" else (83019, 57273, 300)
+    members, counts, alpha, eff = _ll_table(E, T, big, seed=E)
+    got = {}
+    for d in ("cpu", dev, dev):
+        ec = build_ec_table(members, counts, T, dtype=dtype, device=d)
+        a, e = (torch.from_numpy(x).to(dtype).to(d) for x in (alpha, eff))
+        got.setdefault(str(d), []).append(log_likelihood(ec, a, e))
+    cpu, card = got["cpu"][0], got[str(dev)]
+    assert cpu.dtype == dtype and bool(torch.isfinite(cpu))
+    assert card[0].item() == card[1].item() == cpu.item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("size", ["tiny", "config2"])
+def test_ec_sum_kernel(dev, dtype, size, monkeypatch):
+    """A4 (``em_csr_cuda.ec_sums``) on CUDA tensors: one launch a call, no
+    plain version, and the bits of the plain version on the CPU and on the
+    card, on a tiny table and on one of config 2's size (an EC of 300
+    members), each with an empty EC and three empty ECs after the last
+    member; an empty table launches nothing."""
+    from seekmer_tpu_torch.em.em import build_ec_table
+
+    E, T, big = (150, 60, 40) if size == "tiny" else (83019, 57273, 300)
+    members, counts, _, _ = _ll_table(E, T, big, seed=E + 1)
+    ec = build_ec_table(members + [members[1]] * 3, np.append(counts, [0] * 3),
+                        T, dtype=dtype, device="cpu")
+    w = torch.from_numpy(np.random.default_rng(E).random(
+        ec.ec_ids.numel()) * 10).to(dtype)
+    want = em_csr_cuda.plain_ec_sums(w, ec.ec_ids, ec.num_ecs)
+    on_card = em_csr_cuda.plain_ec_sums(w.to(dev), ec.ec_ids.to(dev),
+                                        ec.num_ecs)
+    assert torch.equal(on_card.cpu(), want)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(em_csr_cuda, "plain_ec_sums", no_plain)
+    before = em_csr_cuda.ec_sums.launches
+    got = em_csr_cuda.ec_sums(w.to(dev), ec.ec_ids.to(dev), ec.num_ecs)
+    assert em_csr_cuda.ec_sums.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    empty = torch.empty(0, dtype=dtype, device=dev)
+    assert em_csr_cuda.ec_sums(
+        empty, empty.to(torch.int64), 0).numel() == 0
+    assert em_csr_cuda.ec_sums.launches == before + 1
 
 
 @pytest.mark.parametrize("P,C", [(104, 16), (101, 16), (76, 8), (488, 16),

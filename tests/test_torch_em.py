@@ -92,3 +92,59 @@ def test_em_warm_start_counts_total_iterations():
     full, it_full = tem.run_em(ec, lengths, cfg)
     assert (it32, it, it_full) == (32, 64, 64)
     np.testing.assert_allclose(alpha.numpy(), full.numpy(), rtol=1e-12)
+
+
+def _tree_sum(x):
+    """numpy: the pairwise tree of ``em.ordered_sum``, element i with
+    element i + half, x padded with zeros to a power of two."""
+    n = x.size
+    if n <= 1:
+        return x.sum(dtype=x.dtype)
+    x = np.concatenate([x, np.zeros((1 << (n - 1).bit_length()) - n,
+                                    x.dtype)])
+    while x.size > 1:
+        x = x[:x.size // 2] + x[x.size // 2:]
+    return x[0]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_log_likelihood_sums_in_one_fixed_order(dtype):
+    """log_likelihood sums each EC's terms in nnz order from 0 and reduces
+    alpha and the EC terms by one pairwise tree: its bits equal a numpy
+    derivation in that order, on a table with empty ECs, an EC of 40
+    members, zero counts and zero alpha; the tree itself equals numpy's
+    for every length 0-40."""
+    rng = np.random.default_rng(3)
+    T = 60
+    members = [np.sort(rng.choice(T, size=int(rng.integers(1, 6)),
+                                  replace=False)).astype(np.int32)
+               for _ in range(150)]
+    members[4] = members[4][:0]
+    members[9] = np.arange(40, dtype=np.int32)
+    counts = rng.integers(0, 300, size=len(members)).astype(np.float64)
+    counts[::7] = 0
+    alpha = (rng.random(T) * 100).astype(dtype)
+    alpha[::5] = 0
+    eff = (rng.integers(250, 3000, size=T) - 180.0).astype(dtype)
+    tdt = torch.from_numpy(alpha).dtype
+    ec = tem.build_ec_table(members, counts, T, dtype=tdt, device="cpu")
+    got = tem.log_likelihood(ec, torch.from_numpy(alpha),
+                             torch.from_numpy(eff))
+    assert got.dtype == tdt and got.device.type == "cpu"
+
+    theta = alpha / max(_tree_sum(alpha), dtype(1e-300))
+    denom = np.zeros(len(members), dtype)
+    for c, m in enumerate(members):
+        for t in m:  # nnz order, from 0
+            denom[c] = denom[c] + theta[t] / eff[t]
+    n = counts.astype(dtype)
+    logs = torch.log(torch.from_numpy(np.maximum(denom, dtype(1e-300)))
+                     ).numpy()
+    want = _tree_sum(np.where((n > 0) & (denom > 0), n * logs, 0).astype(
+        dtype))
+    assert np.array_equal(np.array(float(got), dtype), np.array(want))
+    for n_ in range(41):
+        x = rng.random(n_).astype(dtype)
+        assert np.array_equal(
+            tem.ordered_sum(torch.from_numpy(x)).numpy(), _tree_sum(x))

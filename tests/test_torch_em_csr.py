@@ -665,3 +665,29 @@ def test_em_fixed_point_on_cpu_is_blocked_plain_loop(divide, dtype):
         assert (got[1], got[2]) == (it, conv)
         assert torch.equal(got[0], want)
     assert em_csr_cuda.em_steps.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_ec_sums_plain_in_nnz_order(dtype):
+    """A4's wrapper on CPU tensors (its plain version): each EC's sum in
+    nnz order from 0, equal in bits to a numpy loop in that order and to
+    the CPU's ``index_add_``, on a table with empty ECs (the first, one
+    inside, the last two) and an EC of 70 members; no launch."""
+    rng = np.random.default_rng(11)
+    sizes = rng.integers(0, 5, size=40)
+    sizes[[0, 17, 38, 39]] = 0
+    sizes[5] = 70
+    ids = torch.from_numpy(np.repeat(np.arange(40), sizes))
+    w = torch.from_numpy(rng.random(int(sizes.sum())) * 7).to(dtype)
+    before = em_csr_cuda.ec_sums.launches
+    got = em_csr_cuda.ec_sums(w, ids, 40)
+    assert em_csr_cuda.ec_sums.launches == before
+    wn = w.numpy()
+    want = np.zeros(40, wn.dtype)
+    for z, c in enumerate(ids.numpy()):
+        want[c] = want[c] + wn[z]
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, torch.zeros(40, dtype=dtype).index_add_(0, ids,
+                                                                     w))

@@ -123,16 +123,30 @@ def test_strided_vs_dense_invariants(world, stride, error_rate):
     assert (strided[~v] == -1).all()
 
 
-def _k7_model(hi, lo, valid, geo, P, s):
+def _k7_model(hi, lo, valid, geo, P, s, plan, warps, phase=0):
     """K7 (csrc/strided.cu) step by step in numpy on flat segments of P
-    windows: its plan's tiles, the sampled lanes 32 at a time into a queue
-    of keys, lookup rounds of the queue's first 32, a slot a sample, then
-    each 32 windows of a segment filled from the slots or queued, and the
-    tile's last partial round. A key's 3-state result is its ecaux (ec <<
-    AUX_BITS | d) when found, else -1."""
-    S, segs = strided_cuda.strided_plan(P, s)
+    windows, under ``plan`` with ``warps`` warps walking the tiles
+    grid-stride. Each warp stages a tile's valid run from the 16-byte chunk
+    holding its first byte (``valid`` placed ``phase`` bytes past a 16-byte
+    boundary) and its sampled windows' hi and lo in one of two buffers, the
+    next tile's before the current one's work; the sampled lanes, 32 at a
+    time, queue their slot behind the needy windows the warp's last tile
+    left; rounds of the queue's last 32 tags (a stack); one partial round
+    before the fill; the fill 4 windows a lane where P % 4 == 0 (an int4
+    write) or one, -1 at needy windows until their round, the needy windows
+    of a step queuing their offset in window order, then rounds while 32
+    are queued; the warp's last tile drains the queue. A key's 3-state
+    result is its ecaux (ec << AUX_BITS | d) when found, else -1. Returns
+    (out, stats): stats counts the needy tags carried into a next tile, the
+    partial rounds, the tiles and the short ones."""
+    S, segs = plan.S, plan.segs
     n_seg = hi.size // P
+    tiles = -(-n_seg // segs)
+    warps = max(1, min(-(-tiles // 8), warps // 8)) * 8
+    gvalid = np.zeros(phase + hi.size + 32, np.uint8)
+    gvalid[phase:phase + hi.size] = valid
     out = np.full(hi.size, 999_999, np.int64)
+    stats = dict(carried=0, partial=0, tiles=tiles, short=0)
 
     def lookup(keys):
         h, l_ = (torch.tensor([k[i] for k in keys], dtype=torch.int32)
@@ -145,72 +159,122 @@ def _k7_model(hi, lo, valid, geo, P, s):
     def ec_of(m):
         return m >> probe.AUX_BITS if m >= 0 else -1
 
-    for seg0 in range(0, n_seg, segs):
-        T = min(segs, n_seg - seg0)
-        base = seg0 * P
-        slot = np.full(T * S, -7, np.int64)
-        queue = []
+    def tile_of(tile):
+        T = min(segs, n_seg - tile * segs)
+        return T, tile * segs * P
 
-        def flush(sample):
-            batch = queue[:32]
-            del queue[:32]
-            for (_, _, tag), m in zip(batch, lookup(batch)):
-                if sample:
-                    slot[tag] = m
-                else:
-                    out[base + tag] = ec_of(m)
+    def stage(tile):
+        T, base = tile_of(tile)
+        a = phase + base
+        a0 = a & ~15
+        chunks = (a + T * P - a0 + 15) >> 4
+        assert 16 * chunks <= plan.hi_at  # the valid run fits its place
+        cols = [(i // S) * P + min((i % S) * s, P - 1) for i in range(T * S)]
+        assert 4 * T * S <= plan.lo_at - plan.hi_at
+        return dict(v=gvalid[a0:a0 + 16 * chunks], at=a & 15,
+                    hi=hi[base + np.array(cols, int)],
+                    lo=lo[base + np.array(cols, int)])
 
-        for q0 in range(0, T * S, 32):
-            for i in range(q0, min(q0 + 32, T * S)):
-                t = i // S
-                x = base + t * P + min((i - t * S) * s, P - 1)
-                slot[i] = -1
-                if valid[x]:
-                    queue.append((hi[x], lo[x], i))
-            if len(queue) >= 32:
-                flush(True)
-        if queue:
-            flush(True)
-        assert (slot != -7).all()
-        for t in range(T):
-            sl = slot[t * S:(t + 1) * S]
-            for c0 in range(0, P, 32):
-                for col in range(c0, min(c0 + 32, P)):
-                    x = t * P + col
-                    v = bool(valid[base + x])
-                    gap = col // s
-                    pl, ml = gap * s, sl[gap]
-                    need = False
-                    if col == P - 1:
-                        val = ec_of(sl[S - 1])
-                    elif col == pl:
-                        val = ec_of(ml)
-                    else:
-                        mr, pr = sl[gap + 1], min(pl + s, P - 1)
-                        cov_l = ml >= 0 and (ml & probe.AUX_MASK) >= col - pl
-                        cov_r = mr >= 0 and (mr & probe.AUX_MASK) >= pr - col
-                        val = (ml >> probe.AUX_BITS if cov_l else
-                               mr >> probe.AUX_BITS if cov_r else -1)
-                        need = v and not cov_l and not cov_r
-                    if need:
-                        queue.append((hi[base + x], lo[base + x], x))
-                    else:
-                        out[base + x] = val if v else -1
+    def flush(queue, buf, slot):  # a stack: the last 32 tags
+        rest, batch = queue[:-32], queue[-32:]
+        keys = [(buf["hi"][t], buf["lo"][t]) if t >= 0 else (hi[~t], lo[~t])
+                for t in batch]
+        for t, m in zip(batch, lookup(keys)):
+            if t >= 0:
+                slot[t] = m
+            else:
+                out[~t] = ec_of(m)
+        if len(batch) < 32:
+            stats["partial"] += 1
+        return rest
+
+    def fill_one(sl, col, v):
+        gap = col // s
+        pl, ml = gap * s, sl[gap]
+        if col == P - 1:
+            return ec_of(sl[S - 1]) if v else -1, False
+        if col == pl:
+            return ec_of(ml) if v else -1, False
+        mr, pr = sl[gap + 1], min(pl + s, P - 1)
+        cov_l = ml >= 0 and (ml & probe.AUX_MASK) >= col - pl
+        cov_r = mr >= 0 and (mr & probe.AUX_MASK) >= pr - col
+        need = v and not cov_l and not cov_r
+        val = (ml >> probe.AUX_BITS if cov_l else
+               mr >> probe.AUX_BITS if cov_r else -1)
+        return (val if v and not need else -1), need
+
+    for w in range(warps):
+        queue, bufs = [], [None, None]
+        mine = list(range(w, tiles, warps))
+        if mine:
+            bufs[0] = stage(mine[0])
+        for j, tile in enumerate(mine):
+            b = j & 1
+            if j + 1 < len(mine):
+                bufs[b ^ 1] = stage(mine[j + 1])
+            buf = bufs[b]
+            T, base = tile_of(tile)
+            stats["short"] += T < segs
+            stats["carried"] += len(queue)
+            assert all(t < 0 for t in queue) and len(queue) < 32
+            sv = buf["v"][buf["at"]:]
+            slot = np.full(T * S, -7, np.int64)
+            for q0 in range(0, T * S, 32):
+                for i in range(q0, min(q0 + 32, T * S)):
+                    slot[i] = -1
+                    if sv[(i // S) * P + min((i % S) * s, P - 1)]:
+                        queue.append(i)
                 if len(queue) >= 32:
-                    flush(False)
+                    queue = flush(queue, buf, slot)
+                assert len(queue) < 32
+            if queue:
+                queue = flush(queue, buf, slot)
+            assert (slot != -7).all() and not queue
+            width = 4 if P % 4 == 0 else 1
+            for x0 in range(0, T * P, 32 * width):
+                needy = []
+                for x in range(x0, min(x0 + 32 * width, T * P), width):
+                    t, col = divmod(x, P)
+                    sl = slot[t * S:(t + 1) * S]
+                    for k in range(width):
+                        e, need = fill_one(sl, col + k, bool(sv[x + k]))
+                        out[base + x + k] = e  # -1 at a needy window
+                        if need:
+                            needy.append(~(base + x + k))
+                queue += needy  # in window order
+                assert len(queue) <= strided_cuda.QUEUE
+                while len(queue) >= 32:
+                    queue = flush(queue, buf, slot)
+            assert len(queue) < 32
         if queue:
-            flush(False)
-    return out
+            queue = flush(queue, None, None)
+    return out, stats
 
 
-@pytest.mark.parametrize("read_len,stride,segments", [
-    (100, 2, 1), (100, 16, 2), (97, 8, 2), (97, 3, 1), (26, 2, 2)],
+def _plan(P, s, segs):
+    """K7's plan with tiles of ``segs`` segments, the carve its own."""
+    S = len(probe.strided_columns(P, s))
+    return strided_cuda.StridedPlan(
+        S, segs, strided_cuda.MIN_BLOCKS,
+        *strided_cuda._carve(P, S, segs))
+
+
+# (read_len, stride, segments, segs, phase): tiles of segs segments, 8
+# warps walking them (each takes several and carries its needy keys across
+# them), valid placed phase bytes past a 16-byte boundary
+@pytest.mark.parametrize("read_len,stride,segments,segs,phase", [
+    (100, 2, 1, 3, 0), (100, 16, 2, 4, 0), (97, 8, 2, 3, 3),
+    (97, 3, 1, 2, 0), (26, 2, 2, 4, 1), (100, 4, 2, 5, 8),
+    (101, 4, 1, 3, 5)],
     ids=["P76_s2_single", "P76_s16_paired", "P73_s8_paired", "P73_s3",
-         "P2_s2_paired"])
-def test_k7_model_matches_plain(world, read_len, stride, segments):
+         "P2_s2_paired", "P76_s4_paired_phase8", "P77_s4_phase5"])
+def test_k7_model_matches_plain(world, read_len, stride, segments, segs,
+                                phase):
     """The numpy model of K7 equals the plain version (each segment on its
-    own) on reads with errors, N runs and all-invalid rows; the tiles hold
-    several segments, so the queue carries keys across segments."""
+    own) on reads with errors, N runs and all-invalid rows, through the
+    4-window fill (P % 4 == 0) and the scalar one; every window written,
+    needy keys carried from a tile into the next one's sampled rounds, and
+    a last tile shorter than the rest where the segments do not divide."""
     index, _, seqs = world
     hi, lo, valid = _windows(index, seqs, read_len, 0.02, n=70)
     valid = valid.copy()
@@ -222,19 +286,74 @@ def test_k7_model_matches_plain(world, read_len, stride, segments):
     geo = _geo(index)
     want = strided_cuda.lookup_ecs_strided(*_t(hi, lo, valid), *geo, stride,
                                            segments=segments).numpy()
-    got = _k7_model(hi.ravel(), lo.ravel(), valid.ravel(), geo, P, stride)
+    got, stats = _k7_model(hi.ravel(), lo.ravel(), valid.ravel(), geo, P,
+                           stride, _plan(P, stride, segs), 8, phase)
     np.testing.assert_array_equal(got.reshape(want.shape), want)
-    assert strided_cuda.strided_plan(P, stride).segs > 1
+    if P > 2:  # at P <= 2 every window is sampled
+        assert stats["carried"] > 0  # needy keys crossed a tile boundary
+    assert stats["tiles"] > 8  # a warp walks several tiles
+    assert stats["short"] == int(B % segs > 0)
+
+
+def test_k7_model_last_short_tile(world):
+    """A batch whose segments the card's plan does not divide: the last
+    tile is shorter, its staged run and samples are cut to it, and the
+    model under the plan ``strided_plan`` gives equals the plain version."""
+    index, _, seqs = world
+    hi, lo, valid = _windows(index, seqs, 100, 0.02, n=67)
+    P = hi.shape[1]
+    geo = _geo(index)
+    plan = strided_cuda.strided_plan(P, 4, 67, 1)
+    assert 67 % plan.segs and -(-67 // plan.segs) >= 8
+    want = strided_cuda.lookup_ecs_strided(*_t(hi, lo, valid), *geo,
+                                           4).numpy()
+    got, stats = _k7_model(hi.ravel(), lo.ravel(), valid.ravel(), geo, P, 4,
+                           plan, 8, 7)
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+    assert stats["short"] == 1
 
 
 def test_strided_plan():
-    """Every plan fits the kernel's slots: S = ceil(P / s) + 1 sampled
-    columns, segs * S <= 520, 1 <= segs <= 32, up to P = 1,024."""
+    """Every plan fits its carve in a warp's share of shared memory at its
+    blocks an SM (two staging buffers, each a tile's valid run from its
+    16-byte chunk and its sampled hi and lo, then the slots and the
+    queue), for P up to 1,024 and s from 2 to 64: S = ceil(P / s) + 1
+    sampled columns; the tiles number at least the warps the card holds
+    (SMs x blocks an SM x 8), and are the largest that do and fit."""
     for P in (1, 2, 31, 73, 76, 104, 488, 1024):
         for s in (2, 3, 4, 8, 16, 64):
-            S, segs = strided_cuda.strided_plan(P, s)
-            assert S == len(probe.strided_columns(P, s))
-            assert 1 <= segs <= 32 and segs * S <= strided_cuda.MAX_SLOTS
+            for n_seg, sms in ((131072, 132), (65536, 132), (70, 1),
+                               (1, 132)):
+                p = strided_cuda.strided_plan(P, s, n_seg, sms)
+                resident = strided_cuda.resident_warps(sms, p.blocks)
+                assert resident == sms * p.blocks * strided_cuda.WARPS
+                assert p.S == len(probe.strided_columns(P, s))
+                assert 1 <= p.blocks <= strided_cuda.MIN_BLOCKS
+                n = 4 * p.segs * p.S
+                assert p.hi_at >= ((p.segs * P + 30) & ~15)
+                assert p.hi_at % 16 == 0 and p.stage % 16 == 0
+                assert p.lo_at - p.hi_at >= n and p.stage - p.lo_at >= n
+                assert p.slot_at >= 2 * p.stage
+                assert p.queue_at - p.slot_at >= n
+                assert p.warp_bytes - p.queue_at >= 4 * strided_cuda.QUEUE
+                assert p.warp_bytes <= strided_cuda.warp_budget(p.blocks)
+                assert (p.blocks * (strided_cuda.WARPS * p.warp_bytes
+                                    + strided_cuda.BLOCK_RESERVED)
+                        <= strided_cuda.SMEM_SM)
+                tiles = -(-n_seg // p.segs)
+                assert tiles >= min(resident, n_seg)  # every warp has one
+                # the largest such tile that fits
+                bigger = strided_cuda._carve(P, p.S, p.segs + 1)[-1]
+                assert (bigger > strided_cuda.warp_budget(p.blocks)
+                        or -(-n_seg // (p.segs + 1)) < resident
+                        or n_seg // resident == p.segs)
+    # the config-2 paired batch on 132 SMs x 4 blocks x 8 warps: tiles as
+    # large as 4 blocks' 196 KB of shared memory takes
+    for s, segs in ((16, 14), (8, 11), (4, 7), (2, 4)):
+        p = strided_cuda.strided_plan(104, s, 131072, 132)
+        assert (p.segs, p.blocks) == (segs, 4)
+    with pytest.raises(ValueError):
+        strided_cuda.strided_plan(1025, 4, 1, 1)
 
 
 @pytest.mark.parametrize("stride", [2, 8])
