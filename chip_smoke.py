@@ -104,6 +104,26 @@ Phases; any failure exits non-zero:
    (``[A4 ec_sum config 2]``), bit for bit against its plain version on
    the card and the CPU, timed beside it and ``index_add_``; ``infer``
    launches it once a run.
+6. checkpoints, the pack cache, traces and reads in memory, each run
+   with the launch counts set to 0 just before and read just after (K1,
+   K2, K3 and A1 must launch, and A3 where EM runs):
+   ``[checkpoint c2 map]``: ``Quantifier.quantify_files`` on config 2
+   (FLD estimated) with a checkpoint every batch, stopped after batch 2's
+   save and resumed in a fresh Quantifier: the run without a checkpoint's
+   signature counts, FLD estimate and est_counts bits; seconds a save,
+   bytes a checkpoint, restore seconds. ``[checkpoint c2 em]``: on config
+   2's EC table ``run_em`` (float32, float64) and the B 100 bootstrap
+   (``run_bootstrap`` float32, ``batched_em`` float64), each stopped at
+   its first snapshot and resumed: one A3 launch's bits and iteration
+   count; the fixed point's pieces and ms beside one launch. ``[pack
+   cache c2]``: ``infer --pack-cache DIR`` twice (build, hit) against the
+   FASTQ run's abundance.tsv, their map stages; a checkpointed run on the
+   cached batches stopped and resumed (exact); the cache rebuilt and that
+   checkpoint refused (fault 2). ``[trace c1]``, ``[trace c2]``: ``infer
+   --trace-dir``, the trace's kernels and stage ranges beside
+   run_info.json's timings and the map stage's split (ingest, upload,
+   device busy). ``[c1 reads in memory]``: ``Quantifier.quantify_reads``
+   against ``quantify_files``: mapped and est_counts bits.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -2019,6 +2039,455 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
     return out
 
 
+# ---- checkpoints, the pack cache, traces and reads in memory ------------
+
+MAIN = ("pack", "lookup", "signature", "accumulate")  # K1, K2, K3, A1
+
+
+def read_launches(name: str, need=MAIN) -> dict:
+    """The launch counts since ``reset_launches``; every kernel in
+    ``need`` must have launched."""
+    from seekmer_tpu_torch import cli
+
+    launches = cli.kernel_launches()
+    for kernel in need:
+        check(launches[kernel] > 0, f"{name}: kernel {kernel} was never "
+              f"launched")
+    return launches
+
+
+class Crash(Exception):
+    """Stops a run where a test of resume wants it stopped."""
+
+
+class Spy:
+    """Wraps ``cls.name`` while in a ``with``: records each call's seconds
+    and result, and raises ``Crash`` after the ``crash_after``-th call."""
+
+    def __init__(self, cls, name, crash_after=None):
+        self.cls, self.name, self.crash_after = cls, name, crash_after
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = getattr(self.cls, self.name)
+        spy = self
+
+        def wrapped(obj, *a, **k):
+            t0 = time.perf_counter()
+            out = real(obj, *a, **k)
+            spy.calls.append((time.perf_counter() - t0, out))
+            if spy.crash_after is not None and len(spy.calls) == \
+                    spy.crash_after:
+                raise Crash
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.real)
+
+
+def c2_pipeline(**em):
+    from seekmer_tpu_torch import EMConfig, MapConfig, PipelineConfig
+
+    return PipelineConfig().replace(
+        map=MapConfig(batch_size=B, sig_table_bits=22, paired_end=True),
+        em=EMConfig(**em))
+
+
+def same_map(a, b) -> bool:
+    """Two MapResults with the same signature -> count table and counts."""
+    import numpy as np
+
+    return (np.array_equal(a.sigs, b.sigs)
+            and np.array_equal(a.sig_counts, b.sig_counts)
+            and (a.total_reads, a.mapped, a.overflow, a.collisions)
+            == (b.total_reads, b.mapped, b.overflow, b.collisions))
+
+
+def checkpoint_map(work: Path, card: str):
+    """``[checkpoint c2 map]``: config 2's paired world (4 batches, FLD
+    estimated), ``quantify_files`` with a checkpoint every batch, stopped
+    after batch 2's save, resumed in a fresh Quantifier; against the run
+    without a checkpoint. Returns (launches of the resumed run, the
+    uninterrupted run's QuantResult and MapResult)."""
+    import numpy as np
+
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.map.driver import Mapper
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+
+    index = KMerIndex.load(str(work / "c2.npz"))
+    files = ([str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
+    ckpt = str(work / "c2_map.ckpt.npz")
+    cfg = c2_pipeline()
+    with Spy(Mapper, "finalize") as fin:
+        plain = Quantifier(index, cfg, DEVICE).quantify_files(*files)
+    with Spy(Mapper, "save_checkpoint", crash_after=2) as saves:
+        try:
+            Quantifier(index, cfg, DEVICE).quantify_files(
+                *files, checkpoint_path=ckpt, checkpoint_every=1)
+            check(False, "the interrupted config-2 run was not stopped")
+        except Crash:
+            pass
+    size = Path(ckpt).stat().st_size
+    reset_launches()
+    with Spy(Mapper, "restore_checkpoint") as restore, \
+            Spy(Mapper, "save_checkpoint") as saves2, \
+            Spy(Mapper, "finalize") as fin2:
+        t0 = time.perf_counter()
+        got = Quantifier(index, cfg, DEVICE).quantify_files(
+            *files, checkpoint_path=ckpt, checkpoint_every=1)
+        wall = time.perf_counter() - t0
+    launches = read_launches("[checkpoint c2 map]",
+                             (*MAIN, "em_csr", "ec_sum"))
+    a, b = fin2.calls[0][1], fin.calls[0][1]
+    check(same_map(a, b) and (got.total_reads, got.mapped, got.unmapped)
+          == (plain.total_reads, plain.mapped, plain.unmapped),
+          "the resumed config-2 run's signature counts differ from the "
+          "uninterrupted run's")
+    check((got.fld_mean, got.fld_sd, got.fld_samples)
+          == (plain.fld_mean, plain.fld_sd, plain.fld_samples)
+          and got.fld_samples is not None,
+          "the resumed config-2 run's FLD estimate differs")
+    check(np.array_equal(got.est_counts, plain.est_counts),
+          "the resumed config-2 run's est_counts bits differ")
+    save_s = [t for t, _ in saves.calls + saves2.calls]
+    log(f"[checkpoint c2 map] resumed after batch 2's save: mapped "
+        f"{got.mapped} / {got.total_reads}, {a.sigs.shape[0]} signatures, "
+        f"est_counts bit-equal, FLD mean {got.fld_mean:.6f} from "
+        f"{got.fld_samples} pairs (restored with the table); "
+        f"{len(save_s)} saves of {size} bytes "
+        f"(sig_table_bits 22), {min(save_s):.6f}-{max(save_s):.6f} s a "
+        f"save (mean {sum(save_s) / len(save_s):.6f}); restore "
+        f"{restore.calls[0][0]:.6f} s; resumed run {wall:.3f} s, map "
+        f"{got.timings['map_s']:.6f} s (uninterrupted, no checkpoint: "
+        f"{plain.timings['map_s']:.6f} s); {card}")
+    return launches, plain, b
+
+
+def checkpoint_em(result, index, card: str) -> dict:
+    """``[checkpoint c2 em]``: on config 2's EC table, ``run_em`` (float32
+    and float64) and the B 100 bootstrap (``run_bootstrap``, float32, and
+    ``batched_em`` on the same resample in float64), each stopped at its
+    first snapshot and resumed: one A3 launch's bits and iteration count.
+    Then the snapshotted fixed point's pieces and its CUDA-event ms beside
+    one launch. Returns the launches of the resumed runs."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch import EMConfig
+    from seekmer_tpu_torch.em import em as tem
+    from seekmer_tpu_torch.em.bootstrap import (batched_em, resample_counts,
+                                                run_bootstrap)
+    from seekmer_tpu_torch.em.em import build_ec_table, run_em
+    from seekmer_tpu_torch.map.driver import resolve_signatures
+    from seekmer_tpu_torch.ops import em_csr_cuda
+
+    members, counts, _ = resolve_signatures(result, index)
+    T = index.num_transcripts
+    total = {}
+
+    def first_snapshot(fn):
+        seen = []
+
+        def on_sync(a, it):
+            seen.append((a, it))
+            raise Crash
+
+        try:
+            fn(on_sync)
+            check(False, "the snapshot hook was never called")
+        except Crash:
+            pass
+        return seen[0]
+
+    def resumed(tag, fn):
+        """fn(alpha_init, it_init, on_sync) -> (alpha, it)."""
+        one, it1 = fn(None, 0, None)
+        a0, it0 = first_snapshot(lambda f: fn(None, 0, f))
+        reset_launches()
+        got, it = fn(a0, it0, None)
+        launches = read_launches(f"[checkpoint c2 em] {tag}", ("em_csr",))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(it == it1 and torch.equal(got, one),
+              f"{tag} resumed at {it0}: {it} iterations, bits "
+              f"{'equal' if torch.equal(got, one) else 'differ'}; one "
+              f"launch {it1}")
+        log(f"[checkpoint c2 em] {tag}: stopped at its first snapshot "
+            f"(iteration {it0}), resumed: {it} iterations, bits equal to "
+            f"one launch's ({it1} iterations)")
+
+    for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        ec = build_ec_table(members, counts, T, dtype=dt, device=DEVICE)
+        cfg = EMConfig(use_x64=dt == torch.float64)
+        resumed(f"run_em {name}", lambda a, i, f: run_em(
+            ec, index.lengths, cfg, alpha_init=a, it_init=i, on_sync=f))
+    ec = build_ec_table(members, counts, T, device=DEVICE)
+    boot = EMConfig(bootstrap_samples=100, bootstrap_seed=1, backend="csr")
+    resumed("run_bootstrap B 100 f32", lambda a, i, f: run_bootstrap(
+        ec, index.lengths, boot, alpha_init=a, it_init=i, on_sync=f))
+    gen = torch.Generator(device=ec.counts.device)
+    gen.manual_seed(1)
+    cmat = resample_counts(ec.counts, 100, gen).double()
+    resumed("batched_em B 100 f64", lambda a, i, f: batched_em(
+        cmat, ec.ec_ids, ec.txp_ids, index.lengths, ec.num_ecs, T, boot,
+        alpha_init=a, it_init=i, on_sync=f))
+
+    # the cost of snapshots: the fixed point in pieces beside one launch
+    lay = tem.csr_layout(ec.ec_ids, ec.txp_ids, ec.num_ecs, T)
+    inv = 1.0 / tem.effective_lengths(index.lengths, boot, torch.float32,
+                                      ec.counts.device)
+    counts_b = cmat.float().t().contiguous()
+    alpha0 = tem.even_split(counts_b.sum(dim=0), T)[None, :].expand(
+        T, 100).contiguous()
+    args = (alpha0, counts_b, inv, lay, boot, False)
+
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    one_ms, one = event_ms(lambda: em_csr_cuda.em_fixed_point(*args))
+    rows = []
+    for target in (tem.SYNC_TARGET_S, 0.0):
+        syncs = []
+        saved, tem.SYNC_TARGET_S = tem.SYNC_TARGET_S, target
+        try:
+            ms, got = event_ms(lambda: tem.csr_fixed_point(
+                *args, on_sync=lambda a, it: syncs.append(it)))
+        finally:
+            tem.SYNC_TARGET_S = saved
+        check(torch.equal(got[0], one[0]) and got[1:] == one[1:],
+              f"A3 in pieces (target {target} s) differs from one launch")
+        rows.append(f"{len(syncs) + 1} pieces at a {target} s target "
+                    f"{ms:.6f} ms")
+    log(f"[checkpoint c2 em] A3 fixed point, B 100 f32, {one[1]} "
+        f"iterations, CUDA events around the call: one launch "
+        f"{one_ms:.6f} ms; in pieces (the snapshot's D2H copy of the (T, "
+        f"B) iterate between two): {'; '.join(rows)}; {card}")
+    return total
+
+
+def file_text(path) -> str:
+    return Path(path).read_text()
+
+
+def pack_cache_phase(work: Path, card: str, plain, plain_map):
+    """``[pack cache c2]``: ``infer --pack-cache DIR`` on config 2 without
+    bootstrap, the build run then the hit run, against the run without the
+    cache; a checkpointed run on the cached batches, stopped after its
+    second save and resumed; then a rebuilt cache, on which that
+    checkpoint is refused (fault 2). Returns the launches of the hit
+    run."""
+    import numpy as np
+
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.map.driver import Mapper
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+
+    cache = work / "c2.smpack"
+    argv = [str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
+            "--sig-table-bits", "22", "--batch-size", str(B),
+            "--pack-cache", str(cache)]
+    out_b, info_b, _ = run_infer(work, "c2", argv, unused=("em", *FAST,
+                                                            *STRIDED),
+                                 name="c2_cache_build")
+    meta = json.loads((cache / "meta.json").read_text())
+    nbytes_ = sum(f.stat().st_size for f in cache.iterdir())
+    out_h, info_h, launches = run_infer(work, "c2", argv,
+                                        unused=("em", *FAST, *STRIDED),
+                                        name="c2_cache_hit")
+    ref = work / "c2_out"  # config 2 dense without the cache (end_to_end)
+    tsv = file_text(ref / "abundance.tsv")
+    ref_info = json.loads((ref / "run_info.json").read_text())
+    check(file_text(out_b / "abundance.tsv") == tsv
+          and file_text(out_h / "abundance.tsv") == tsv
+          and info_b["mapped"] == info_h["mapped"] == ref_info["mapped"],
+          "config 2 through the pack cache differs from the FASTQ run")
+    tb, th, tr = (i["timings"] for i in (info_b, info_h, ref_info))
+    log(f"[pack cache c2] {len(meta['batches'])} batches, {nbytes_} bytes "
+        f"(build {meta['build_id']}); abundance.tsv and mapped "
+        f"{info_h['mapped']} equal to the FASTQ run's; map stage: FASTQ "
+        f"{tr['map_s']:.6f} s ({tr['reads_per_s']:.0f} pairs/s), build "
+        f"{tb['map_s']:.6f} s ({tb['reads_per_s']:.0f} pairs/s), hit "
+        f"{th['map_s']:.6f} s ({th['reads_per_s']:.0f} pairs/s); {card}")
+
+    index = KMerIndex.load(str(work / "c2.npz"))
+    files = ([str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
+    ckpt = str(work / "c2_cache.ckpt.npz")
+    cfg = c2_pipeline()
+    with Spy(Mapper, "save_checkpoint", crash_after=2):
+        try:
+            Quantifier(index, cfg, DEVICE).quantify_files(
+                *files, checkpoint_path=ckpt, checkpoint_every=1,
+                pack_cache=str(cache))
+            check(False, "the interrupted cached run was not stopped")
+        except Crash:
+            pass
+    with Spy(Mapper, "finalize") as fin:
+        got = Quantifier(index, cfg, DEVICE).quantify_files(
+            *files, checkpoint_path=ckpt, checkpoint_every=1,
+            pack_cache=str(cache))
+    check(same_map(fin.calls[0][1], plain_map)
+          and np.array_equal(got.est_counts, plain.est_counts),
+          "the resumed cached config-2 run differs from the FASTQ run")
+    (cache / "meta.json").unlink()  # the next run rebuilds the cache
+    Quantifier(index, cfg, DEVICE).quantify_files(*files,
+                                                  pack_cache=str(cache))
+    rebuilt = json.loads((cache / "meta.json").read_text())["build_id"]
+    try:
+        Quantifier(index, cfg, DEVICE).quantify_files(
+            *files, checkpoint_path=ckpt, pack_cache=str(cache))
+        check(False, "a checkpoint of another cache build was accepted")
+    except ValueError as e:
+        check("rebuilt since the checkpoint" in str(e),
+              f"the stale cache checkpoint was refused for another cause: "
+              f"{e}")
+    log(f"[pack cache c2] checkpointed run on the cached batches stopped "
+        f"after its second save and resumed: signature counts and "
+        f"est_counts bits equal to the FASTQ run's; cache rebuilt (build "
+        f"{rebuilt}): that checkpoint refused (fault 2)")
+    return launches
+
+
+def trace_events(path):
+    with open(path) as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def union_ms(spans) -> float:
+    busy, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return busy / 1e3
+
+
+def trace_phase(work: Path, card: str, tag: str, argv, unused) -> dict:
+    """``[trace <tag>]``: ``infer --trace-dir D``; the trace must parse,
+    hold K1, K2, K3 and A1's kernels and every stage range; prints each
+    range's host ms beside run_info.json's timing for it and the map
+    stage's split: the prefetch thread's ingest and upload, the device's
+    busy time (the union of its kernel and copy intervals) within the map
+    range and its largest kernels and copies. Returns the run's
+    launches."""
+    trace = work / f"{tag}_trace"
+    out, info, launches = run_infer(work, tag, [*argv, "--trace-dir",
+                                                str(trace)],
+                                    unused=unused, name=f"{tag}_traced")
+    events = trace_events(trace / "infer.trace.json")
+    ranges = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append(e)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    for k in ("pack_kernel", "lookup_kernel", "sig_kernel", "fold_kernel"):
+        check(any(k in e["name"] for e in kernels),
+              f"[trace {tag}] no {k} in the trace")
+    stages = ["map", "resolve", "em", "ingest", "upload"]
+    if info["bootstrap_samples"]:
+        stages.append("bootstrap")
+    for st in stages:
+        check(st in ranges, f"[trace {tag}] no {st} range in the trace")
+    t = info["timings"]
+    parts = []
+    for st in stages:
+        ms = sum(e["dur"] for e in ranges[st]) / 1e3
+        key = f"{st}_s"
+        parts.append(f"{st} {ms:.6f} ms x {len(ranges[st])}"
+                     + (f" (run_info {t[key] * 1e3:.6f} ms)" if key in t
+                        else ""))
+    m = ranges["map"][0]
+    a, b = m["ts"], m["ts"] + m["dur"]
+    inside = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e["ts"] < b and e["ts"] + e["dur"] > a]
+    busy = union_ms([(max(e["ts"], a), min(e["ts"] + e["dur"], b))
+                     for e in inside])
+    per = {}
+    for e in inside:
+        ms, n = per.get(e["name"], (0.0, 0))
+        per[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    ingest = sum(e["dur"] for e in ranges["ingest"]) / 1e3
+    upload = sum(e["dur"] for e in ranges["upload"]) / 1e3
+    log(f"[trace {tag}] {len(events)} events, {len(kernels)} kernels; "
+        f"ranges: {'; '.join(parts)}")
+    log(f"[trace {tag} map split] map range {m['dur'] / 1e3:.6f} ms: "
+        f"prefetch thread ingest {ingest:.6f} ms + upload {upload:.6f} ms "
+        f"= {(ingest + upload) / (m['dur'] / 1e3):.6f} of it; device busy "
+        f"{busy:.6f} ms = {busy / (m['dur'] / 1e3):.6f}; {card}")
+    for name, (ms, n) in top:
+        log(f"[trace {tag} map split]   {ms:10.6f} ms x {n:4d}  {name[:80]}")
+    return launches
+
+
+def reads_in_memory(work: Path, card: str) -> dict:
+    """``[c1 reads in memory]``: ``Quantifier.quantify_reads`` on config
+    1's reads, against ``quantify_files`` on their FASTQ file: the same
+    mapped count and est_counts bits. Returns the launches of the
+    in-memory run."""
+    import numpy as np
+
+    from seekmer_tpu_torch import EMConfig, MapConfig, PipelineConfig
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+
+    index = KMerIndex.load(str(work / "c1.npz"))
+    cfg = PipelineConfig().replace(map=MapConfig(batch_size=B),
+                                   em=EMConfig(rel_tol=1e-6, max_iters=2000))
+    lines = (work / "c1.fq").read_text().splitlines()
+    reads = lines[1::4]
+    want = Quantifier(index, cfg, DEVICE).quantify_files(
+        [str(work / "c1.fq")])
+    reset_launches()
+    t0 = time.perf_counter()
+    got = Quantifier(index, cfg, DEVICE).quantify_reads(reads)
+    wall = time.perf_counter() - t0
+    launches = read_launches("[c1 reads in memory]",
+                             (*MAIN, "em_csr", "ec_sum"))
+    check((got.total_reads, got.mapped, got.unmapped)
+          == (want.total_reads, want.mapped, want.unmapped)
+          and np.array_equal(got.est_counts, want.est_counts),
+          "config 1's reads in memory differ from the file run")
+    log(f"[c1 reads in memory] {len(reads)} reads: mapped {got.mapped}, "
+        f"est_counts bit-equal to quantify_files; {wall:.3f} s (map "
+        f"{got.timings['map_s']:.6f} s against {want.timings['map_s']:.6f}"
+        f" s from the file); {card}")
+    return launches
+
+
+def slice_phases(work: Path, card: str) -> dict:
+    """Checkpoints, the pack cache, traces and reads in memory; returns
+    the sum of their runs' launches."""
+    from seekmer_tpu_torch.index.store import KMerIndex
+
+    runs = []
+    launches, plain, plain_map = checkpoint_map(work, card)
+    runs.append(launches)
+    runs.append(checkpoint_em(plain_map, KMerIndex.load(
+        str(work / "c2.npz")), card))
+    runs.append(pack_cache_phase(work, card, plain, plain_map))
+    runs.append(trace_phase(work, card, "c1", [
+        str(work / "c1.fq"), "--bootstrap", "100", "--seed", "1"],
+        unused=(*FAST, *STRIDED)))
+    runs.append(trace_phase(work, card, "c2", [
+        str(work / "c2_1.fq"), "--mates", str(work / "c2_2.fq"),
+        "--sig-table-bits", "22"], unused=("em", *FAST, *STRIDED)))
+    runs.append(reads_in_memory(work, card))
+    keys = runs[0].keys()
+    return {k: sum(r.get(k, 0) for r in runs) for k in keys}
+
+
 KERNELS = [
     ("K1", "pack", "seekmer_tpu_torch/csrc/pack.cu",
      "seekmer_tpu/ops/pack_pallas.py:26"),
@@ -2089,6 +2558,8 @@ def main(argv=None) -> int:
         launches = end_to_end(work)
         fused = fuse_check(work, injected)
         launches = {k: launches[k] + fused[k] for k in launches}
+        more = slice_phases(work, card)
+        launches = {k: launches[k] + more[k] for k in launches}
         timing.update(profile_stages(work, args.keep_inputs))
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -6,18 +6,21 @@ file loads in either package), ``infer`` and ``fuse`` on one device,
 ``infer`` estimates the fragment-length distribution of paired runs unless
 ``--fragment-length`` or ``--fragment-sd`` is given, runs ``--bootstrap``
 replicates, maps in fast mode with ``--probe-sample N`` (N >= 2) and in
-strided mode with ``--probe-stride N`` (N > 1). It parses every ``infer``
-flag of the JAX CLI:
+strided mode with ``--probe-stride N`` (N > 1). ``--checkpoint F``
+saves a map checkpoint every ``--checkpoint-every`` batches and EM and
+bootstrap snapshots beside it, and resumes from them; ``--pack-cache
+[DIR]`` feeds the pre-packed batch cache, building it on the first run;
+``--trace-dir D`` writes a ``torch.profiler`` trace of the run into D. It
+parses every ``infer`` flag of the JAX CLI:
 
 - ``--sample-fallback`` (validated, then ignored: the port re-probes every
   fallback unit in one pass) and ``--io-workers`` go into ``MapConfig``;
 - ``--probe-chunks``, ``--pack-backend``, ``--probe-backend``,
   ``--sig-backend`` and ``--no-h2d-pack`` go into ``MapConfig`` too, whose
-  fields for them the port ignores (``config.py``); ``--checkpoint-every``
-  is accepted and means nothing without ``--checkpoint``;
-- the features the port does not have yet (``--checkpoint``,
-  ``--pack-cache``, ``--trace-dir``, sharding, ``--distributed``) are
-  refused with an error naming their ROADMAP.md item.
+  fields for them the port ignores (``config.py``), but for
+  ``--no-h2d-pack``, which ``--pack-cache`` refuses;
+- the features the port does not have yet (sharding, ``--distributed``)
+  are refused with an error naming their ROADMAP.md item.
 
 ``fuse`` (``_add_fuse`` and ``cmd_fuse`` after ``seekmer_tpu/cli.py``)
 takes the JAX CLI's arguments and ``--device``, and writes the same
@@ -124,11 +127,18 @@ def _add_infer(sub):
                    default="xla")
     p.add_argument("--sig-backend", choices=("xla", "pallas"), default="xla")
     p.add_argument("--no-h2d-pack", action="store_true")
-    # features of the JAX CLI that are refused until they are ported
-    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="map checkpoint file: save every "
+                        "--checkpoint-every batches (EM and bootstrap "
+                        "snapshots beside it) and resume from it")
     p.add_argument("--checkpoint-every", type=int, default=50)
-    p.add_argument("--pack-cache", nargs="?", const="auto", default=None)
-    p.add_argument("--trace-dir", default=None)
+    p.add_argument("--pack-cache", nargs="?", const="auto", default=None,
+                   help="pre-packed 2-bit batch cache directory (default "
+                        "<first fastq>.smpack): built on the first run, "
+                        "memory-mapped by later runs")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace of the run there")
+    # features of the JAX CLI that are refused until they are ported
     p.add_argument("--data-shards", type=int, default=1)
     p.add_argument("--index-shards", type=int, default=1)
     p.add_argument("--distributed", action="store_true")
@@ -172,12 +182,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.checkpoint:
-        raise NotPorted("--checkpoint", "Checkpoints")
-    if args.pack_cache is not None:
-        raise NotPorted("--pack-cache", "Pack cache")
-    if args.trace_dir:
-        raise NotPorted("--trace-dir", "Tooling")
     if args.data_shards != 1 or args.index_shards != 1:
         raise NotPorted("sharding", "Multi-GPU")
     if args.distributed:
@@ -210,6 +214,7 @@ def cmd_infer(args) -> int:
                             write_gene_abundance, write_h5, write_run_info)
     from .map.driver import check_device
     from .models.quantifier import Quantifier
+    from .utils.profiling import maybe_trace
 
     _refuse_unported(args)
     device = check_device(args.device)
@@ -245,7 +250,11 @@ def cmd_infer(args) -> int:
             use_x64=args.x64),
     )
     q = Quantifier(index, cfg, device=device)
-    result = q.quantify_files(args.fastq, mate_paths=args.mates or None)
+    with maybe_trace(args.trace_dir, "infer"):
+        result = q.quantify_files(args.fastq, mate_paths=args.mates or None,
+                                  checkpoint_path=args.checkpoint,
+                                  checkpoint_every=args.checkpoint_every,
+                                  pack_cache=args.pack_cache)
 
     os.makedirs(args.output_dir, exist_ok=True)
     out = os.path.join(args.output_dir, "abundance.tsv")

@@ -7,28 +7,37 @@ then takes the route of the JAX package for the system (``em.use_dense``):
 the dense fixed point over the membership matrix (K4 on a card) when it
 fits, else the batched CSR EM here, replicate-minor (T, B) (A3 on a card).
 
-What has no counterpart: the chunked execution (``_batched_em_chunked``,
-``_use_chunked``), which worked around a TPU limit on execution time. The
-snapshot arguments (``alpha_init``, ``it_init``, ``on_sync``) wait for the
-checkpoint port (ROADMAP.md, still to port, "Checkpoints").
+Snapshots: ``run_bootstrap(..., alpha_init, it_init, on_sync)`` resumes
+the batched fixed point from a (T, B) iterate and calls ``on_sync`` between
+its pieces (``em.csr_fixed_point``), as the JAX ``_batched_em_chunked``
+does at its syncs. The resample is seeded by ``EMConfig.bootstrap_seed``,
+so a resumed run draws the same count matrix and replays the same
+iterates. A resumed or snapshotted run takes the batched CSR route; the
+dense route serves fresh runs only, as in the JAX package. The JAX
+package's automatic chunking (``_use_chunked``) worked around a TPU limit
+on execution time and has no counterpart.
 """
 
 from __future__ import annotations
 
 import logging
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..config import EMConfig
 from .em import (
     ECTable,
     accel_schedule,
+    csr_fixed_point,
     csr_layout,
     dense_membership,
     effective_lengths,
     even_split,
     run_blocked_fixed_point,
     squarem_cycle,
+    squarem_hook,
     use_dense,
 )
 
@@ -58,13 +67,16 @@ def resample_counts(counts: torch.Tensor, num_samples: int,
 
 
 def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
-               num_transcripts: int, cfg: EMConfig):
+               num_transcripts: int, cfg: EMConfig, alpha_init=None,
+               it_init: int = 0, on_sync: Optional[Callable] = None):
     """Batched CSR EM over resampled count rows cmat [B, E], in the dtype of
     ``cmat``. Returns (alpha [B, T], iterations). The iterate is (T, B),
     replicate-minor, the counts (E, B); the fixed point is
     ``ops/em_csr_cuda.em_fixed_point`` (one A3 launch on a card, the
     blocked loop over ``_batched_iter`` on the CPU). SQUAREM takes one
-    steplength per replicate, an ``em_steps`` call a step."""
+    steplength per replicate, an ``em_steps`` call a step.
+    ``alpha_init`` (T, B) and ``it_init`` resume from a snapshot;
+    ``on_sync(alpha_TB_np, it)`` is the snapshot hook (``em.run_em``)."""
     from ..ops import em_csr_cuda
 
     dtype, device = cmat.dtype, cmat.device
@@ -73,17 +85,24 @@ def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
     layout = csr_layout(ec_ids, txp_ids, num_ecs, T)
     counts = cmat.t().contiguous()  # (E, B), loop-constant
     inv_eff = 1.0 / eff
-    alpha0 = even_split(cmat.sum(dim=1), T)[None, :].expand(T, B).contiguous()
+    if alpha_init is None:
+        alpha0 = even_split(cmat.sum(dim=1), T)[None, :].expand(
+            T, B).contiguous()
+    else:
+        alpha0 = torch.as_tensor(np.asarray(alpha_init), dtype=dtype,
+                                 device=device).reshape(T, B).contiguous()
     if cfg.accel == "squarem":
         def em_iter(a):
             return em_csr_cuda.em_steps(a, counts, inv_eff, layout, 1,
                                         divide=False)[1]
 
         it, _, alpha = run_blocked_fixed_point(
-            lambda a: squarem_cycle(em_iter, a), alpha0, accel_schedule(cfg))
+            lambda a: squarem_cycle(em_iter, a), alpha0, accel_schedule(cfg),
+            it_init=it_init // 3, on_sync=squarem_hook(on_sync))
         return alpha.t(), it * 3
-    alpha, it, _ = em_csr_cuda.em_fixed_point(alpha0, counts, inv_eff, layout,
-                                              cfg, divide=False)
+    alpha, it, _ = csr_fixed_point(alpha0, counts, inv_eff, layout, cfg,
+                                   divide=False, it_init=it_init,
+                                   on_sync=on_sync)
     return alpha.t(), it
 
 
@@ -102,11 +121,15 @@ def _batched_iter(counts_nnz, inv_eff_nnz, ec_ids, txp_ids,
     return em_iter
 
 
-def run_bootstrap(ec: ECTable, lengths, cfg: EMConfig):
+def run_bootstrap(ec: ECTable, lengths, cfg: EMConfig, alpha_init=None,
+                  it_init: int = 0, on_sync: Optional[Callable] = None):
     """``cfg.bootstrap_samples`` replicates; returns (est_counts [B, T]
     float32, iterations). One resample, seeded by ``cfg.bootstrap_seed``
     on the table's device, feeds either route. The dense route runs plain
-    EM whatever ``cfg.accel`` says, as the JAX kernel does."""
+    EM whatever ``cfg.accel`` says, as the JAX kernel does, and serves
+    fresh runs only: ``alpha_init`` ((T, B), replicate-major) or
+    ``it_init`` take the batched CSR route, which ``on_sync`` snapshots
+    (``batched_em``)."""
     from ..ops import em_cuda
 
     B, T = cfg.bootstrap_samples, ec.num_transcripts
@@ -115,7 +138,8 @@ def run_bootstrap(ec: ECTable, lengths, cfg: EMConfig):
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.bootstrap_seed)
     cmat = resample_counts(counts, B, gen)  # [B, E]
-    if use_dense(ec, cfg, replicates=B):
+    if alpha_init is None and it_init == 0 and use_dense(ec, cfg,
+                                                        replicates=B):
         inv_eff = 1.0 / effective_lengths(lengths, cfg, torch.float32, device)
         alpha0 = (cmat.sum(dim=1, keepdim=True) / T).expand(B, T).contiguous()
         alpha, it = em_cuda.em_fixed_point(dense_membership(ec), cmat,
@@ -123,7 +147,8 @@ def run_bootstrap(ec: ECTable, lengths, cfg: EMConfig):
         route = "dense"
     else:
         alpha, it = batched_em(cmat, ec.ec_ids, ec.txp_ids, lengths,
-                               ec.num_ecs, T, cfg)
+                               ec.num_ecs, T, cfg, alpha_init=alpha_init,
+                               it_init=it_init, on_sync=on_sync)
         route = "batched CSR"
     log.info("bootstrap EM: %d replicates, %s route, %d iterations", B,
              route, it)

@@ -18,15 +18,25 @@ into tiles of whole connected components; it adds in the order the CPU's
 ``index_add_`` does, so it gives the CPU's bits and iteration count. On
 the CPU ``run_blocked_fixed_point`` drives the plain ``em_step``.
 ``EMConfig.backend="pallas"`` runs the dense fixed point instead
-(``use_dense``): K4 on a card, its plain version on the CPU. The JAX
-chunked execution (``_use_chunked``/``_chunked_fixed_point``) worked
-around a TPU limit on execution time and has no counterpart.
+(``use_dense``): K4 on a card, its plain version on the CPU.
+
+Snapshots: ``run_em(..., on_sync=f)`` calls ``f(alpha_np, it)`` between
+pieces of the fixed point (``csr_fixed_point``), each piece A3's launch
+with its budget capped a whole number of blocks past the last piece's end,
+so the pieces replay the one launch's iterates and a resume from any
+snapshot (``alpha_init``, ``it_init``) gives its bits. They are the
+counterpart of the JAX ``_chunked_fixed_point``'s sync points, taken only
+when a caller asks for snapshots: without ``on_sync`` the fixed point stays
+one launch. The JAX package's automatic chunking of long runs
+(``_use_chunked``, ``_MAX_EXEC_S``) worked around a TPU limit on execution
+time and has no counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Tuple
+import time
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -185,13 +195,15 @@ def convergence_check(alpha_m, alpha_new, cfg: EMConfig) -> torch.Tensor:
 
 
 def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
-                            it_init: int = 0, em_block=None):
+                            it_init: int = 0, em_block=None, on_sync=None):
     """Iterate ``alpha -> em_iter(alpha)`` in blocks of check_every - 1 raw
     steps plus one monitored step, testing convergence between the block's
     last two iterates with one host read per block: the plain version of
     A3's fixed point, and SQUAREM's loop. ``em_block(alpha, steps)``,
     where given, runs a whole block and returns its last two iterates.
-    Returns (it, converged, alpha); ``it`` counts from ``it_init``."""
+    ``on_sync(alpha, it)``, where given, is called at every block end that
+    does not finish the run. Returns (it, converged, alpha); ``it`` counts
+    from ``it_init``."""
     C = max(cfg.check_every, 1)
     it, converged, alpha = it_init, False, alpha0
     while not converged and it < cfg.max_iters:
@@ -205,7 +217,47 @@ def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
                      and bool(convergence_check(alpha, alpha_new, cfg)))
         alpha = alpha_new
         it += C
+        if on_sync is not None and not converged and it < cfg.max_iters:
+            on_sync(alpha, it)
     return it, converged, alpha
+
+
+SYNC_TARGET_S = 2.0  # seconds of fixed point between two snapshots
+
+
+def csr_fixed_point(alpha0, counts, scale, layout, cfg: EMConfig,
+                    divide: bool, it_init: int = 0,
+                    on_sync: Optional[Callable] = None):
+    """A3's fixed point (``em_csr_cuda.em_fixed_point``), one launch; with
+    ``on_sync``, pieces of it with ``on_sync(alpha_np, it)`` between two.
+    A piece runs from (it, alpha) under the budget ``min(max_iters, it +
+    k * check_every)``, so it ends on a block boundary and the pieces
+    replay the one launch's iterates; k starts at 1 and adapts so that a
+    piece takes about ``SYNC_TARGET_S``, as the JAX
+    ``_chunked_fixed_point`` does. Returns (alpha, it, converged)."""
+    from ..ops import em_csr_cuda
+
+    def piece(alpha, it, cap):
+        return em_csr_cuda.em_fixed_point(
+            alpha, counts, scale, layout,
+            dataclasses.replace(cfg, max_iters=cap), divide=divide,
+            it_init=it)
+
+    if on_sync is None:
+        return piece(alpha0, it_init, cfg.max_iters)
+    C = max(cfg.check_every, 1)
+    alpha, it, k = alpha0, it_init, 1
+    while True:
+        t0 = time.perf_counter()
+        alpha, it, converged = piece(alpha, it,
+                                     min(cfg.max_iters, it + k * C))
+        dt = time.perf_counter() - t0
+        if converged or it >= cfg.max_iters:
+            return alpha, it, converged
+        on_sync(alpha.cpu().numpy(), it)
+        per_block = max(dt / k, 1e-4)
+        remaining = max((cfg.max_iters - it) // C, 1)
+        k = max(1, min(int(SYNC_TARGET_S / per_block), remaining))
 
 
 def dense_membership(ec: ECTable) -> torch.Tensor:
@@ -237,13 +289,17 @@ def use_dense(ec: ECTable, cfg: EMConfig, replicates: int = 1) -> bool:
 
 
 def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
-           alpha_init=None, it_init: int = 0) -> Tuple[torch.Tensor, int]:
+           alpha_init=None, it_init: int = 0,
+           on_sync: Optional[Callable] = None) -> Tuple[torch.Tensor, int]:
     """EM to convergence. Returns (alpha float[T], iterations).
-    ``alpha_init``/``it_init`` warm-start the fixed point; max_iters counts
-    the total across restarts. A fresh run under ``backend="pallas"``
-    takes the dense fixed point (K4 with R = 1, float32); a resumed one
-    (``it_init`` > 0) stays on the CSR form (A3 on a card), whose budget
-    counts from ``it_init``."""
+    ``alpha_init``/``it_init`` warm-start the fixed point from a snapshot;
+    max_iters counts the total across restarts. ``on_sync(alpha_np, it)``
+    is the snapshot hook: the CSR fixed point then runs in pieces with a
+    call between two, and SQUAREM calls it at its block ends (``it`` in EM
+    steps, 3 a cycle). A fresh run under ``backend="pallas"`` takes the
+    dense fixed point (K4 with R = 1, float32) and ignores ``on_sync``, as
+    the JAX Pallas path does; a resumed one (``it_init`` > 0) stays on the
+    CSR form (A3 on a card), whose budget counts from ``it_init``."""
     dtype, device = ec.counts.dtype, ec.counts.device
     T = ec.num_transcripts
     if it_init == 0 and use_dense(ec, cfg):
@@ -276,12 +332,20 @@ def run_em(ec: ECTable, lengths, cfg: EMConfig = EMConfig(),
 
         it, _, alpha = run_blocked_fixed_point(
             lambda a: squarem_cycle(em_iter, a), alpha0, accel_schedule(cfg),
-            it_init=it_init // 3)
+            it_init=it_init // 3, on_sync=squarem_hook(on_sync))
         return alpha, it * 3
-    alpha, it, _ = em_csr_cuda.em_fixed_point(alpha0, ec.counts, eff, layout,
-                                              cfg, divide=True,
-                                              it_init=it_init)
+    alpha, it, _ = csr_fixed_point(alpha0, ec.counts, eff, layout, cfg,
+                                   divide=True, it_init=it_init,
+                                   on_sync=on_sync)
     return alpha, it
+
+
+def squarem_hook(on_sync: Optional[Callable]):
+    """``on_sync`` for SQUAREM's block ends: the iterate to the host and
+    the count in EM steps (a cycle is 3)."""
+    if on_sync is None:
+        return None
+    return lambda a, it: on_sync(a.cpu().numpy(), it * 3)
 
 
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:

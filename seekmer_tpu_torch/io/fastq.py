@@ -1,28 +1,35 @@
 """Streaming FASTQ(.gz) ingest into fixed-shape read batches: the port's
-copy of ``seekmer_tpu/io/fastq.py``, with the C path the port runs
-(``batch_reads_native``, ``batch_read_pairs_native``) and the 2-bit
-host pack of a batch. Both packages give equal batches from the same files.
+copy of ``seekmer_tpu/io/fastq.py``. Both packages give equal batches, and
+equal cursors, from the same input.
 
 Reads are 2-bit encoded and bucket-padded to a few static lengths
 (multiples of ``MapConfig.length_bucket``); padding rows (weight 0) fill the
-final partial batch of each bucket. Decode and bucket placement run in
-GIL-released C calls (``native/packer.c``).
+final partial batch of each bucket. Three sources:
 
-Left out of the copy: the pure-Python readers and batchers, which the JAX
-package falls back to without a C compiler (the port builds its C library
-or raises), and the checkpointable offset-cursor source (ROADMAP.md, still
-to port: Checkpoints).
+- ``batch_reads_native`` / ``batch_read_pairs_native``: files through the C
+  reader and bucketer (``native/packer.c``), every call GIL-released,
+  several files decoded in parallel where ``MapConfig.io_workers`` allows;
+- ``CheckpointableBatchSource``: files read serially through the same C
+  code, with an exact resume cursor on the batches where one is consistent
+  (a map checkpoint saves it);
+- ``batch_reads`` / ``batch_read_pairs``: reads held in memory, batched in
+  Python (``Quantifier.quantify_reads``).
+
+Left out of the copy: the JAX package's no-compiler fallbacks
+(``read_fastq``, ``_BucketAccumulator``, ``_PyOffsetFileStream`` and
+``CheckpointableBatchSource._iter_py``); the port builds its C library or
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
 from ..config import MapConfig
-from ..encoding import pack_codes_2bit
+from ..encoding import INVALID, pack_codes_2bit, seq_to_codes
 
 
 @dataclasses.dataclass
@@ -43,6 +50,10 @@ class ReadBatch:
     # set by utils.prefetch.device_put_batches before weights moves to the
     # device, so n_real never forces a device sync in the feed loop
     n_real_cached: Optional[int] = None
+    # resume cursor valid after this batch is consumed (set by
+    # CheckpointableBatchSource and io.pack_cache.PackCacheSource where the
+    # stream offsets and the pending rows are consistent); host only
+    cursor: Optional[dict] = None
 
     @property
     def n_real(self) -> int:
@@ -63,6 +74,72 @@ def pack_batch_2bit(b: ReadBatch) -> ReadBatch:
         codes2, bad2 = pack_codes_2bit(b.codes2)
     return dataclasses.replace(b, codes=codes, bad=bad, codes2=codes2,
                                bad2=bad2, pad_len=L)
+
+
+def _bucket_of(length: int, cfg: MapConfig) -> int:
+    length = min(max(length, 1), cfg.max_read_len)
+    b = cfg.length_bucket
+    return ((length + b - 1) // b) * b
+
+
+def _pack(seqs: list[bytes], L: int, B: int) -> Tuple[np.ndarray, np.ndarray]:
+    codes = np.full((B, L), INVALID, dtype=np.uint8)
+    lengths = np.zeros(B, dtype=np.int32)
+    for i, s in enumerate(seqs):
+        c = seq_to_codes(s[:L])
+        codes[i, : c.size] = c
+        lengths[i] = c.size
+    return codes, lengths
+
+
+def batch_reads(seqs: Iterable[bytes], cfg: MapConfig
+                ) -> Iterator[ReadBatch]:
+    """Group single-end reads held in memory into fixed-shape batches per
+    length bucket."""
+    pending: dict[int, list[bytes]] = {}
+    B = cfg.batch_size
+    for seq in seqs:
+        bucket = _bucket_of(len(seq), cfg)
+        lst = pending.setdefault(bucket, [])
+        lst.append(seq)
+        if len(lst) == B:
+            codes, lengths = _pack(lst, bucket, B)
+            yield ReadBatch(codes, lengths, np.ones(B, np.int32))
+            pending[bucket] = []
+    for bucket, lst in pending.items():
+        if not lst:
+            continue
+        codes, lengths = _pack(lst, bucket, B)
+        w = np.zeros(B, np.int32)
+        w[: len(lst)] = 1
+        yield ReadBatch(codes, lengths, w)
+
+
+def batch_read_pairs(pairs: Iterable[Tuple[bytes, bytes]], cfg: MapConfig
+                     ) -> Iterator[ReadBatch]:
+    """Paired-end batching of reads held in memory; both mates padded to
+    the pair's longer mate's bucket."""
+    pending: dict[int, list[Tuple[bytes, bytes]]] = {}
+    B = cfg.batch_size
+    for r1, r2 in pairs:
+        bucket = _bucket_of(max(len(r1), len(r2)), cfg)
+        lst = pending.setdefault(bucket, [])
+        lst.append((r1, r2))
+        if len(lst) == B:
+            yield _pack_pairs(lst, bucket, B, np.ones(B, np.int32))
+            pending[bucket] = []
+    for bucket, lst in pending.items():
+        if not lst:
+            continue
+        w = np.zeros(B, np.int32)
+        w[: len(lst)] = 1
+        yield _pack_pairs(lst, bucket, B, w)
+
+
+def _pack_pairs(lst, bucket: int, B: int, w: np.ndarray) -> ReadBatch:
+    codes1, len1 = _pack([a for a, _ in lst], bucket, B)
+    codes2, len2 = _pack([b for _, b in lst], bucket, B)
+    return ReadBatch(codes1, len1, w, codes2=codes2, lengths2=len2)
 
 
 _DONE = object()
@@ -245,3 +322,159 @@ def batch_read_pairs_native(paths1, paths2, cfg: MapConfig
     else:
         chunk_iter = _aligned_chunks(stream(paths1), stream(paths2))
     yield from _bucketer_batches(chunk_iter, cfg, paired=True)
+
+
+# ---- checkpointable (offset-cursor) batching -------------------------------
+
+
+class _OffsetStream:
+    """Chained multi-file FASTQ stream with an exact (file_idx, offset)
+    cursor; offset = uncompressed byte position of the next unparsed
+    record. Resume reopens there: a plain file seeks, a .gz file is
+    inflated and discarded up to it in one C call."""
+
+    def __init__(self, paths, max_len: int, file_idx: int = 0,
+                 offset: int = 0):
+        self.paths = list(paths)
+        self.max_len = max_len
+        self.file_idx = file_idx
+        self.offset = offset
+        self._cur = None
+
+    def read_n(self, n: int):
+        """Up to ``n`` reads (fewer only at the end of all files),
+        advancing the cursor; None when exhausted."""
+        from ..native.packer import PackedFileStream
+
+        out_c, out_l = [], []
+        got = 0
+        while got < n and self.file_idx < len(self.paths):
+            if self._cur is None:
+                self._cur = PackedFileStream(self.paths[self.file_idx],
+                                             self.max_len,
+                                             start_offset=self.offset)
+            chunk = self._cur.next_chunk(n - got)
+            if chunk is None:
+                self._cur.close()
+                self._cur = None
+                self.file_idx += 1
+                self.offset = 0
+                continue
+            self.offset = self._cur.tell()
+            out_c.append(chunk[0])
+            out_l.append(chunk[1])
+            got += chunk[0].shape[0]
+        if not out_c:
+            return None
+        if len(out_c) == 1:
+            return out_c[0], out_l[0]
+        return np.concatenate(out_c), np.concatenate(out_l)
+
+    def cursor(self):
+        return [self.file_idx, self.offset]
+
+    def close(self) -> None:
+        if self._cur is not None:
+            self._cur.close()
+            self._cur = None
+
+
+class CheckpointableBatchSource:
+    """Serial FASTQ batching with an exact resume cursor.
+
+    The cursor is each stream's (file index, uncompressed byte offset of
+    the next unparsed record) plus the rows of the partial buckets, so a
+    checkpoint taken at a batch boundary resumes without re-reading or
+    re-batching consumed input: the rows the bucketer held ride in the
+    checkpoint (``utils/checkpoint``). Cursors ride on the last batch made
+    from each decoded chunk (``ReadBatch.cursor``), where the offsets and
+    the pending rows agree; ``Mapper.run`` saves at the next such batch
+    after each ``checkpoint_every`` interval. Decoding is serial whatever
+    ``MapConfig.io_workers`` says: the cursor needs one read order.
+    """
+
+    CHUNK = 16384
+
+    def __init__(self, paths, mate_paths=None, cfg: MapConfig = MapConfig()):
+        self.paths = list(paths)
+        self.mates = list(mate_paths) if mate_paths else None
+        self.cfg = cfg
+        self._restore_state: Optional[dict] = None
+
+    def restore(self, state: dict) -> None:
+        if state.get("v") == "pack1":
+            raise ValueError(
+                "checkpoint was taken on a --pack-cache run (its cursor "
+                "indexes cached batches, not file offsets); resume with "
+                "--pack-cache, or delete the checkpoint to start fresh")
+        if state.get("paired", False) != (self.mates is not None):
+            raise ValueError("checkpoint cursor pairing does not match "
+                             "the current input files")
+        self._restore_state = state
+
+    def _snapshot(self, s1, s2, bk) -> dict:
+        return {
+            "v": 1,
+            "paired": self.mates is not None,
+            "s1": s1.cursor(),
+            "s2": s2.cursor() if s2 is not None else None,
+            "pending": bk.pending_state(),
+        }
+
+    def __iter__(self) -> Iterator[ReadBatch]:
+        from ..native.packer import Bucketer
+
+        cfg = self.cfg
+        B = cfg.batch_size
+        st0 = self._restore_state or {}
+        f1, o1 = st0.get("s1") or (0, 0)
+        s1 = _OffsetStream(self.paths, cfg.max_read_len, f1, o1)
+        s2 = None
+        if self.mates is not None:
+            f2, o2 = st0.get("s2") or (0, 0)
+            s2 = _OffsetStream(self.mates, cfg.max_read_len, f2, o2)
+        paired = s2 is not None
+        bk = Bucketer(B, cfg.max_read_len, cfg.length_bucket, paired)
+        try:
+            if st0.get("pending"):
+                bk.restore_pending(
+                    {int(k): v for k, v in st0["pending"].items()})
+            while True:
+                ch1 = s1.read_n(self.CHUNK)
+                if ch1 is None:
+                    if s2 is not None and s2.read_n(1) is not None:
+                        raise ValueError(
+                            "paired FASTQ files have unequal read counts")
+                    break
+                c1, l1 = ch1
+                c2 = l2 = None
+                if paired:
+                    ch2 = s2.read_n(c1.shape[0])
+                    if ch2 is None or ch2[0].shape[0] != c1.shape[0]:
+                        raise ValueError(
+                            "paired FASTQ files have unequal read counts")
+                    c2, l2 = ch2
+                bk.feed(c1, l1, c2, l2)
+                out = [
+                    ReadBatch(a, b, np.ones(B, np.int32),
+                              codes2=cc, lengths2=dd)
+                    for a, b, cc, dd, _ in bk.pop_ready()
+                ]
+                for batch in out[:-1]:
+                    yield batch
+                if out:
+                    out[-1].cursor = self._snapshot(s1, s2, bk)
+                    yield out[-1]
+            # flush the partial buckets; each flushed batch's cursor leaves
+            # out the buckets already flushed
+            for a, b, cc, dd, fill in bk.flush():
+                w = np.zeros(B, np.int32)
+                w[:fill] = 1
+                batch = ReadBatch(a, b, w, codes2=cc, lengths2=dd)
+                batch.cursor = self._snapshot(s1, s2, bk)
+                yield batch
+        finally:
+            bk.close()
+            s1.close()
+            if s2 is not None:
+                s2.close()

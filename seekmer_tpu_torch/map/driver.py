@@ -34,6 +34,11 @@ port always ships reads 2-bit packed, so ``h2d_pack_2bit`` is ignored too.
 ``_auto_probe_chunks`` and ``probe_chunks`` have no counterpart: the
 lookup kernel never materialises the gathered bucket rows they bounded.
 
+``Mapper.run`` checkpoints the table and the stream's resume cursor every
+``checkpoint_every`` batches (``_run_with_checkpoints``, single process;
+the JAX package's multi-process variant waits for the port's multi-GPU
+mapper). The table is read back to the host only when a save is due.
+
 ``merge_sig_rows``, ``MapResult``, ``audit_this_batch``,
 ``resolve_signatures`` and ``_group_member_lists`` are pure numpy copies
 from ``seekmer_tpu/map/driver.py``, whose module imports JAX at the top.
@@ -43,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,8 +79,9 @@ def check_device(device) -> torch.device:
 
 
 def to_device(x, device: torch.device):
-    """A batch array as a tensor on ``device``: numpy arrays are uploaded,
-    tensors must already be there; None stays None."""
+    """A batch array as a tensor on ``device``: numpy arrays are uploaded
+    (a read-only one, a pack cache's memmap slice, is copied first, never
+    wrapped), tensors must already be there; None stays None."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
@@ -83,6 +89,8 @@ def to_device(x, device: torch.device):
             raise ValueError(f"batch tensor on {x.device}, expected "
                              f"{device}")
         return x
+    if not x.flags.writeable:
+        x = np.array(x)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
@@ -236,6 +244,9 @@ class Mapper:
             device=self.device)
         self.total_reads = 0
         self._fed_batches = 0
+        # the FLD estimator sharing this table (make_fld_estimator, or
+        # restore_checkpoint), whose state a checkpoint carries
+        self.fld = None
 
     def feed(self, batch: ReadBatch) -> None:
         n_real = batch.n_real
@@ -253,10 +264,44 @@ class Mapper:
         self._fed_batches += 1
         self.total_reads += n_real
 
-    def run(self, batches: Iterable[ReadBatch]) -> "MapResult":
-        for b in batches:
-            self.feed(b)
-        return self.finalize()
+    def run(self, batches: Iterable[ReadBatch],
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 50) -> "MapResult":
+        """Feed every batch, then finalize. With ``checkpoint_path``, save
+        the table and the resume cursor every ``checkpoint_every`` batches,
+        at the next batch that carries a cursor, and once at the end."""
+        return _run_with_checkpoints(self, batches, checkpoint_path,
+                                     checkpoint_every)
+
+    def save_checkpoint(self, path: str,
+                        stream_state: Optional[dict] = None) -> None:
+        from ..utils.checkpoint import save_map_checkpoint
+
+        save_map_checkpoint(path, self.table, self.total_reads,
+                            stream_state, fld=None if self.fld is None
+                            else self.fld.state())
+
+    def supports_checkpoint(self) -> bool:
+        return True
+
+    def restore_checkpoint(self, path: str) -> Optional[dict]:
+        """Restore the table, the read count and the FLD estimator's state
+        where the file has one (``self.fld``); returns the stream's resume
+        cursor (``CheckpointableBatchSource.restore``'s input), {} when the
+        file carries no cursor (the table is restored but the stream
+        position is unknown: not safely resumable), or None when there is
+        no file."""
+        from ..utils.checkpoint import adapt_ec_count, load_map_checkpoint
+        from .fld import FLDEstimator
+
+        loaded = load_map_checkpoint(path, self.device)
+        if loaded is None:
+            return None
+        table, self.total_reads, stream_state, fld = loaded
+        self.table = adapt_ec_count(table, self.table.ec_count.shape)
+        if fld is not None:
+            self.fld = FLDEstimator(self.index, self.device_index, fld)
+        return stream_state if stream_state is not None else {}
 
     def make_fld_estimator(self):
         """Fragment-length estimator sharing this mapper's device table
@@ -265,13 +310,48 @@ class Mapper:
             return None
         from .fld import FLDEstimator
 
-        return FLDEstimator(self.index, self.device_index)
+        self.fld = FLDEstimator(self.index, self.device_index)
+        return self.fld
 
     def finalize(self) -> MapResult:
         sigs, counts = table_to_host(self.table)
         return merge_sig_rows(sigs, counts, self.total_reads,
                               int(self.table.overflow),
                               collisions=int(self.table.collisions))
+
+
+def _run_with_checkpoints(mapper: Mapper, batches: Iterable[ReadBatch],
+                          checkpoint_path: Optional[str],
+                          checkpoint_every: int) -> MapResult:
+    """The feed loop with cursor-aware checkpoints. A save falls due every
+    ``checkpoint_every`` batches and happens at the next batch carrying a
+    resume cursor; the cursor saved is that of the batch just fed, not the
+    reader's position (a prefetch thread may be batches ahead)."""
+    n = 0
+    due = False
+    warned = False
+    last_cursor = None
+    for batch in batches:
+        mapper.feed(batch)
+        n += 1
+        cur = batch.cursor
+        if cur is not None:
+            last_cursor = cur
+        if checkpoint_path:
+            due = due or (n % checkpoint_every == 0)
+            if due and cur is not None:
+                mapper.save_checkpoint(checkpoint_path, stream_state=cur)
+                due = False
+            elif due and last_cursor is None and not warned:
+                log.warning(
+                    "checkpointing requested but these batches carry no "
+                    "resume cursors (not from CheckpointableBatchSource); "
+                    "periodic checkpoints are disabled, and a final "
+                    "table snapshot that cannot resume is written")
+                warned = True
+    if checkpoint_path:
+        mapper.save_checkpoint(checkpoint_path, stream_state=last_cursor)
+    return mapper.finalize()
 
 
 def _group_member_lists(flat: np.ndarray, lens: np.ndarray,

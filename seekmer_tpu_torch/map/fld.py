@@ -12,7 +12,10 @@ pins the mate, and two mates pinned to the same transcript give
 Observations go into an integer histogram on the device with
 ``index_add_``, which is exact in any order; the host reads it once, in
 ``estimate``. Sampling runs on the first ``SAMPLE_BATCHES`` paired batches
-only. The estimator's settings are those of the JAX package's defaults, as
+only. A map checkpoint carries the histogram and the count of sampled
+batches (``state``), so a resumed run estimates from the batches the
+uninterrupted run sampled; the JAX package's checkpoint has no FLD state,
+and its resumed run samples the batches after the cursor instead. The estimator's settings are those of the JAX package's defaults, as
 constants: nothing in the port varies them.
 
 Each mate's windows are packed by K1 (``pack_cuda.pack_canonical_2bit``)
@@ -115,7 +118,8 @@ class FLDEstimator:
     only extra upload, dropped after the sampling batches.
     """
 
-    def __init__(self, index: KMerIndex, device_index):
+    def __init__(self, index: KMerIndex, device_index,
+                 state: Optional[Tuple[np.ndarray, int]] = None):
         if index.fld_tid is None:
             raise ValueError("index has no FLD payload "
                              "(built with fld_positions=False)")
@@ -124,16 +128,27 @@ class FLDEstimator:
         self.bucket = index.bucket
         self.device_index = device_index
         self.device = device_index.table.device
-        # main-table part only: stash-resident k-mers are never sampled
-        self.fld_tid = torch.from_numpy(
-            np.ascontiguousarray(index.fld_tid[:index.main_slots])).to(
-                self.device)
-        self.fld_pos = torch.from_numpy(
-            np.ascontiguousarray(index.fld_pos[:index.main_slots])).to(
-                self.device)
         self.hist = torch.zeros(MAX_LEN + 1, dtype=torch.int32,
                                 device=self.device)
         self._fed = 0
+        if state is not None:  # a checkpoint's (histogram, batches fed)
+            if np.shape(state[0]) != (MAX_LEN + 1,):
+                raise ValueError(f"FLD histogram of shape "
+                                 f"{np.shape(state[0])} != ({MAX_LEN + 1},)")
+            self.hist.copy_(torch.from_numpy(
+                np.asarray(state[0], np.int32)))
+            self._fed = int(state[1])
+        self.fld_tid = self.fld_pos = None
+        if self.active:
+            # main-table part only: stash-resident k-mers are never sampled
+            self.fld_tid = torch.from_numpy(np.ascontiguousarray(
+                index.fld_tid[:index.main_slots])).to(self.device)
+            self.fld_pos = torch.from_numpy(np.ascontiguousarray(
+                index.fld_pos[:index.main_slots])).to(self.device)
+
+    def state(self) -> Tuple[np.ndarray, int]:
+        """(histogram, batches fed): what a map checkpoint carries."""
+        return self.hist.cpu().numpy(), self._fed
 
     @property
     def active(self) -> bool:

@@ -3,16 +3,30 @@ abundance table, with fragment-length estimation from paired reads and
 bootstrap replicates) on one device; counterpart of
 ``seekmer_tpu/models/quantifier.py``, single-device path only.
 
+Entry points: ``quantify_files`` (FASTQ files through the C ingest; with
+``checkpoint_path`` through ``CheckpointableBatchSource``, serial, saving a
+map checkpoint every ``checkpoint_every`` batches and EM and bootstrap
+snapshots beside it; with ``pack_cache`` through the pre-packed batch
+cache, ``io/pack_cache``), ``quantify_reads`` (reads held in memory) and
+``quantify_batches``. A resume restores the map checkpoint and seeks the
+inputs; an EM snapshot warm-starts EM, a converged one skips it, and a
+bootstrap snapshot warm-starts the bootstrap. A completed run deletes its
+stage snapshots. Stages are named ranges in a ``--trace-dir`` trace
+(``utils/profiling.annotate``): map, resolve, em and bootstrap here, the
+ones ``run_info.json``'s ``timings`` time, and ingest and upload on the
+prefetch thread.
+
 Meshes and sharding have no configuration in the port yet (its
-``PipelineConfig`` has no ``shard``); checkpoints and the pack cache have
-no entry here yet. The CLI refuses their flags with an error naming their
-ROADMAP.md item.
+``PipelineConfig`` has no ``shard``); the CLI refuses their flags with an
+error naming their ROADMAP.md item. The JAX package's snapshot broadcast
+across processes (``_broadcast_snapshot``) goes with them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -29,10 +43,19 @@ from ..em.em import (
     tpm_from_alpha,
 )
 from ..index.store import KMerIndex
-from ..io.fastq import ReadBatch, batch_read_pairs_native, batch_reads_native
+from ..io.fastq import (
+    CheckpointableBatchSource,
+    ReadBatch,
+    batch_read_pairs,
+    batch_read_pairs_native,
+    batch_reads,
+    batch_reads_native,
+)
 from ..map.driver import Mapper, MapResult, check_device, resolve_signatures
+from ..utils.checkpoint import load_em_snapshot, save_em_snapshot
 from ..utils.metrics import Metrics
 from ..utils.prefetch import device_put_batches, prefetch
+from ..utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -60,34 +83,136 @@ class QuantResult:
 
 
 class Quantifier:
+    # Minimum seconds between two periodic EM or bootstrap snapshots: the
+    # fixed point syncs every ~2 s in pieces, and writing a config-scale
+    # alpha at each would dominate. The pin after the EM stage bypasses it.
+    SNAPSHOT_MIN_INTERVAL_S = 30.0
+
     def __init__(self, index: KMerIndex,
                  cfg: PipelineConfig = PipelineConfig(), device="cuda"):
         self.device = check_device(device)
         self.index = index
         self.cfg = cfg
 
-    def quantify_files(self, fastq_paths: List[str],
-                       mate_paths: Optional[List[str]] = None
-                       ) -> QuantResult:
-        """Quantify FASTQ(.gz) files through the C ingest."""
+    def _make_mapper(self) -> Mapper:
+        return Mapper(self.index, self.cfg.map, device=self.device)
+
+    def _native_batches(self, fastq_paths, mate_paths):
         if mate_paths:
-            batches = batch_read_pairs_native(fastq_paths, mate_paths,
-                                              self.cfg.map)
+            return batch_read_pairs_native(fastq_paths, mate_paths,
+                                           self.cfg.map)
+        return batch_reads_native(fastq_paths, self.cfg.map)
+
+    def quantify_files(self, fastq_paths: List[str],
+                       mate_paths: Optional[List[str]] = None,
+                       checkpoint_path: Optional[str] = None,
+                       checkpoint_every: int = 50,
+                       pack_cache: Optional[str] = None) -> QuantResult:
+        """Quantify FASTQ(.gz) files through the C ingest. With
+        ``checkpoint_path`` the files are read serially through
+        ``CheckpointableBatchSource`` and the run resumes from the
+        checkpoint there, if any; ``pack_cache`` (a directory, or "auto"
+        for ``<first fastq>.smpack``) feeds batches from the pack cache,
+        building it first when it is absent or stale."""
+        mapper = self._make_mapper()
+        if pack_cache is not None:
+            return self._quantify_pack_cache(
+                fastq_paths, mate_paths, checkpoint_path, checkpoint_every,
+                pack_cache, mapper)
+        if checkpoint_path:
+            source = CheckpointableBatchSource(fastq_paths, mate_paths,
+                                               self.cfg.map)
+            mapper = self._restore(mapper, checkpoint_path, source)
+            batches = iter(source)
         else:
-            batches = batch_reads_native(fastq_paths, self.cfg.map)
+            batches = self._native_batches(fastq_paths, mate_paths)
+        return self.quantify_batches(batches, mapper=mapper,
+                                     checkpoint_path=checkpoint_path,
+                                     checkpoint_every=checkpoint_every)
+
+    def _restore(self, mapper: Mapper, checkpoint_path: str,
+                 source) -> Mapper:
+        """Restore the map checkpoint, if any, into ``mapper`` and
+        ``source``. A file without a cursor cannot resume: its table is
+        dropped and the run starts fresh. Restore errors raise."""
+        state = mapper.restore_checkpoint(checkpoint_path)
+        if state:
+            source.restore(state)
+            log.info("resuming from checkpoint: %d reads already mapped",
+                     mapper.total_reads)
+        elif state is not None:
+            log.warning("checkpoint %s has no stream cursor; starting fresh",
+                        checkpoint_path)
+            mapper = self._make_mapper()
+        return mapper
+
+    def _quantify_pack_cache(self, fastq_paths, mate_paths, checkpoint_path,
+                             checkpoint_every, pack_cache, mapper
+                             ) -> QuantResult:
+        """A --pack-cache run: a complete cache is memory-mapped and fed
+        directly (no decode, parse or pack); otherwise this run builds it
+        by teeing the ingest stream. Cached batches carry resume cursors,
+        so --checkpoint works on cached runs; during a build it is
+        disabled (build batches have no cursor to resume from)."""
+        from ..io.pack_cache import (PackCacheSource, cache_valid,
+                                     default_cache_dir, write_through)
+
+        map_cfg = self.cfg.map
+        if not map_cfg.h2d_pack_2bit:
+            raise ValueError("--pack-cache stores 2-bit-packed batches; "
+                             "it cannot be combined with --no-h2d-pack")
+        cache_dir = (default_cache_dir(fastq_paths) if pack_cache == "auto"
+                     else pack_cache)
+        if cache_valid(cache_dir, map_cfg, fastq_paths, mate_paths):
+            log.info("pack cache hit: %s (skipping decode/parse/pack)",
+                     cache_dir)
+            source = PackCacheSource(cache_dir, map_cfg)
+            if checkpoint_path:
+                mapper = self._restore(mapper, checkpoint_path, source)
+            batches = iter(source)
+        else:
+            if checkpoint_path:
+                log.warning(
+                    "pack cache at %s is absent or stale: building it this "
+                    "run; --checkpoint is disabled during the build "
+                    "(re-runs over the completed cache support it)",
+                    cache_dir)
+                checkpoint_path = None
+            batches = write_through(
+                self._native_batches(fastq_paths, mate_paths), cache_dir,
+                map_cfg, fastq_paths, mate_paths)
+        return self.quantify_batches(batches, mapper=mapper,
+                                     checkpoint_path=checkpoint_path,
+                                     checkpoint_every=checkpoint_every)
+
+    def quantify_reads(self, reads: List[str],
+                       mates: Optional[List[str]] = None) -> QuantResult:
+        """Quantify reads held in memory (str or bytes), single-end or
+        paired with ``mates``."""
+        reads_b = [r.encode() if isinstance(r, str) else r for r in reads]
+        if mates is not None:
+            mates_b = [m.encode() if isinstance(m, str) else m for m in mates]
+            batches = batch_read_pairs(zip(reads_b, mates_b), self.cfg.map)
+        else:
+            batches = batch_reads(reads_b, self.cfg.map)
         return self.quantify_batches(batches)
 
     def quantify_batches(self, batches: Iterable[ReadBatch],
-                         mapper: Optional[Mapper] = None) -> QuantResult:
+                         mapper: Optional[Mapper] = None,
+                         checkpoint_path: Optional[str] = None,
+                         checkpoint_every: int = 50) -> QuantResult:
         metrics = Metrics()
         if mapper is None:
-            mapper = Mapper(self.index, self.cfg.map, device=self.device)
+            mapper = self._make_mapper()
         batches = prefetch(device_put_batches(batches, self.device), depth=4)
         self._fld_est = None
         if self.cfg.em.estimate_fld and self.index.fld_tid is not None:
+            # a restored checkpoint's estimator goes on where it stopped
+            self._fld_est = mapper.fld
             batches = self._tee_fld(batches, mapper)
-        with metrics.timer("map"):
-            result = mapper.run(batches)
+        with metrics.timer("map"), annotate("map"):
+            result = mapper.run(batches, checkpoint_path=checkpoint_path,
+                                checkpoint_every=checkpoint_every)
         metrics.count("reads", result.total_reads)
         if result.collisions:
             metrics.count("fingerprint_collisions", result.collisions)
@@ -95,7 +220,7 @@ class Quantifier:
                  "%d fingerprint collisions)", result.mapped,
                  result.total_reads, result.sigs.shape[0], result.overflow,
                  result.collisions)
-        return self._infer(result, metrics)
+        return self._infer(result, metrics, checkpoint_path)
 
     def _tee_fld(self, batches: Iterable[ReadBatch], mapper: Mapper):
         """Pass batches through while sampling the first paired ones into a
@@ -119,10 +244,50 @@ class Quantifier:
         return dataclasses.replace(
             em_cfg, mean_fragment_length=mean, fragment_length_sd=sd), est
 
-    def _infer(self, result: MapResult, metrics: Metrics) -> QuantResult:
-        t0 = time.perf_counter()
-        member_lists, counts, dropped = resolve_signatures(result, self.index)
-        t_resolve = time.perf_counter() - t0
+    def _throttled_sync(self, path: str):
+        """An ``on_sync`` that writes a snapshot to ``path`` at most once
+        every ``SNAPSHOT_MIN_INTERVAL_S``."""
+        last = [float("-inf")]
+
+        def on_sync(a, it):
+            now = time.monotonic()
+            if now - last[0] < self.SNAPSHOT_MIN_INTERVAL_S:
+                return
+            last[0] = now
+            save_em_snapshot(path, a, it)
+
+        return on_sync
+
+    def _em_snapshots(self, checkpoint_path: Optional[str], T: int):
+        """The EM and bootstrap snapshots beside the map checkpoint, so one
+        --checkpoint protects every stage. Returns (em_snap, boot_snap,
+        alpha_init, it_init, em_converged, on_sync); em_converged marks the
+        pin written after the EM stage, with which a resume skips EM (even
+        one block from the converged alpha would move est_counts). A
+        snapshot of another shape is ignored."""
+        if not checkpoint_path:
+            return None, None, None, 0, False, None
+        em_snap = checkpoint_path + ".em.npz"
+        boot_snap = checkpoint_path + ".boot.npz"
+        alpha_init, it_init, em_converged = None, 0, False
+        loaded = load_em_snapshot(em_snap)
+        if loaded is not None:
+            a, it, conv = loaded
+            if a.ndim == 1 and a.shape[0] == T:
+                alpha_init, it_init, em_converged = a, it, conv
+                log.info("resuming EM from snapshot at iteration %d%s", it,
+                         " (converged: skipping EM)" if conv else "")
+            else:
+                log.warning("EM snapshot %s has shape %s != (%d,); "
+                            "ignoring", em_snap, a.shape, T)
+        return (em_snap, boot_snap, alpha_init, it_init, em_converged,
+                self._throttled_sync(em_snap))
+
+    def _infer(self, result: MapResult, metrics: Metrics,
+               checkpoint_path: Optional[str] = None) -> QuantResult:
+        with metrics.timer("resolve"), annotate("resolve"):
+            member_lists, counts, dropped = resolve_signatures(result,
+                                                               self.index)
 
         em_cfg, fld_est = self._fld_cfg(self.cfg.em)
         dtype = torch.float64 if em_cfg.use_x64 else torch.float32
@@ -130,24 +295,59 @@ class Quantifier:
         lengths = self.index.lengths
         ec = build_ec_table(member_lists, counts, T, dtype=dtype,
                             device=self.device)
-        with metrics.timer("em"):
-            alpha, iters = run_em(ec, lengths, em_cfg)
+        em_snap, boot_snap, alpha_init, it_init, em_converged, on_sync = \
+            self._em_snapshots(checkpoint_path, T)
+        em_skipped = alpha_init is not None and em_converged
+        with metrics.timer("em"), annotate("em"):
+            if em_skipped:
+                alpha = torch.as_tensor(alpha_init, dtype=dtype,
+                                        device=self.device)
+                iters = it_init
+            else:
+                alpha, iters = run_em(ec, lengths, em_cfg,
+                                      alpha_init=alpha_init, it_init=it_init,
+                                      on_sync=on_sync)
             tpm = tpm_from_alpha(alpha, lengths, em_cfg)
             eff = effective_lengths(lengths, em_cfg, dtype, self.device)
             ll = float(log_likelihood(ec, alpha, eff))
-        metrics.count("em_iterations", iters)
-        if iters >= em_cfg.max_iters:
-            log.warning("EM stopped at max_iters=%d without meeting "
-                        "rel_tol=%g", em_cfg.max_iters, em_cfg.rel_tol)
+        em_capped = iters >= em_cfg.max_iters
+        if not em_skipped:
+            metrics.count("em_iterations", iters)
+            if em_capped:
+                log.warning("EM stopped at max_iters=%d without meeting "
+                            "rel_tol=%g", em_cfg.max_iters, em_cfg.rel_tol)
+            if em_snap is not None:
+                # pin the EM stage's end, unthrottled, so a crash in the
+                # bootstrap resumes with EM skipped; a stage capped by
+                # max_iters pins converged=False, so a resume under a
+                # raised budget goes on iterating
+                save_em_snapshot(em_snap, alpha, iters,
+                                 converged=not em_capped)
         boot = None
         if em_cfg.bootstrap_samples > 0:
-            with metrics.timer("bootstrap"):
-                boot_alpha, boot_iters = run_bootstrap(ec, lengths, em_cfg)
+            B = em_cfg.bootstrap_samples
+            b_init, b_it, b_sync = None, 0, None
+            if boot_snap is not None:
+                loaded = load_em_snapshot(boot_snap)
+                if loaded is not None and loaded[0].shape == (T, B):
+                    b_init, b_it, _ = loaded
+                    log.info("resuming bootstrap EM from snapshot at "
+                             "iteration %d", b_it)
+                b_sync = self._throttled_sync(boot_snap)
+            with metrics.timer("bootstrap"), annotate("bootstrap"):
+                boot_alpha, boot_iters = run_bootstrap(
+                    ec, lengths, em_cfg, alpha_init=b_init, it_init=b_it,
+                    on_sync=b_sync)
                 boot = boot_alpha.cpu().numpy()
             metrics.count("bootstrap_iterations", boot_iters)
-            log.info("bootstrap: %d replicates in %.2fs",
-                     em_cfg.bootstrap_samples, metrics.timings["bootstrap"])
-        timings = {"resolve_s": t_resolve, **metrics.snapshot()}
+            log.info("bootstrap: %d replicates in %.2fs", B,
+                     metrics.timings["bootstrap"])
+        for p in (em_snap, boot_snap):
+            # the run is complete: a later fresh run must not warm-start
+            # from these
+            if p and os.path.exists(p):
+                os.remove(p)
+        timings = metrics.snapshot()
         metrics.log_summary()
         return QuantResult(
             est_counts=alpha.cpu().numpy(),

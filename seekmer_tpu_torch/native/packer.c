@@ -5,8 +5,13 @@
  *     I/O, gzip inflate (zlib gzFile, which reads plain files too), parse
  *     and 2-bit-code packing (A=0 C=1 G=2 T=3, other=4) in ONE call, so a
  *     ctypes call releases the GIL for the whole decode;
+ *   seekmer_open_at/tell: the same reader opened at, and telling, an
+ *     uncompressed byte offset: the resume cursor of a map checkpoint;
  *   seekmer_bucketer_*: groups decoded rows into fixed-shape per-length-
- *     bucket batches, also GIL-released;
+ *     bucket batches, also GIL-released, with the pending rows readable for
+ *     a checkpoint (seekmer_bucketer_pending/nb);
+ *   seekmer_pack2bit: the 2-bit pack of a batch's code rows (the layout of
+ *     encoding.pack_codes_2bit), which the pack cache writes;
  *   seekmer_sort_pairs: the threaded stable radix sort of (key, transcript)
  *     pairs of the index build.
  *
@@ -150,6 +155,30 @@ long seekmer_next(void *h, uint8_t *codes, int32_t *lengths, long max_reads,
     }
     r->len += got;
   }
+}
+
+void seekmer_close(void *h);
+
+/* Uncompressed byte offset of the next unparsed record: gztell() is the
+ * uncompressed position of the gzFile read pointer, minus the bytes still
+ * buffered (decoded but not yet parsed). */
+long seekmer_tell(void *h) {
+  seekmer_reader *r = (seekmer_reader *)h;
+  return (long)gztell(r->gz) - r->len;
+}
+
+/* Open positioned at an uncompressed byte offset. A plain file seeks; a
+ * gzip member is inflated and discarded up to the offset inside this one
+ * call. Returns NULL on open or seek failure. */
+void *seekmer_open_at(const char *path, long offset) {
+  seekmer_reader *r = (seekmer_reader *)seekmer_open(path);
+  if (!r) return NULL;
+  if (offset > 0 &&
+      gzseek(r->gz, (z_off_t)offset, SEEK_SET) != (z_off_t)offset) {
+    seekmer_close(r);
+    return NULL;
+  }
+  return r;
 }
 
 void seekmer_close(void *h) {
@@ -312,6 +341,29 @@ long seekmer_bucketer_flush_one(void *h) {
   return 0;
 }
 
+/* Copy bucket idx's pending rows out without consuming them (a checkpoint
+ * snapshot); the caller's buffers hold (fill, W) rows. Returns fill (0 =
+ * none); with c1 NULL only the fill is returned. */
+long seekmer_bucketer_pending(void *h, long idx, uint8_t *c1, int32_t *l1,
+                              uint8_t *c2, int32_t *l2) {
+  seekmer_bucketer *b = (seekmer_bucketer *)h;
+  if (idx < 0 || idx >= b->nb || b->fill[idx] == 0) return 0;
+  long w = bkt_width(b, idx), f = b->fill[idx];
+  if (c1) {
+    memcpy(c1, b->c1[idx], f * w);
+    memcpy(l1, b->l1[idx], f * sizeof(int32_t));
+    if (b->paired) {
+      memcpy(c2, b->c2[idx], f * w);
+      memcpy(l2, b->l2[idx], f * sizeof(int32_t));
+    }
+  }
+  return f;
+}
+
+long seekmer_bucketer_nb(void *h) {
+  return ((seekmer_bucketer *)h)->nb;
+}
+
 void seekmer_bucketer_free(void *h) {
   seekmer_bucketer *b = (seekmer_bucketer *)h;
   if (!b) return;
@@ -459,4 +511,22 @@ long seekmer_sort_pairs(const uint64_t *keys, const int32_t *tids, long n,
   }
   free(a); free(b); free(hist); free(offs);
   return uniq;
+}
+
+/* ---- 2-bit pack of code rows (encoding.pack_codes_2bit's layout) ------- */
+/* Base j of row i -> bits 2*(j%4) of out[i, j/4]; bit j%8 of bad[i, j/8]
+ * marks an invalid base (code > 3). The pack cache writes these rows. */
+void seekmer_pack2bit(const uint8_t *codes, long n, long L, uint8_t *out,
+                      uint8_t *bad) {
+  long L4 = (L + 3) / 4, L8 = (L + 7) / 8;
+  for (long i = 0; i < n; i++) {
+    const uint8_t *row = codes + i * L;
+    uint8_t *po = out + i * L4, *pb = bad + i * L8;
+    memset(po, 0, L4);
+    memset(pb, 0, L8);
+    for (long j = 0; j < L; j++) {
+      po[j >> 2] |= (uint8_t)((row[j] & 3) << ((j & 3) << 1));
+      if (row[j] > 3) pb[j >> 3] |= (uint8_t)(1 << (j & 7));
+    }
+  }
 }

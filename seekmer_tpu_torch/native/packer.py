@@ -1,6 +1,9 @@
 """ctypes loader and drivers of the port's native host code (``packer.c``):
-the streaming FASTQ reader, the bucketer and the index build's radix sort.
-The port's copy of ``seekmer_tpu/native/packer.py``.
+the streaming FASTQ reader (``PackedFileStream``, which also opens at and
+tells an uncompressed byte offset: a map checkpoint's resume cursor), the
+bucketer (whose pending rows a checkpoint carries), the 2-bit pack the pack
+cache writes, and the index build's radix sort. The port's copy of
+``seekmer_tpu/native/packer.py``.
 
 The library is built from ``packer.c`` with the system C compiler at first
 use, into ``build/seekmer_tpu_torch/`` at the repository root (the
@@ -66,6 +69,10 @@ def get_lib() -> ctypes.CDLL:
                                  ctypes.c_long]
     lib.seekmer_close.restype = None
     lib.seekmer_close.argtypes = [ctypes.c_void_p]
+    lib.seekmer_tell.restype = ctypes.c_long
+    lib.seekmer_tell.argtypes = [ctypes.c_void_p]
+    lib.seekmer_open_at.restype = ctypes.c_void_p
+    lib.seekmer_open_at.argtypes = [ctypes.c_char_p, ctypes.c_long]
     lib.seekmer_bucketer_new.restype = ctypes.c_void_p
     lib.seekmer_bucketer_new.argtypes = [
         ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_int]
@@ -81,6 +88,14 @@ def get_lib() -> ctypes.CDLL:
                                          i32p]
     lib.seekmer_bucketer_flush_one.restype = ctypes.c_long
     lib.seekmer_bucketer_flush_one.argtypes = [ctypes.c_void_p]
+    lib.seekmer_bucketer_pending.restype = ctypes.c_long
+    lib.seekmer_bucketer_pending.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, u8p, i32p, u8p, i32p]
+    lib.seekmer_bucketer_nb.restype = ctypes.c_long
+    lib.seekmer_bucketer_nb.argtypes = [ctypes.c_void_p]
+    lib.seekmer_pack2bit.restype = None
+    lib.seekmer_pack2bit.argtypes = [u8p, ctypes.c_long, ctypes.c_long, u8p,
+                                     u8p]
     u64p = ctypes.POINTER(ctypes.c_uint64)
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.seekmer_sort_pairs.restype = ctypes.c_long
@@ -102,25 +117,73 @@ def stream_packed(path: str, max_len: int, chunk_reads: int = 16384
     """Stream a FASTQ(.gz) file as (codes uint8[n, max_len], lengths
     int32[n]) chunks: file read, gzip inflate, parse and pack inside ONE
     GIL-released ctypes call per chunk."""
-    lib = get_lib()
-    h = lib.seekmer_open(os.fsencode(path))
-    if not h:
-        raise OSError(f"cannot open FASTQ file: {path}")
-    try:
+    with PackedFileStream(path, max_len) as s:
         while True:
-            codes = np.empty((chunk_reads, max_len), dtype=np.uint8)
-            lengths = np.empty(chunk_reads, dtype=np.int32)
-            n = lib.seekmer_next(h, _u8p(codes), _i32p(lengths), chunk_reads,
-                                 max_len)
-            if n == 0:
+            chunk = s.next_chunk(chunk_reads)
+            if chunk is None:
                 return
-            if n == -1:
-                raise ValueError(f"malformed FASTQ input in {path}")
-            if n < 0:
-                raise OSError(f"I/O error reading {path}")
-            yield codes[:n], lengths[:n]
-    finally:
-        lib.seekmer_close(h)
+            yield chunk
+
+
+class PackedFileStream:
+    """The C streaming reader as an object: ``next_chunk`` and ``tell``.
+
+    ``tell()`` is the uncompressed byte offset of the next unparsed record;
+    ``start_offset`` reopens there (a plain file seeks; a .gz file is
+    inflated and discarded up to it inside one C call)."""
+
+    def __init__(self, path: str, max_len: int, start_offset: int = 0):
+        self._lib = get_lib()
+        self.path = path
+        self.max_len = max_len
+        if start_offset:
+            self._h = self._lib.seekmer_open_at(os.fsencode(path),
+                                                start_offset)
+        else:
+            self._h = self._lib.seekmer_open(os.fsencode(path))
+        if not self._h:
+            raise OSError(f"cannot open FASTQ file at offset "
+                          f"{start_offset}: {path}")
+
+    def next_chunk(self, max_reads: int):
+        """(codes uint8[n, max_len], lengths int32[n]) or None at EOF."""
+        codes = np.empty((max_reads, self.max_len), dtype=np.uint8)
+        lengths = np.empty(max_reads, dtype=np.int32)
+        n = self._lib.seekmer_next(self._h, _u8p(codes), _i32p(lengths),
+                                   max_reads, self.max_len)
+        if n == 0:
+            return None
+        if n == -1:
+            raise ValueError(f"malformed FASTQ input in {self.path}")
+        if n < 0:
+            raise OSError(f"I/O error reading {self.path}")
+        return codes[:n], lengths[:n]
+
+    def tell(self) -> int:
+        return int(self._lib.seekmer_tell(self._h))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.seekmer_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def pack_codes_2bit_native(codes: np.ndarray):
+    """The C form of ``encoding.pack_codes_2bit`` (the same layout):
+    (packed uint8[n, (L+3)//4], bad uint8[n, (L+7)//8]), one GIL-released
+    call a batch."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n, L = codes.shape
+    out = np.empty((n, (L + 3) // 4), np.uint8)
+    bad = np.empty((n, (L + 7) // 8), np.uint8)
+    get_lib().seekmer_pack2bit(_u8p(codes), n, L, _u8p(out), _u8p(bad))
+    return out, bad
 
 
 def sort_pairs_native(keys: np.ndarray, tids: np.ndarray,
@@ -150,12 +213,16 @@ def sort_pairs_native(keys: np.ndarray, tids: np.ndarray,
 
 class Bucketer:
     """C-side bucket placement: feed decoded (codes, lengths) chunks, pop
-    fixed-shape (B, W) batches as buckets fill, every call GIL-released."""
+    fixed-shape (B, W) batches as buckets fill, every call GIL-released.
+    ``pending_state`` exports the rows of partial buckets for a checkpoint
+    and ``restore_pending`` feeds them back."""
 
     def __init__(self, batch_size: int, max_len: int, length_bucket: int,
                  paired: bool):
         self._lib = get_lib()
         self.B = batch_size
+        self.max_len = max_len
+        self.lb = length_bucket
         self.paired = paired
         self._h = self._lib.seekmer_bucketer_new(
             batch_size, max_len, length_bucket, 1 if paired else 0)
@@ -210,6 +277,46 @@ class Bucketer:
             item = self._pop_one()
             assert item is not None and item[4] == fill
             yield item
+
+    def pending_state(self) -> dict:
+        """The pending (not yet full) rows of every bucket, copied:
+        {bucket_width: {"c1", "l1"[, "c2", "l2"]}}, each (fill, W)."""
+        out = {}
+        for idx in range(self._lib.seekmer_bucketer_nb(self._h)):
+            fill = self._lib.seekmer_bucketer_pending(
+                self._h, idx, None, None, None, None)
+            if fill == 0:
+                continue
+            w = min((idx + 1) * self.lb, self.max_len)
+            d = {"c1": np.empty((fill, w), np.uint8),
+                 "l1": np.empty(fill, np.int32)}
+            if self.paired:
+                d["c2"] = np.empty((fill, w), np.uint8)
+                d["l2"] = np.empty(fill, np.int32)
+            self._lib.seekmer_bucketer_pending(
+                self._h, idx, _u8p(d["c1"]), _i32p(d["l1"]),
+                _u8p(d["c2"]) if self.paired else None,
+                _i32p(d["l2"]) if self.paired else None)
+            out[int(w)] = d
+        return out
+
+    def restore_pending(self, pending: dict) -> None:
+        """Feed a ``pending_state`` back: bucketing is deterministic by
+        length, so each row lands in its bucket again, in order."""
+        for _, d in sorted(pending.items()):
+            c1 = np.asarray(d["c1"], np.uint8)
+            fill, w = c1.shape
+            wide = [np.full((fill, self.max_len), 4, np.uint8)]
+            wide[0][:, :w] = c1
+            if self.paired:
+                wide.append(np.full((fill, self.max_len), 4, np.uint8))
+                wide[1][:, :w] = np.asarray(d["c2"], np.uint8)
+            if self.feed(wide[0], np.asarray(d["l1"], np.int32),
+                         wide[1] if self.paired else None,
+                         np.asarray(d["l2"], np.int32) if self.paired
+                         else None):
+                raise ValueError("restored pending rows filled a batch: a "
+                                 "snapshot holds no full bucket")
 
     def close(self) -> None:
         if self._h:

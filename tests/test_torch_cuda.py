@@ -1731,3 +1731,108 @@ def test_strided_and_fusion_mapper_on_card_matches_cpu(dev, world, mode):
     assert (got.mapped, got.overflow, got.collisions) == (
         want.mapped, want.overflow, want.collisions)
     assert got.mapped > 0.5 * got.total_reads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_em_csr_fixed_point_in_pieces_equals_one_launch(dev, B, dtype,
+                                                        monkeypatch):
+    """A3's fixed point in pieces (``em.csr_fixed_point`` with a snapshot
+    hook, each piece one block: the budget capped a block past the last
+    piece's end) against one launch: the same bits, iteration count and
+    flag, where it converges and where max_iters (not a multiple of
+    check_every) stops it; a snapshot at every block end, one launch a
+    piece."""
+    from seekmer_tpu_torch.em import em as tem
+
+    monkeypatch.setattr(tem, "SYNC_TARGET_S", 0.0)
+    layout, n, eff, alpha = _gene_system(60, 0, B, dtype, seed=20 + B)
+    lay = _on(dev, layout)
+    for divide in ([False, True] if B == 1 else [False]):
+        args = _csr_args(dev, layout, n, eff, alpha, divide)
+        for cfg in (EMConfig(rel_tol=3e-2, max_iters=2000),
+                    EMConfig(rel_tol=0.0, max_iters=100, check_every=7)):
+            one = em_csr_cuda.em_fixed_point(*args, lay, cfg, divide)
+            syncs = []
+            before = em_csr_cuda.em_steps.launches
+            got = tem.csr_fixed_point(*args, lay, cfg, divide,
+                                      on_sync=lambda a, it: syncs.append(it))
+            _eq(got[0], one[0])
+            assert got[1:] == one[1:]
+            C = cfg.check_every
+            assert syncs == list(range(C, one[1], C))
+            assert em_csr_cuda.em_steps.launches - before == len(syncs) + 1
+
+
+_RESAMPLE = """
+import sys
+import numpy as np
+import torch
+from seekmer_tpu_torch.em.bootstrap import resample_counts
+
+rng = np.random.default_rng(9)
+counts = torch.from_numpy(rng.integers(0, 500, 3000).astype(
+    np.float32)).to("cuda")
+gen = torch.Generator(device="cuda")
+gen.manual_seed(int(sys.argv[1]))
+np.save(sys.argv[2], resample_counts(counts, 8, gen).cpu().numpy())
+"""
+
+
+def test_seeded_resample_on_card_repeats(dev, tmp_path):
+    """The bootstrap's seeded resample on the card gives the same count
+    matrix in two processes (a resumed bootstrap redraws it in a new
+    one), and another from another seed."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def draw(seed, name):
+        out = str(tmp_path / f"{name}.npy")
+        subprocess.run([sys.executable, "-c", _RESAMPLE, str(seed), out],
+                       check=True, env=env, cwd=root, timeout=300)
+        return np.load(out)
+
+    a, b, c = draw(3, "a"), draw(3, "b"), draw(4, "c")
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+    assert (a.sum(axis=1) == a.sum(axis=1)[0]).all()
+
+
+def test_pack_cache_batch_on_card_equals_ingest_batch(dev, world, tmp_path):
+    """A cache hit's batch, uploaded from its memmap slices through pinned
+    memory, equals on the card the ingest batch packed and uploaded the
+    usual way; the mapper gives the same MapResult from both."""
+    from seekmer_tpu_torch.io.fastq import batch_read_pairs_native
+    from seekmer_tpu_torch.io.pack_cache import PackCacheSource, write_through
+    from seekmer_tpu_torch.utils.prefetch import device_put_batches
+    from seekmer_tpu_torch.utils.simulate import simulate_reads, write_fastq
+
+    rng, seqs, idx = world
+    sim = simulate_reads(rng, seqs, num_reads=700, read_len=100,
+                         paired=True)
+    fq1, fq2 = str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")
+    write_fastq(fq1, sim.reads1)
+    write_fastq(fq2, sim.reads2)
+    cfg = MapConfig(batch_size=256, paired_end=True)
+    cache = str(tmp_path / "c.smpack")
+    ingest = list(device_put_batches(
+        batch_read_pairs_native([fq1], [fq2], cfg), dev))
+    list(write_through(batch_read_pairs_native([fq1], [fq2], cfg), cache,
+                       cfg, [fq1], [fq2]))
+    hit = list(device_put_batches(iter(PackCacheSource(cache, cfg)), dev))
+    assert len(hit) == len(ingest) == 3
+    for h, g in zip(hit, ingest):
+        for f in ("codes", "bad", "lengths", "weights", "codes2", "bad2",
+                  "lengths2"):
+            assert getattr(h, f).device.type == "cuda"
+            _eq(getattr(h, f), getattr(g, f))
+        assert h.pad_len == g.pad_len and h.n_real == g.n_real
+    got = Mapper(idx["default"], cfg, device=dev).run(hit)
+    want = Mapper(idx["default"], cfg, device=dev).run(ingest)
+    np.testing.assert_array_equal(got.sigs, want.sigs)
+    np.testing.assert_array_equal(got.sig_counts, want.sig_counts)

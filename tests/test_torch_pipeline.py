@@ -1,7 +1,7 @@
 """The port end to end on the CPU: Quantifier and the CLI against the JAX
-Quantifier and the float64 oracle, bootstrap output, the refusal of
-features outside the port, and a run in a process where JAX cannot be
-imported."""
+Quantifier and the float64 oracle, bootstrap output, ``--checkpoint``,
+``--pack-cache`` and ``--trace-dir``, the refusal of features outside the
+port, and a run in a process where JAX cannot be imported."""
 
 import argparse
 import json
@@ -136,9 +136,6 @@ def test_cli_bootstrap_writes_replicates(world):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--checkpoint", "ck.npz"], "Checkpoints"),
-    (["--pack-cache"], "Pack cache"),
-    (["--trace-dir", "trace"], "Tooling"),
     (["--data-shards", "2"], "Multi-GPU"),
     (["--distributed"], "Multi-GPU"),
 ])
@@ -146,6 +143,69 @@ def test_cli_refuses_unported(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli.main(["infer", "index.npz", "out", "r1.fq", "--device", "cpu",
                   *argv])
+
+
+def _paired_infer(world, out, *argv):
+    """infer on the paired files, 128 pairs a batch, 2 bootstrap
+    replicates; returns (abundance.tsv's text, run_info.json)."""
+    tmp, _, _, _, files, _, idx = world
+    out = str(tmp / out)
+    assert cli.main(["infer", idx, out, files["r1"], "--mates", files["r2"],
+                     "--device", "cpu", "--batch-size", "128",
+                     "--bootstrap", "2", *argv]) == 0
+    info = json.load(open(os.path.join(out, "run_info.json")))
+    return open(os.path.join(out, "abundance.tsv")).read(), info
+
+
+def test_cli_checkpoint(world):
+    """infer --checkpoint: the uninterrupted run's output, the map
+    checkpoint left with its cursor at the end of the input and the FLD
+    estimator's histogram, the stage snapshots deleted; a rerun resumes
+    from the finished checkpoint to the same output."""
+    tmp = world[0]
+    ckpt = str(tmp / "cli.ckpt.npz")
+    plain, info0 = _paired_infer(world, "ck_plain")
+    got, info = _paired_infer(world, "ck_run", "--checkpoint", ckpt,
+                              "--checkpoint-every", "1")
+    assert got == plain and info["mapped"] == info0["mapped"]
+    from seekmer_tpu_torch.utils.checkpoint import load_map_checkpoint
+
+    _, total, cursor, fld = load_map_checkpoint(ckpt, "cpu")
+    assert total == info["total_reads"] and cursor["s1"][0] == 1
+    assert fld[1] == 3 and info["fld"]["samples"] == int(fld[0][1:].sum())
+    assert not os.path.exists(ckpt + ".em.npz")
+    assert not os.path.exists(ckpt + ".boot.npz")
+    again, info2 = _paired_infer(world, "ck_again", "--checkpoint", ckpt)
+    assert again == plain and info2["total_reads"] == info["total_reads"]
+
+
+def test_cli_pack_cache(world):
+    """infer --pack-cache DIR: the build run and the hit run give the
+    uncached run's output; the cache carries its build id."""
+    tmp = world[0]
+    cache = str(tmp / "cli.smpack")
+    plain, _ = _paired_infer(world, "pc_plain")
+    built, _ = _paired_infer(world, "pc_build", "--pack-cache", cache)
+    meta = json.load(open(os.path.join(cache, "meta.json")))
+    assert meta["build_id"] and len(meta["batches"]) == 3
+    hit, info = _paired_infer(world, "pc_hit", "--pack-cache", cache)
+    assert built == plain and hit == plain
+    assert info["total_reads"] == 300
+
+
+def test_cli_trace_dir(world):
+    """infer --trace-dir D: the uncached run's output, and one trace file
+    in D holding the run's stage ranges."""
+    tmp = world[0]
+    trace = str(tmp / "cli_trace")
+    plain, _ = _paired_infer(world, "tr_plain")
+    got, _ = _paired_infer(world, "tr_run", "--trace-dir", trace)
+    assert got == plain
+    assert os.listdir(trace) == ["infer.trace.json"]
+    names = {e.get("name") for e in json.load(
+        open(os.path.join(trace, "infer.trace.json")))["traceEvents"]}
+    assert {"infer", "map", "resolve", "em", "bootstrap", "ingest",
+            "upload"} <= names
 
 
 def _infer_parser(parser):
