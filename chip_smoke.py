@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (seekmer_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--keep-inputs PATH]
+    python3 chip_smoke.py [--keep-inputs PATH] [--dp-cards N[,N...]]
 
 (``--keep-inputs`` also writes K3's and fast mode's inputs of the config-2
 batch to PATH, for ``python -m seekmer_tpu_torch.utils.kernel_ab``, and
 config 2's EC table to PATH.c2_ec.npz, for ``python -m
-tests.test_torch_bootstrap``.)
+tests.test_torch_bootstrap``. ``--dp-cards 2,4`` runs only phase 7's
+``[dp ...]`` checks, over NCCL with a rank on each of 2, then 4 cards,
+after the one-rank runs they are held to; it holds no kernel against its
+plain version, so its last line is ``{"dp_cards_ok": true, ...}``, never
+the full run's ``{"ok": true, ...}``.)
 
 Phases; any failure exits non-zero:
 
@@ -124,6 +128,25 @@ Phases; any failure exits non-zero:
    run_info.json's timings and the map stage's split (ingest, upload,
    device busy). ``[c1 reads in memory]``: ``Quantifier.quantify_reads``
    against ``quantify_files``: mapped and est_counts bits.
+7. several ranks (run right after ``[checkpoint c2 map]``): 2 ranks on
+   the one card over gloo (NCCL refuses two ranks on one GPU), spawned by
+   ``parallel.comm.launch`` with ``devices=["cuda:0"] * 2`` under a
+   deadline, each rank's kernels on the card. ``[dp c2 map]``: the main
+   path, ``Quantifier`` with ``ShardConfig(data_axis=2)`` on config 2
+   (FLD estimated, ``--bootstrap 100``), launch counts from 0 in each
+   rank and summed: the merged MapResult, the FLD histogram summed over
+   the ranks and est_counts equal to the one-rank run's; the ranks' walls
+   beside one card's end to end. ``[dp c2 em]``: the quantifier's EM on
+   several ranks, ``run_em`` on every rank's merged table (float32,
+   float64), bit-equal on every rank to one card's run alone with the
+   same iteration count; walls. ``[dp c2 bootstrap]``: the B 100 sharded
+   bootstrap bit-equal to one card's ``batched_em`` on the gathered count
+   matrix, the row masses, walls, a block's exchange alone. ``[dp c2
+   resume]``: a checkpointed 2-rank run stopped after its first save and
+   resumed to one rank's est_counts bits; a sidecar a step ahead refused
+   on both ranks. ``[dp c1 fast]``, ``[dp c1 strided]``:
+   ``probe_sample`` 16 and ``probe_stride`` 4 at 2 ranks, mapped equal to
+   one rank's ``infer``.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -2062,11 +2085,13 @@ class Crash(Exception):
 
 class Spy:
     """Wraps ``cls.name`` while in a ``with``: records each call's seconds
-    and result, and raises ``Crash`` after the ``crash_after``-th call."""
+    and result, and the object of the last (``obj``), and raises
+    ``Crash`` after the ``crash_after``-th call."""
 
     def __init__(self, cls, name, crash_after=None):
         self.cls, self.name, self.crash_after = cls, name, crash_after
         self.calls = []
+        self.obj = None
 
     def __enter__(self):
         real = self.real = getattr(self.cls, self.name)
@@ -2075,6 +2100,7 @@ class Spy:
         def wrapped(obj, *a, **k):
             t0 = time.perf_counter()
             out = real(obj, *a, **k)
+            spy.obj = obj
             spy.calls.append((time.perf_counter() - t0, out))
             if spy.crash_after is not None and len(spy.calls) == \
                     spy.crash_after:
@@ -2474,6 +2500,7 @@ def slice_phases(work: Path, card: str) -> dict:
     runs = []
     launches, plain, plain_map = checkpoint_map(work, card)
     runs.append(launches)
+    runs.append(dp_phase(work, card, plain, plain_map))
     runs.append(checkpoint_em(plain_map, KMerIndex.load(
         str(work / "c2.npz")), card))
     runs.append(pack_cache_phase(work, card, plain, plain_map))
@@ -2486,6 +2513,381 @@ def slice_phases(work: Path, card: str) -> dict:
     runs.append(reads_in_memory(work, card))
     keys = runs[0].keys()
     return {k: sum(r.get(k, 0) for r in runs) for k in keys}
+
+
+# ---- several ranks on the one card --------------------------------------
+
+DP_RANKS = 2
+DP_DEADLINE_S = 480  # the [dp ...] phase's whole launch; then it is killed
+DP_COLLECTIVE_S = 240  # a collective that waits longer raises
+
+
+def timed(fn, device):
+    """(seconds, result) of ``fn()``, a card synchronised at both ends."""
+    import torch
+
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return time.perf_counter() - t0, out
+
+
+def dp_rank(rank, device, work, cfgs):
+    """A rank of the ``[dp ...]`` phase, on ``device`` beside the other
+    rank: the main path (``cfgs["c2"]``: config 2 paired, FLD estimated,
+    ``--bootstrap 100``; launch counts from 0 just before, read just
+    after), then the checks the parent prints. Rank 0 also runs the
+    one-card references."""
+    import torch
+
+    from seekmer_tpu_torch import EMConfig, cli
+    from seekmer_tpu_torch.em.bootstrap import batched_em
+    from seekmer_tpu_torch.em.em import build_ec_table, run_em
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.io.fastq import batch_read_pairs_native
+    from seekmer_tpu_torch.map.driver import resolve_signatures
+    from seekmer_tpu_torch.map.fld import FLDEstimator
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+    from seekmer_tpu_torch.parallel import comm
+    from seekmer_tpu_torch.parallel.bootstrap_shard import (
+        rank_resample, run_bootstrap_sharded)
+    from seekmer_tpu_torch.parallel.data_parallel import DataParallelMapper
+    from seekmer_tpu_torch.utils import checkpoint as tckpt
+
+    out = {"rank": rank}
+    index = KMerIndex.load(str(work / "c2.npz"))
+    files = ([str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
+    cfg = cfgs["c2"]
+    T = index.num_transcripts
+
+    # [dp c2 map]: the main path
+    with Spy(DataParallelMapper, "finalize") as fin:
+        comm.barrier()
+        reset_launches()
+        wall, res = timed(lambda: Quantifier(index, cfg, device)
+                          .quantify_files(*files), device)
+        out["launches"] = cli.kernel_launches()
+    mapper = fin.obj
+    out.update(wall=wall, map=fin.calls[-1][1], timings=res.timings,
+               mapped=res.mapped, est_counts=res.est_counts,
+               boot=res.bootstrap_counts, fld=(res.fld_mean, res.fld_sd,
+                                               res.fld_samples),
+               batches=mapper._fed_batches, hist=mapper.fld_histogram(),
+               own_hist=mapper.fld.hist.cpu().numpy())
+    if rank == 0:  # the one card's estimator on global batches 0-3
+        est = FLDEstimator(index, mapper.device_index)
+        for b in batch_read_pairs_native(*files, cfg.map):
+            if not est.active:
+                break
+            est.feed(b)
+        out["one_hist"] = est.hist.cpu().numpy()
+    del mapper, fin
+
+    # [dp c2 em]: the quantifier's EM on several ranks, run_em on every
+    # rank's merged table at once, against rank 0's run alone
+    members, counts, _ = resolve_signatures(out["map"], index)
+    out["em"] = []
+    for name, emcfg in (("f32", EMConfig()),
+                        ("f64", EMConfig(use_x64=True))):
+        dtype = torch.float64 if emcfg.use_x64 else torch.float32
+        ec = build_ec_table(members, counts, T, dtype=dtype, device=device)
+        comm.barrier()
+        wall, (alpha, it) = timed(lambda: run_em(ec, index.lengths, emcfg),
+                                  device)
+        row = dict(name=name, wall=wall, it=it, alpha=alpha.cpu().numpy())
+        comm.barrier()
+        if rank == 0:
+            wall1, (a1, it1) = timed(
+                lambda: run_em(ec, index.lengths, emcfg), device)
+            row.update(wall1=wall1, it1=it1, alpha1=a1.cpu().numpy())
+        out["em"].append(row)
+    # an exchange alone: 200 all-reduces of 3 doubles, as the sharded
+    # bootstrap's one a block
+    x = torch.zeros(3, dtype=torch.float64)
+    comm.barrier()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        comm.allreduce(x, "max")
+    out["exchange_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    comm.barrier()
+
+    # [dp c2 bootstrap]: each rank's replicates against batched_em on the
+    # gathered count matrix
+    ec = build_ec_table(members, counts, T, device=device)
+    bcfg = EMConfig(bootstrap_samples=100)
+    comm.barrier()
+    wall, (boot, it) = timed(lambda: run_bootstrap_sharded(
+        ec, index.lengths, bcfg), device)
+    out["bootstrap"] = dict(wall=wall, it=it)
+    if rank == 0:
+        cmat = torch.cat([rank_resample(ec, bcfg, r, comm.world())
+                          for r in range(comm.world())])
+        wall1, (want, it1) = timed(lambda: batched_em(
+            cmat, ec.ec_ids, ec.txp_ids, index.lengths, ec.num_ecs, T,
+            bcfg), device)
+        mass = boot.sum(dim=1).double() / cmat.sum(dim=1).double() - 1
+        out["bootstrap"].update(
+            wall1=wall1, it1=it1, equal=bool(torch.equal(boot, want)),
+            mass=float(mass.abs().max()), shape=tuple(boot.shape))
+    del ec, boot
+
+    # [dp c2 resume]: stopped after the first save (global batches 0-1),
+    # resumed; then a sidecar a step ahead, refused on both ranks
+    ckpt = str(work / f"dp{comm.world()}.ckpt.npz")
+
+    def run():
+        return Quantifier(index, cfgs["c2_plain"], device).quantify_files(
+            *files, checkpoint_path=ckpt, checkpoint_every=1)
+
+    with Spy(DataParallelMapper, "save_checkpoint", crash_after=1) as saves:
+        try:
+            run()
+            check(False, "the interrupted 2-rank run was not stopped")
+        except Crash:
+            pass
+    with Spy(DataParallelMapper, "save_checkpoint") as saves2, \
+            Spy(DataParallelMapper, "restore_checkpoint") as restore:
+        wall, got = timed(run, device)
+    out["resume"] = dict(
+        wall=wall, est_counts=got.est_counts, mapped=got.mapped,
+        fld=(got.fld_mean, got.fld_sd, got.fld_samples),
+        save_s=[t for t, _ in saves.calls + saves2.calls],
+        restore_s=restore.calls[0][0],
+        bytes=[Path(ckpt).stat().st_size,
+               Path(tckpt.host_cursor_path(ckpt, rank)).stat().st_size])
+    comm.barrier()
+    if rank == 1:
+        cursor, total, step, fld = tckpt.load_host_cursor(ckpt, 1)
+        tckpt.save_host_cursor(ckpt, 1, cursor, total, step + 1, fld)
+    comm.barrier()
+    t0 = time.perf_counter()
+    try:
+        run()
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = (str(e), time.perf_counter() - t0)
+
+    # [dp c1 fast], [dp c1 strided]: mapped as one rank's
+    index1 = KMerIndex.load(str(work / "c1.npz"))
+    out["c1"] = {}
+    for name in ("fast", "strided"):
+        cfg1 = cfgs[f"c1_{name}"]
+        comm.barrier()
+        reset_launches()
+        wall, r1 = timed(lambda: Quantifier(index1, cfg1, device)
+                         .quantify_files([str(work / "c1.fq")]), device)
+        out["c1"][name] = dict(wall=wall, mapped=r1.mapped,
+                               unmapped=r1.unmapped,
+                               map_s=r1.timings["map_s"],
+                               launches=cli.kernel_launches())
+    return out
+
+
+def one_card_c2_boot(work: Path):
+    """(seconds, timings) of one card's ``Quantifier`` on config 2 with
+    ``--bootstrap 100``, timed as a ``[dp c2 map]`` rank times its run
+    (the index loaded before), in this process."""
+    import torch
+
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+
+    index = KMerIndex.load(str(work / "c2.npz"))
+    device = torch.device(DEVICE)
+    wall, res = timed(lambda: Quantifier(
+        index, c2_pipeline(bootstrap_samples=100), DEVICE).quantify_files(
+            [str(work / "c2_1.fq")], [str(work / "c2_2.fq")]), device)
+    del index
+    torch.cuda.empty_cache()
+    return wall, res.timings
+
+
+def dp_phase(work: Path, card: str, plain, plain_map, devices=None,
+             backend: str = "gloo") -> dict:
+    """``[dp ...]``: the multi-GPU path, each rank's kernels on its card,
+    through ``parallel.comm.launch``: by default 2 ranks on the one card
+    over gloo (NCCL refuses two ranks on one GPU); ``devices`` and
+    ``backend`` put a rank on each of several cards over NCCL.
+    ``plain``/``plain_map`` are the one-rank config-2 run's QuantResult
+    and MapResult. Returns the launch counts of the ranks' main-path
+    runs, summed."""
+    import numpy as np
+
+    from seekmer_tpu_torch import MapConfig, PipelineConfig, ShardConfig
+    from seekmer_tpu_torch.parallel import comm
+
+    if devices is None:
+        devices = [DEVICE if DEVICE == "cpu" else "cuda:0"] * DP_RANKS
+    n = len(devices)
+    where = (f"{n} ranks on {len(set(devices))} card(s), {backend}")
+    c1_runs = {name: json.loads((work / f"c1_{name}_out" / "run_info.json")
+                                .read_text())
+               for name in ("fast", "strided")}
+    shard = ShardConfig(data_axis=n)
+    cfgs = {"c2": c2_pipeline(bootstrap_samples=100).replace(shard=shard),
+            "c2_plain": c2_pipeline().replace(shard=shard)}
+    for name, kw in (("fast", dict(probe_sample=16)),
+                     ("strided", dict(probe_stride=4))):
+        cfgs[f"c1_{name}"] = PipelineConfig().replace(
+            map=MapConfig(batch_size=B, **kw), shard=shard)
+    one = one_card_c2_boot(work)
+    t0 = time.perf_counter()
+    outs = comm.launch(n, dp_rank, (work, cfgs), devices=devices,
+                       backend=backend, timeout_s=DP_DEADLINE_S,
+                       collective_timeout_s=DP_COLLECTIVE_S)
+    wall = time.perf_counter() - t0
+    r0 = outs[0]
+
+    def each(get, fmt="{:.6f}"):
+        return " / ".join(fmt.format(get(o)) for o in outs)
+
+    def stages(t):
+        return ", ".join(f"{k} {t[k + '_s']:.6f} s"
+                         for k in ("map", "resolve", "em", "bootstrap"))
+
+    # [dp c2 map]
+    for o in outs:
+        check(same_map(o["map"], plain_map),
+              f"[dp c2 map] rank {o['rank']}'s merged MapResult differs "
+              "from the one-rank run's")
+        check(np.array_equal(o["hist"], r0["one_hist"]),
+              "[dp c2 map] the FLD histogram summed over the ranks differs "
+              "from one card's")
+        check(o["fld"] == (plain.fld_mean, plain.fld_sd, plain.fld_samples),
+              f"[dp c2 map] FLD estimate {o['fld']} != one rank's")
+        check(np.array_equal(o["est_counts"], plain.est_counts),
+              "[dp c2 map] est_counts differ from the one-rank run's bits")
+    check(np.array_equal(sum(o["own_hist"] for o in outs), r0["one_hist"]),
+          "[dp c2 map] the ranks' own histograms do not add up")
+    m = r0["map"]
+    log(f"[dp c2 map] {where}: batches {each(lambda o: o['batches'], '{}')}"
+        f", mapped {m.mapped} / {m.total_reads} and {m.sigs.shape[0]} "
+        f"signatures equal to one rank's, overflow {m.overflow} and "
+        f"collisions {m.collisions} summed; FLD histogram summed "
+        f"({int(r0['hist'][1:].sum())} pairs: "
+        f"{each(lambda o: int(o['own_hist'][1:].sum()), '{}')}) equal to "
+        f"one card's; est_counts bit-equal; map stage "
+        f"{each(lambda o: o['timings']['map_s'])} s (one rank "
+        f"{plain.timings['map_s']:.6f} s); quantify with --bootstrap 100 "
+        f"{each(lambda o: o['wall'], '{:.3f}')} s (rank 0: "
+        f"{stages(r0['timings'])}) against one card {one[0]:.3f} s "
+        f"({stages(one[1])}); launches "
+        f"{[o['launches'] for o in outs]}; {card}")
+
+    # [dp c2 em]
+    for i, row in enumerate(r0["em"]):
+        rows = [o["em"][i] for o in outs]
+        same = all(np.array_equal(r["alpha"], row["alpha1"])
+                   and r["alpha"].dtype == row["alpha1"].dtype
+                   and r["it"] == row["it1"] for r in rows)
+        check(same, f"[dp c2 em] {row['name']}: {[r['it'] for r in rows]} "
+              f"iterations (one card alone {row['it1']}), or other bits")
+        log(f"[dp c2 em] {row['name']}, {where}: run_em on every rank's "
+            f"merged table, alpha bit-equal on every rank to one card's "
+            f"run alone, {row['it']} iterations; wall "
+            f"{each(lambda o: o['em'][i]['wall'])} s, all ranks at once, "
+            f"against one card alone {row['wall1']:.6f} s; {card}")
+
+    # [dp c2 bootstrap]
+    b = r0["bootstrap"]
+    check(b["equal"] and b["mass"] < 1e-3
+          and all(o["bootstrap"]["it"] == b["it1"] for o in outs),
+          f"[dp c2 bootstrap] {b}")
+    log(f"[dp c2 bootstrap] B 100 ({b['shape']}), {100 // n} replicates a "
+        f"rank, {where}: bit-equal to one card's batched_em on the "
+        f"gathered count matrix, {b['it']} iterations both; row mass max "
+        f"relative error {b['mass']:.3g}; wall "
+        f"{each(lambda o: o['bootstrap']['wall'])} s against one card "
+        f"{b['wall1']:.6f} s; a block's exchange alone (a 3-double "
+        f"all-reduce) {each(lambda o: o['exchange_ms'])} ms; {card}")
+
+    # [dp c2 resume]
+    for o in outs:
+        r = o["resume"]
+        check(np.array_equal(r["est_counts"], plain.est_counts)
+              and r["mapped"] == plain.mapped
+              and r["fld"] == (plain.fld_mean, plain.fld_sd,
+                               plain.fld_samples),
+              f"[dp c2 resume] rank {o['rank']}: the resumed run differs")
+        check(o["refusal"] is not None,
+              f"[dp c2 resume] rank {o['rank']} took a sidecar a step ahead")
+    r = r0["resume"]
+    log(f"[dp c2 resume] {where}: stopped after the first save (global "
+        f"batches 0-{n - 1}), resumed: est_counts bit-equal to one rank's, "
+        f"FLD equal; {len(r['save_s'])} saves, {min(r['save_s']):.6f}-"
+        f"{max(r['save_s']):.6f} s a save (the ranks' tables gathered to "
+        f"rank 0, {r['bytes'][0]} bytes, a {r['bytes'][1]}-byte sidecar a "
+        f"rank); restore {r['restore_s']:.6f} s; resumed run "
+        f"{r['wall']:.3f} s; rank 1's sidecar a step ahead refused on "
+        f"every rank in {each(lambda o: o['refusal'][1], '{:.3f}')} s "
+        f"(\"{outs[1]['refusal'][0][:60]}...\" / "
+        f"\"{r0['refusal'][0][:60]}...\"); {card}")
+
+    # [dp c1 fast], [dp c1 strided]
+    need = {"fast": (*MAIN, *FAST),
+            "strided": ("pack", "signature", "accumulate", *STRIDED)}
+    for name in ("fast", "strided"):
+        one = c1_runs[name]
+        for o in outs:
+            c = o["c1"][name]
+            check((c["mapped"], c["unmapped"])
+                  == (one["mapped"], one["unmapped"]),
+                  f"[dp c1 {name}] rank {o['rank']}: mapped {c['mapped']}"
+                  f" != one rank's {one['mapped']}")
+        launches = {k: sum(o["c1"][name]["launches"][k] for o in outs)
+                    for k in r0["c1"][name]["launches"]}
+        for k in need[name]:
+            check(launches[k] > 0, f"[dp c1 {name}] kernel {k} was never "
+                  "launched")
+        log(f"[dp c1 {name}] {where}: mapped {one['mapped']} / unmapped "
+            f"{one['unmapped']} equal to one rank's; map stage "
+            f"{each(lambda o: o['c1'][name]['map_s'])} s (one rank "
+            f"{one['timings']['map_s']:.6f} s); launches {launches}; {card}")
+    total = {k: sum(o["launches"][k] for o in outs)
+             for k in r0["launches"]}
+    for k in (*MAIN, "em_csr", "ec_sum"):
+        check(total[k] > 0, f"[dp c2 map] kernel {k} was never launched")
+    log(f"[dp] {where}: phase wall {wall:.1f} s ({n} ranks spawned, each "
+        f"loading both indexes)")
+    for name in ("fast", "strided"):
+        for o in outs:
+            for k, v in o["c1"][name]["launches"].items():
+                total[k] += v
+    return total
+
+
+def dp_cards(work: Path, card: str, ranks) -> None:
+    """``--dp-cards``: the worlds, the one-rank runs the ``[dp ...]``
+    phase is held to (config 1 fast and strided ``infer``, config 2
+    through the ``Quantifier``), then the phase over NCCL with a rank on
+    each of n cards, for each n in ``ranks``."""
+    import torch
+
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.map.driver import Mapper
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+
+    check(torch.cuda.device_count() >= max(ranks),
+          f"--dp-cards {max(ranks)} needs as many cards; this machine has "
+          f"{torch.cuda.device_count()}")
+    log(f"[card] x {torch.cuda.device_count()}")
+    make_worlds(work)
+    run_infer(work, "c1", [str(work / "c1.fq"), "--probe-sample", "16"],
+              unused=("em", *STRIDED), name="c1_fast")
+    run_infer(work, "c1", [str(work / "c1.fq"), "--probe-stride", "4"],
+              unused=("em", "lookup", *FAST), name="c1_strided")
+    index = KMerIndex.load(str(work / "c2.npz"))
+    with Spy(Mapper, "finalize") as fin:
+        plain = Quantifier(index, c2_pipeline(), DEVICE).quantify_files(
+            [str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
+    del index
+    torch.cuda.empty_cache()
+    for n in ranks:
+        dp_phase(work, card, plain, fin.calls[-1][1],
+                 devices=[f"cuda:{r}" for r in range(n)], backend="nccl")
 
 
 KERNELS = [
@@ -2521,6 +2923,10 @@ def main(argv=None) -> int:
                     "batch there, for "
                     "python -m seekmer_tpu_torch.utils.kernel_ab, and config "
                     "2's EC table to PATH.c2_ec.npz")
+    ap.add_argument("--dp-cards", metavar="N[,N...]",
+                    help="run only the [dp ...] phase and the one-rank runs "
+                    "it is held to, over NCCL with a rank on each of N "
+                    "cards, for each N")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2551,6 +2957,16 @@ def main(argv=None) -> int:
 
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "build"))
+    if args.dp_cards:
+        try:
+            dp_cards(work, card, [int(n) for n in args.dp_cards.split(",")])
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(card)
+        print(json.dumps({"dp_cards_ok": True, "ranks": args.dp_cards,
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()}))
+        return 0
     try:
         *batches, injected = make_worlds(work)
         timing = compare_kernels(work, batches, args.keep_inputs)

@@ -20,4 +20,5 @@ from .config import (  # noqa: F401,E402
     IndexConfig,
     MapConfig,
     PipelineConfig,
+    ShardConfig,
 )

@@ -19,8 +19,17 @@ parses every ``infer`` flag of the JAX CLI:
   ``--sig-backend`` and ``--no-h2d-pack`` go into ``MapConfig`` too, whose
   fields for them the port ignores (``config.py``), but for
   ``--no-h2d-pack``, which ``--pack-cache`` refuses;
-- the features the port does not have yet (sharding, ``--distributed``)
-  are refused with an error naming their ROADMAP.md item.
+- ``--data-shards N`` (N > 1) starts N ranks on this host, one a card
+  (``cuda:0`` .. ``cuda:N-1``; a host with fewer cards is refused) or N
+  CPU ranks with ``--device cpu``, joins them, and fails when one fails
+  (``parallel/comm.launch``); ``--distributed`` joins the group
+  ``torchrun`` describes, one rank a process on ``cuda:LOCAL_RANK``, the
+  ranks of a host dealing the batches of the files on its command line
+  (``--data-shards`` is then 1 or the world size). Rank 0 writes the
+  outputs; ``run_info.json`` holds the ranks (``world_size``) and the
+  kernels' launches summed over them;
+- ``--index-shards`` > 1, the prefix-sharded index, is refused with an
+  error naming its ROADMAP.md item.
 
 ``fuse`` (``_add_fuse`` and ``cmd_fuse`` after ``seekmer_tpu/cli.py``)
 takes the JAX CLI's arguments and ``--device``, and writes the same
@@ -138,10 +147,15 @@ def _add_infer(sub):
                         "memory-mapped by later runs")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of the run there")
-    # features of the JAX CLI that are refused until they are ported
-    p.add_argument("--data-shards", type=int, default=1)
+    p.add_argument("--data-shards", type=int, default=1,
+                   help="ranks that map, one a card (cuda:0..N-1, or N "
+                        "CPU ranks with --device cpu)")
+    # refused until the prefix-sharded index is ported
     p.add_argument("--index-shards", type=int, default=1)
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torch.distributed group torchrun "
+                        "describes: one rank a process on cuda:LOCAL_RANK; "
+                        "a host's ranks deal the batches of its files")
     return p
 
 
@@ -182,10 +196,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.data_shards != 1 or args.index_shards != 1:
-        raise NotPorted("sharding", "Multi-GPU")
-    if args.distributed:
-        raise NotPorted("--distributed", "Multi-GPU")
+    if args.index_shards != 1:
+        raise NotPorted("the prefix-sharded index (--index-shards)",
+                        "Multi-GPU (prefix-sharded index)")
 
 
 def kernel_launches() -> dict:
@@ -206,18 +219,78 @@ def kernel_launches() -> dict:
 
 
 def cmd_infer(args) -> int:
+    from .map.driver import check_device
+    from .parallel import comm
+
+    _refuse_unported(args)
+    if args.distributed:
+        device = comm.init_distributed(device=args.device)
+        if args.data_shards not in (1, comm.world()):
+            raise ValueError(f"--data-shards {args.data_shards} under "
+                             f"--distributed: 1 or the world size "
+                             f"{comm.world()}")
+        # a host's ranks share the files named on its command line
+        share = (int(os.environ.get("LOCAL_RANK", 0)),
+                 int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
+        return _run_infer(args, check_device(device), comm.world(),
+                          input_share=share)
+    if args.data_shards > 1:
+        return _launch_infer(args)
+    if args.data_shards < 1:
+        raise ValueError(f"--data-shards {args.data_shards} < 1")
+    return _run_infer(args, check_device(args.device), 1)
+
+
+def _launch_infer(args) -> int:
+    """``--data-shards N`` on one host: N ranks, rank r on ``cuda:r`` (or
+    the CPU), each mapping global batches r, r + N, ..."""
     import torch
 
-    from .config import EMConfig, MapConfig, PipelineConfig
+    from .map.driver import check_device
+    from .parallel import comm
+
+    n = args.data_shards
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} was requested but CUDA is not "
+                               "available")
+        if dev.index is not None:
+            raise ValueError("--data-shards N takes --device cuda (rank r "
+                             "runs on cuda:r) or --device cpu")
+        if torch.cuda.device_count() < n:
+            raise RuntimeError(f"--data-shards {n} needs {n} CUDA devices; "
+                               f"this host has {torch.cuda.device_count()}")
+        devices = [f"cuda:{r}" for r in range(n)]
+    else:
+        devices = [str(check_device(dev))] * n
+    comm.launch(n, _infer_rank, (args,), devices=devices,
+                threads=max(1, (os.cpu_count() or 1) // n))
+    return 0
+
+
+def _infer_rank(rank: int, device, args) -> int:
+    """A rank of ``--data-shards N``, in its own process."""
+    from .parallel import comm
+
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format=f"[%(asctime)s %(levelname)s rank {rank} %(name)s] "
+               "%(message)s")
+    return _run_infer(args, device, comm.world())
+
+
+def _run_infer(args, device, ranks: int, input_share=None) -> int:
+    import torch
+
+    from .config import EMConfig, MapConfig, PipelineConfig, ShardConfig
     from .index.store import KMerIndex
     from .io.writer import (write_abundance, write_bootstrap,
                             write_gene_abundance, write_h5, write_run_info)
-    from .map.driver import check_device
     from .models.quantifier import Quantifier
+    from .parallel import comm
     from .utils.profiling import maybe_trace
 
-    _refuse_unported(args)
-    device = check_device(args.device)
     start_time = time.strftime("%Y-%m-%dT%H:%M:%S")
     index = KMerIndex.load(args.index)
     cfg = PipelineConfig().replace(
@@ -248,13 +321,22 @@ def cmd_infer(args) -> int:
             bootstrap_samples=args.bootstrap,
             bootstrap_seed=args.seed,
             use_x64=args.x64),
+        shard=ShardConfig(data_axis=ranks),
     )
-    q = Quantifier(index, cfg, device=device)
-    with maybe_trace(args.trace_dir, "infer"):
+    q = Quantifier(index, cfg, device=device, input_share=input_share)
+    label = "infer" if ranks == 1 else f"infer.rank{comm.rank()}"
+    with maybe_trace(args.trace_dir, label):
         result = q.quantify_files(args.fastq, mate_paths=args.mates or None,
                                   checkpoint_path=args.checkpoint,
                                   checkpoint_every=args.checkpoint_every,
                                   pack_cache=args.pack_cache)
+    launches = kernel_launches()
+    if ranks > 1:
+        summed = comm.allreduce(np.asarray(list(launches.values()),
+                                           np.int64))
+        launches = dict(zip(launches, (int(v) for v in summed)))
+        if comm.rank() != 0:
+            return 0
 
     os.makedirs(args.output_dir, exist_ok=True)
     out = os.path.join(args.output_dir, "abundance.tsv")
@@ -297,7 +379,9 @@ def cmd_infer(args) -> int:
             "n_targets": int(index.num_transcripts),
             "device": (str(device) if device.type != "cuda" else
                        f"{device} ({torch.cuda.get_device_name(device)})"),
-            "kernel_launches": kernel_launches(),
+            # ranks, one a card; the launches are summed over them
+            "world_size": ranks,
+            "kernel_launches": launches,
         },
     )
     logging.info("wrote %s (%d/%d reads mapped, %d EM iters)", out,

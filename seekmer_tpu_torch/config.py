@@ -6,9 +6,12 @@ of the JAX package, so one configuration means the same run in both
 packages (``tests/test_torch_self_contained.py`` checks it). Fields that
 pick between XLA and Pallas (``pack_backend``, ``probe_backend``,
 ``sig_backend``) or bound TPU memory (``probe_chunks``) are kept for that
-equality and ignored by the port. ``ShardConfig`` and
-``PipelineConfig.shard`` are left out: the port runs on one device until
-ROADMAP.md's "Multi-GPU" item lands.
+equality and ignored by the port. ``ShardConfig`` (``PipelineConfig.shard``)
+keeps the JAX package's fields: ``data_axis`` is the number of ranks that
+map (``parallel/data_parallel.py``), one process a card; ``index_axis`` >
+1, the prefix-sharded index, is refused until it is ported (ROADMAP.md,
+"Multi-GPU (prefix-sharded index)"). The axis names name no mesh here (a
+rank is a card) and are kept for the equality of the dataclass.
 """
 
 from __future__ import annotations
@@ -224,10 +227,9 @@ class EMConfig:
     # Fixed-point acceleration: "none" = plain EM; "squarem" = SQUAREM S3
     # cycles (3 EM steps each: secant extrapolation + stabilizing step) —
     # same fixed points, typically 3-10x fewer EM steps to converge.
-    # Applies to the CSR paths — single-run, batched bootstrap AND the
-    # collective (psum) EM (parallel/collective_em.py; the psum'd iterate
-    # is still a fixed-point map and alpha is replicated, so all chips
-    # extrapolate in lockstep). Iteration counts stay in EM-step units.
+    # Applies to the CSR paths — single-run and batched bootstrap (several
+    # ranks each run the single-run EM on the merged table). Iteration
+    # counts stay in EM-step units.
     # The Pallas dense kernel runs plain EM regardless.
     accel: str = "none"  # "none" | "squarem"
     # EM backend. "auto" = the flat-CSR segment-sum while_loop: with the
@@ -240,10 +242,25 @@ class EMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """Multi-GPU configuration: the JAX package's fields and defaults."""
+
+    # Ranks that map reads (data-parallel, one process a card; 0 or -1:
+    # every rank of the process group), and index shards (1: replicated).
+    data_axis: int = 1
+    index_axis: int = 1
+    data_axis_name: str = "reads"
+    index_axis_name: str = "index"
+    # "replicated" or "prefix" (the prefix-sharded index, not ported yet)
+    index_mode: str = "replicated"
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     index: IndexConfig = IndexConfig()
     map: MapConfig = MapConfig()
     em: EMConfig = EMConfig()
+    shard: ShardConfig = ShardConfig()
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)

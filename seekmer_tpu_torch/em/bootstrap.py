@@ -68,7 +68,8 @@ def resample_counts(counts: torch.Tensor, num_samples: int,
 
 def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
                num_transcripts: int, cfg: EMConfig, alpha_init=None,
-               it_init: int = 0, on_sync: Optional[Callable] = None):
+               it_init: int = 0, on_sync: Optional[Callable] = None,
+               check: Optional[Callable] = None):
     """Batched CSR EM over resampled count rows cmat [B, E], in the dtype of
     ``cmat``. Returns (alpha [B, T], iterations). The iterate is (T, B),
     replicate-minor, the counts (E, B); the fixed point is
@@ -76,7 +77,11 @@ def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
     blocked loop over ``_batched_iter`` on the CPU). SQUAREM takes one
     steplength per replicate, an ``em_steps`` call a step.
     ``alpha_init`` (T, B) and ``it_init`` resume from a snapshot;
-    ``on_sync(alpha_TB_np, it)`` is the snapshot hook (``em.run_em``)."""
+    ``on_sync(alpha_TB_np, it)`` is the snapshot hook (``em.run_em``).
+    ``check(alpha, alpha_new)`` replaces the convergence test
+    (``run_blocked_fixed_point``; the sharded bootstrap's test across
+    ranks): the fixed point then runs a block a launch of ``em_steps``,
+    and ``on_sync`` gets the (T, B) tensor at each block end."""
     from ..ops import em_csr_cuda
 
     dtype, device = cmat.dtype, cmat.device
@@ -96,10 +101,18 @@ def batched_em(cmat: torch.Tensor, ec_ids, txp_ids, lengths, num_ecs: int,
             return em_csr_cuda.em_steps(a, counts, inv_eff, layout, 1,
                                         divide=False)[1]
 
+        hook = (squarem_hook(on_sync) if check is None or on_sync is None
+                else lambda a, it: on_sync(a, it * 3))
         it, _, alpha = run_blocked_fixed_point(
             lambda a: squarem_cycle(em_iter, a), alpha0, accel_schedule(cfg),
-            it_init=it_init // 3, on_sync=squarem_hook(on_sync))
+            it_init=it_init // 3, on_sync=hook, check=check)
         return alpha.t(), it * 3
+    if check is not None:
+        it, _, alpha = run_blocked_fixed_point(
+            None, alpha0, cfg, it_init=it_init, on_sync=on_sync, check=check,
+            em_block=lambda a, steps: em_csr_cuda.em_steps(
+                a, counts, inv_eff, layout, steps, divide=False))
+        return alpha.t(), it
     alpha, it, _ = csr_fixed_point(alpha0, counts, inv_eff, layout, cfg,
                                    divide=False, it_init=it_init,
                                    on_sync=on_sync)

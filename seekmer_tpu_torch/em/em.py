@@ -195,15 +195,19 @@ def convergence_check(alpha_m, alpha_new, cfg: EMConfig) -> torch.Tensor:
 
 
 def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
-                            it_init: int = 0, em_block=None, on_sync=None):
+                            it_init: int = 0, em_block=None, on_sync=None,
+                            check=None):
     """Iterate ``alpha -> em_iter(alpha)`` in blocks of check_every - 1 raw
     steps plus one monitored step, testing convergence between the block's
     last two iterates with one host read per block: the plain version of
     A3's fixed point, and SQUAREM's loop. ``em_block(alpha, steps)``,
     where given, runs a whole block and returns its last two iterates.
     ``on_sync(alpha, it)``, where given, is called at every block end that
-    does not finish the run. Returns (it, converged, alpha); ``it`` counts
-    from ``it_init``."""
+    does not finish the run. ``check(alpha, alpha_new)`` replaces
+    ``convergence_check`` (the sharded bootstrap's test across ranks); it
+    runs at every block end, ``min_iters`` or not, so that every rank joins
+    its exchange. Returns (it, converged, alpha); ``it`` counts from
+    ``it_init``."""
     C = max(cfg.check_every, 1)
     it, converged, alpha = it_init, False, alpha0
     while not converged and it < cfg.max_iters:
@@ -213,8 +217,12 @@ def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
             for _ in range(C - 1):
                 alpha = em_iter(alpha)
             alpha_new = em_iter(alpha)
-        converged = (it + C >= cfg.min_iters
-                     and bool(convergence_check(alpha, alpha_new, cfg)))
+        if check is None:
+            converged = (it + C >= cfg.min_iters
+                         and bool(convergence_check(alpha, alpha_new, cfg)))
+        else:
+            ok = check(alpha, alpha_new)
+            converged = it + C >= cfg.min_iters and ok
         alpha = alpha_new
         it += C
         if on_sync is not None and not converged and it < cfg.max_iters:

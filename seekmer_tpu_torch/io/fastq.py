@@ -383,7 +383,8 @@ class CheckpointableBatchSource:
     """Serial FASTQ batching with an exact resume cursor.
 
     The cursor is each stream's (file index, uncompressed byte offset of
-    the next unparsed record) plus the rows of the partial buckets, so a
+    the next unparsed record) plus the rows of the partial buckets and the
+    count of batches made before it (``"batch"``), so a
     checkpoint taken at a batch boundary resumes without re-reading or
     re-batching consumed input: the rows the bucketer held ride in the
     checkpoint (``utils/checkpoint``). Cursors ride on the last batch made
@@ -412,13 +413,14 @@ class CheckpointableBatchSource:
                              "the current input files")
         self._restore_state = state
 
-    def _snapshot(self, s1, s2, bk) -> dict:
+    def _snapshot(self, s1, s2, bk, batches: int) -> dict:
         return {
             "v": 1,
             "paired": self.mates is not None,
             "s1": s1.cursor(),
             "s2": s2.cursor() if s2 is not None else None,
             "pending": bk.pending_state(),
+            "batch": batches,
         }
 
     def __iter__(self) -> Iterator[ReadBatch]:
@@ -434,6 +436,9 @@ class CheckpointableBatchSource:
             f2, o2 = st0.get("s2") or (0, 0)
             s2 = _OffsetStream(self.mates, cfg.max_read_len, f2, o2)
         paired = s2 is not None
+        # batches made from the start of the input: the next one's global
+        # index, which a cursor carries (``rank_batches`` deals by it)
+        made = int(st0.get("batch", 0))
         bk = Bucketer(B, cfg.max_read_len, cfg.length_bucket, paired)
         try:
             if st0.get("pending"):
@@ -460,10 +465,11 @@ class CheckpointableBatchSource:
                               codes2=cc, lengths2=dd)
                     for a, b, cc, dd, _ in bk.pop_ready()
                 ]
+                made += len(out)
                 for batch in out[:-1]:
                     yield batch
                 if out:
-                    out[-1].cursor = self._snapshot(s1, s2, bk)
+                    out[-1].cursor = self._snapshot(s1, s2, bk, made)
                     yield out[-1]
             # flush the partial buckets; each flushed batch's cursor leaves
             # out the buckets already flushed
@@ -471,10 +477,39 @@ class CheckpointableBatchSource:
                 w = np.zeros(B, np.int32)
                 w[:fill] = 1
                 batch = ReadBatch(a, b, w, codes2=cc, lengths2=dd)
-                batch.cursor = self._snapshot(s1, s2, bk)
+                made += 1
+                batch.cursor = self._snapshot(s1, s2, bk, made)
                 yield batch
         finally:
             bk.close()
             s1.close()
             if s2 is not None:
                 s2.close()
+
+
+def rank_batches(batches: Iterable[ReadBatch], rank: int, world: int,
+                 first: int = 0) -> Iterator[ReadBatch]:
+    """Rank ``rank``'s share of a batch stream that every rank reads whole:
+    global batch g (counted from ``first``, a restored cursor's
+    ``"batch"``) goes to rank g mod ``world``.
+
+    A kept batch leaves with the latest cursor among itself and the
+    batches after it that go to other ranks: once it is mapped, resuming
+    after any of those maps nothing twice and skips nothing of this rank.
+    So a kept batch carries a cursor whenever the stream had one before
+    this rank's next batch, and each kept batch is held until that next
+    batch (or the end) is read."""
+    held = cursor = None
+    for g, batch in enumerate(batches, first):
+        mine = g % world == rank
+        if mine and held is not None:
+            held.cursor = cursor
+            yield held
+            held = None
+        if mine:
+            held, cursor = batch, batch.cursor
+        elif held is not None and batch.cursor is not None:
+            cursor = batch.cursor
+    if held is not None:
+        held.cursor = cursor
+        yield held

@@ -35,9 +35,9 @@ port always ships reads 2-bit packed, so ``h2d_pack_2bit`` is ignored too.
 lookup kernel never materialises the gathered bucket rows they bounded.
 
 ``Mapper.run`` checkpoints the table and the stream's resume cursor every
-``checkpoint_every`` batches (``_run_with_checkpoints``, single process;
-the JAX package's multi-process variant waits for the port's multi-GPU
-mapper). The table is read back to the host only when a save is due.
+``checkpoint_every`` batches (``_run_with_checkpoints``); the data-parallel
+mapper's ranks save together (``_run_with_checkpoints_multiprocess``). The
+table is read back to the host only when a save is due.
 
 ``merge_sig_rows``, ``MapResult``, ``audit_this_batch``,
 ``resolve_signatures`` and ``_group_member_lists`` are pure numpy copies
@@ -351,6 +351,56 @@ def _run_with_checkpoints(mapper: Mapper, batches: Iterable[ReadBatch],
                 warned = True
     if checkpoint_path:
         mapper.save_checkpoint(checkpoint_path, stream_state=last_cursor)
+    return mapper.finalize()
+
+
+def _run_with_checkpoints_multiprocess(mapper, batches: Iterable[ReadBatch],
+                                       checkpoint_path: str,
+                                       checkpoint_every: int) -> MapResult:
+    """The checkpointed feed loop of several ranks (the JAX package's,
+    over ``parallel/comm``). A save is collective, and ranks may hold
+    different numbers of batches, so the loop itself is collective: every
+    rank joins one all-gather a round (one of its batches a round while it
+    has any) with (done, has a cursor). Saves fall due on the round count
+    and happen only when every rank offers a cursor (a rank that is done
+    offers its last one, or the one it resumed from); every rank leaves
+    in the same round."""
+    from ..parallel import comm
+
+    it = iter(batches)
+    rounds = 0
+    due = done = warned = False
+    last_cursor = mapper.restored_cursor
+    while True:
+        batch = None if done else next(it, None)
+        if batch is None:
+            done = True
+            cur = last_cursor
+        else:
+            mapper.feed(batch)
+            cur = batch.cursor
+            if cur is not None:
+                last_cursor = cur
+        rounds += 1
+        # a rank that never saw a cursor offers none: saving it as "start
+        # fresh" on top of a table that holds its reads would count them
+        # twice
+        flags = comm.allgather(np.asarray([done, cur is not None],
+                                          np.int64))
+        if flags[:, 0].all():
+            break
+        due = due or rounds % checkpoint_every == 0
+        if due and flags[:, 1].all():
+            mapper.save_checkpoint(checkpoint_path, stream_state=cur)
+            due = False
+        elif due and not warned:
+            log.warning(
+                "periodic checkpoint is blocked: rank(s) %s offered no "
+                "resume cursor this round; saves happen when every rank "
+                "has one, and a final table snapshot is written",
+                np.flatnonzero(flags[:, 1] == 0).tolist())
+            warned = True
+    mapper.save_checkpoint(checkpoint_path, stream_state=last_cursor)
     return mapper.finalize()
 
 

@@ -20,9 +20,21 @@ constants: nothing in the port varies them.
 
 Each mate's windows are packed by K1 (``pack_cuda.pack_canonical_2bit``)
 on the 2-bit batch, as the map step packs them. ``_match_slot`` was XLA in
-JAX and stays plain torch: a row gather plus a compare. The prefix-sharded
-estimator (``for_prefix_shard0``) waits for the multi-GPU port
-(ROADMAP.md, still to port, "Multi-GPU").
+JAX and stays plain torch: a row gather plus a compare.
+
+Several ranks (``parallel/data_parallel.py``): each rank samples its own
+batches among the ones one card would sample from the stream it shares
+(``sample_batches``: where global batch g goes to rank g mod N, its
+batches among global batches 0-3; with ``--distributed``, its own among
+its host's first 4), and the ranks' integer
+histograms are summed by an all-reduce before ``estimate_from_hist``, so
+every rank derives the same effective lengths and, on one host, the one
+card's estimate exactly. This repairs fault 5 of the JAX package, whose
+hosts each estimate from their own batches alone (``seekmer_tpu/map/
+fld.py`` ``estimate``, ``seekmer_tpu/models/quantifier.py`` ``_fld_cfg``)
+and may enter one collective EM with different effective lengths. The
+prefix-sharded estimator (``for_prefix_shard0``) waits for the
+prefix-sharded index (ROADMAP.md, "Multi-GPU (prefix-sharded index)").
 """
 
 from __future__ import annotations
@@ -119,7 +131,8 @@ class FLDEstimator:
     """
 
     def __init__(self, index: KMerIndex, device_index,
-                 state: Optional[Tuple[np.ndarray, int]] = None):
+                 state: Optional[Tuple[np.ndarray, int]] = None,
+                 sample_batches: int = SAMPLE_BATCHES):
         if index.fld_tid is None:
             raise ValueError("index has no FLD payload "
                              "(built with fld_positions=False)")
@@ -128,6 +141,7 @@ class FLDEstimator:
         self.bucket = index.bucket
         self.device_index = device_index
         self.device = device_index.table.device
+        self.sample_batches = sample_batches
         self.hist = torch.zeros(MAX_LEN + 1, dtype=torch.int32,
                                 device=self.device)
         self._fed = 0
@@ -152,7 +166,7 @@ class FLDEstimator:
 
     @property
     def active(self) -> bool:
-        return self._fed < SAMPLE_BATCHES
+        return self._fed < self.sample_batches
 
     def feed(self, batch) -> None:
         """Sample a paired ReadBatch (no-op once enough batches are fed).
@@ -174,12 +188,19 @@ class FLDEstimator:
 
     def estimate(self) -> Optional[Tuple[float, float, int]]:
         """(mean, sd, n_samples), or None if too few observations."""
-        hist = self.hist.cpu().numpy().copy()
-        hist[0] = 0  # reject dump
-        n = int(hist.sum())
-        if n < MIN_SAMPLES:
-            return None
-        f = np.arange(hist.size, dtype=np.float64)
-        mean = float((f * hist).sum() / n)
-        var = float(((f - mean) ** 2 * hist).sum() / max(n - 1, 1))
-        return mean, float(np.sqrt(var)), n
+        return estimate_from_hist(self.hist.cpu().numpy())
+
+
+def estimate_from_hist(hist: np.ndarray) -> Optional[Tuple[float, float,
+                                                           int]]:
+    """(mean, sd, n_samples) of a fragment-length histogram (index 0 the
+    reject dump), or None if it holds too few observations."""
+    hist = np.array(hist, np.int64)
+    hist[0] = 0  # reject dump
+    n = int(hist.sum())
+    if n < MIN_SAMPLES:
+        return None
+    f = np.arange(hist.size, dtype=np.float64)
+    mean = float((f * hist).sum() / n)
+    var = float(((f - mean) ** 2 * hist).sum() / max(n - 1, 1))
+    return mean, float(np.sqrt(var)), n

@@ -16,10 +16,24 @@ stage snapshots. Stages are named ranges in a ``--trace-dir`` trace
 ones ``run_info.json``'s ``timings`` time, and ingest and upload on the
 prefetch thread.
 
-Meshes and sharding have no configuration in the port yet (its
-``PipelineConfig`` has no ``shard``); the CLI refuses their flags with an
-error naming their ROADMAP.md item. The JAX package's snapshot broadcast
-across processes (``_broadcast_snapshot``) goes with them.
+Several ranks (``PipelineConfig.shard.data_axis`` != 1, one process a card
+in a ``torch.distributed`` group, ``parallel/comm.py``): every rank builds
+a ``DataParallelMapper`` and maps its share of the batches (on one host
+global batch g goes to rank g mod N; ``input_share`` narrows that to the
+ranks given the same files), the merged map result and the summed FLD
+histogram reach every rank, and every rank runs the one-card ``run_em``
+on the merged table (the JAX package's nnz-sharded collective EM has no
+counterpart: every rank holds the whole table, so sharding EM saves no
+memory, and an exchange between ranks a block costs more than the block),
+and the bootstrap is split over the ranks' replicates
+(``parallel/bootstrap_shard.py``; on every rank in full when the ranks do
+not divide ``bootstrap_samples``, as in the JAX package). A checkpoint's
+restore is agreed: one rank's restore error makes every rank raise at the
+same point, and either every rank resumes or none. Rank 0 alone writes
+EM and bootstrap snapshots and deletes them; its snapshot reaches the
+other ranks by a broadcast (``_broadcast_snapshot``). ``--pack-cache`` on
+several ranks is refused, as the JAX package refuses it. The
+prefix-sharded index (``shard.index_axis`` > 1) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import dataclasses
 import logging
 import os
 import time
+import zipfile
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +67,10 @@ from ..io.fastq import (
     batch_reads_native,
 )
 from ..map.driver import Mapper, MapResult, check_device, resolve_signatures
+from ..map.fld import estimate_from_hist
+from ..parallel import comm
+from ..parallel.bootstrap_shard import run_bootstrap_sharded
+from ..parallel.data_parallel import DataParallelMapper, data_ranks
 from ..utils.checkpoint import load_em_snapshot, save_em_snapshot
 from ..utils.metrics import Metrics
 from ..utils.prefetch import device_put_batches, prefetch
@@ -89,12 +108,28 @@ class Quantifier:
     SNAPSHOT_MIN_INTERVAL_S = 30.0
 
     def __init__(self, index: KMerIndex,
-                 cfg: PipelineConfig = PipelineConfig(), device="cuda"):
+                 cfg: PipelineConfig = PipelineConfig(), device="cuda",
+                 input_share: Optional[Tuple[int, int]] = None):
+        """``input_share``: with several ranks, (this rank's place, the
+        number of ranks) among those given the same files, which deal
+        that input's batches (``--distributed``: a host's ranks); None:
+        every rank of the group reads the whole input."""
         self.device = check_device(device)
         self.index = index
         self.cfg = cfg
+        self.input_share = input_share
+        if cfg.shard.index_axis != 1:
+            raise ValueError("the prefix-sharded index (index_axis > 1) is "
+                             "not ported yet (ROADMAP.md, still to port: "
+                             "Multi-GPU (prefix-sharded index))")
+        self.ranks = (1 if cfg.shard.data_axis == 1 else
+                      data_ranks(cfg.shard))
 
     def _make_mapper(self) -> Mapper:
+        if self.ranks > 1:
+            return DataParallelMapper(self.index, self.cfg.map,
+                                      self.cfg.shard, device=self.device,
+                                      input_share=self.input_share)
         return Mapper(self.index, self.cfg.map, device=self.device)
 
     def _native_batches(self, fastq_paths, mate_paths):
@@ -115,6 +150,11 @@ class Quantifier:
         for ``<first fastq>.smpack``) feeds batches from the pack cache,
         building it first when it is absent or stale."""
         mapper = self._make_mapper()
+        if pack_cache is not None and self.ranks > 1:
+            raise ValueError(
+                "--pack-cache takes the single-card mapper (no "
+                "--data-shards/--distributed): cached batches are "
+                "pre-packed for one card's stream")
         if pack_cache is not None:
             return self._quantify_pack_cache(
                 fastq_paths, mate_paths, checkpoint_path, checkpoint_every,
@@ -134,8 +174,12 @@ class Quantifier:
                  source) -> Mapper:
         """Restore the map checkpoint, if any, into ``mapper`` and
         ``source``. A file without a cursor cannot resume: its table is
-        dropped and the run starts fresh. Restore errors raise."""
-        state = mapper.restore_checkpoint(checkpoint_path)
+        dropped and the run starts fresh. Restore errors raise; on several
+        ranks only after every rank has tried (``_agree_restore``)."""
+        if self.ranks > 1:
+            state = self._agree_restore(mapper, checkpoint_path)
+        else:
+            state = mapper.restore_checkpoint(checkpoint_path)
         if state:
             source.restore(state)
             log.info("resuming from checkpoint: %d reads already mapped",
@@ -145,6 +189,36 @@ class Quantifier:
                         checkpoint_path)
             mapper = self._make_mapper()
         return mapper
+
+    def _agree_restore(self, mapper, checkpoint_path: str):
+        """The ranks' restores, agreed (the JAX package's protocol): a
+        rank holds its restore error until every rank has reported, then
+        every rank raises at the same point, so none goes on into a later
+        collective alone. Resume is all or nothing: when some rank has no
+        cursor to resume from, every rank starts fresh."""
+        state, err = None, None
+        try:
+            state = mapper.restore_checkpoint(checkpoint_path)
+        except (ValueError, OSError, KeyError,
+                zipfile.BadZipFile) as e:  # raised below, once agreed
+            err = e
+        cats = comm.allgather(np.asarray(
+            [state is None and err is None, bool(state), err is not None],
+            np.int64))
+        if cats[:, 2].any():
+            if err is not None:
+                raise err
+            bad = np.flatnonzero(cats[:, 2]).tolist()
+            raise ValueError(
+                f"checkpoint {checkpoint_path} failed to restore on rank(s) "
+                f"{bad} (see their errors); delete the checkpoint files to "
+                "start fresh")
+        if not cats[:, 1].all():
+            if not cats[:, 0].all():
+                log.warning("checkpoint %s is not resumable on every rank; "
+                            "every rank starts fresh", checkpoint_path)
+            state = None if cats[:, 0].all() else {}
+        return state
 
     def _quantify_pack_cache(self, fastq_paths, mate_paths, checkpoint_path,
                              checkpoint_every, pack_cache, mapper
@@ -204,6 +278,8 @@ class Quantifier:
         metrics = Metrics()
         if mapper is None:
             mapper = self._make_mapper()
+        if self.ranks > 1:
+            batches = mapper.select(batches)
         batches = prefetch(device_put_batches(batches, self.device), depth=4)
         self._fld_est = None
         if self.cfg.em.estimate_fld and self.index.fld_tid is not None:
@@ -220,7 +296,7 @@ class Quantifier:
                  "%d fingerprint collisions)", result.mapped,
                  result.total_reads, result.sigs.shape[0], result.overflow,
                  result.collisions)
-        return self._infer(result, metrics, checkpoint_path)
+        return self._infer(result, metrics, mapper, checkpoint_path)
 
     def _tee_fld(self, batches: Iterable[ReadBatch], mapper: Mapper):
         """Pass batches through while sampling the first paired ones into a
@@ -233,9 +309,16 @@ class Quantifier:
                 self._fld_est.feed(b)
             yield b
 
-    def _fld_cfg(self, em_cfg: EMConfig) -> Tuple[EMConfig, Optional[Tuple]]:
-        """Apply the estimated FLD (if any) to the effective-length model."""
-        est = None if self._fld_est is None else self._fld_est.estimate()
+    def _fld_cfg(self, em_cfg: EMConfig, mapper
+                 ) -> Tuple[EMConfig, Optional[Tuple]]:
+        """Apply the estimated FLD (if any) to the effective-length model;
+        on several ranks from their histograms summed (fault 5)."""
+        if self.ranks > 1:
+            est = None
+            if em_cfg.estimate_fld and self.index.fld_tid is not None:
+                est = estimate_from_hist(mapper.fld_histogram())
+        else:
+            est = None if self._fld_est is None else self._fld_est.estimate()
         if est is None:
             return em_cfg, None
         mean, sd, n = est
@@ -243,6 +326,20 @@ class Quantifier:
                  "pairs: mean %.1f, sd %.1f", n, mean, sd)
         return dataclasses.replace(
             em_cfg, mean_fragment_length=mean, fragment_length_sd=sd), est
+
+    def _broadcast_snapshot(self, arr, it: int, conv: bool, shape):
+        """Rank 0's stage snapshot (alpha or None, it, converged) on
+        every rank: only rank 0 reads and writes snapshots, and every rank
+        must take the same resume or skip decision."""
+        if self.ranks == 1:
+            return arr, it, conv
+        meta = comm.broadcast_from0(np.asarray(
+            [arr is not None, it, conv], np.int64))
+        if not meta[0]:
+            return None, 0, False
+        payload = (np.asarray(arr, np.float64) if arr is not None
+                   else np.zeros(shape, np.float64))
+        return comm.broadcast_from0(payload), int(meta[1]), bool(meta[2])
 
     def _throttled_sync(self, path: str):
         """An ``on_sync`` that writes a snapshot to ``path`` at most once
@@ -270,7 +367,7 @@ class Quantifier:
         em_snap = checkpoint_path + ".em.npz"
         boot_snap = checkpoint_path + ".boot.npz"
         alpha_init, it_init, em_converged = None, 0, False
-        loaded = load_em_snapshot(em_snap)
+        loaded = load_em_snapshot(em_snap) if comm.rank() == 0 else None
         if loaded is not None:
             a, it, conv = loaded
             if a.ndim == 1 and a.shape[0] == T:
@@ -280,16 +377,19 @@ class Quantifier:
             else:
                 log.warning("EM snapshot %s has shape %s != (%d,); "
                             "ignoring", em_snap, a.shape, T)
+        alpha_init, it_init, em_converged = self._broadcast_snapshot(
+            alpha_init, it_init, em_converged, (T,))
+        on_sync = self._throttled_sync(em_snap) if comm.rank() == 0 else None
         return (em_snap, boot_snap, alpha_init, it_init, em_converged,
-                self._throttled_sync(em_snap))
+                on_sync)
 
-    def _infer(self, result: MapResult, metrics: Metrics,
+    def _infer(self, result: MapResult, metrics: Metrics, mapper: Mapper,
                checkpoint_path: Optional[str] = None) -> QuantResult:
         with metrics.timer("resolve"), annotate("resolve"):
             member_lists, counts, dropped = resolve_signatures(result,
                                                                self.index)
 
-        em_cfg, fld_est = self._fld_cfg(self.cfg.em)
+        em_cfg, fld_est = self._fld_cfg(self.cfg.em, mapper)
         dtype = torch.float64 if em_cfg.use_x64 else torch.float32
         T = self.index.num_transcripts
         lengths = self.index.lengths
@@ -316,7 +416,7 @@ class Quantifier:
             if em_capped:
                 log.warning("EM stopped at max_iters=%d without meeting "
                             "rel_tol=%g", em_cfg.max_iters, em_cfg.rel_tol)
-            if em_snap is not None:
+            if em_snap is not None and comm.rank() == 0:
                 # pin the EM stage's end, unthrottled, so a crash in the
                 # bootstrap resumes with EM skipped; a stage capped by
                 # max_iters pins converged=False, so a resume under a
@@ -328,16 +428,25 @@ class Quantifier:
             B = em_cfg.bootstrap_samples
             b_init, b_it, b_sync = None, 0, None
             if boot_snap is not None:
-                loaded = load_em_snapshot(boot_snap)
+                loaded = (load_em_snapshot(boot_snap) if comm.rank() == 0
+                          else None)
                 if loaded is not None and loaded[0].shape == (T, B):
                     b_init, b_it, _ = loaded
                     log.info("resuming bootstrap EM from snapshot at "
                              "iteration %d", b_it)
-                b_sync = self._throttled_sync(boot_snap)
+                b_init, b_it, _ = self._broadcast_snapshot(b_init, b_it,
+                                                           False, (T, B))
+                if comm.rank() == 0:
+                    b_sync = self._throttled_sync(boot_snap)
             with metrics.timer("bootstrap"), annotate("bootstrap"):
-                boot_alpha, boot_iters = run_bootstrap(
-                    ec, lengths, em_cfg, alpha_init=b_init, it_init=b_it,
-                    on_sync=b_sync)
+                if self.ranks > 1 and B % self.ranks == 0:
+                    boot_alpha, boot_iters = run_bootstrap_sharded(
+                        ec, lengths, em_cfg, alpha_init=b_init,
+                        it_init=b_it, on_sync=b_sync)
+                else:
+                    boot_alpha, boot_iters = run_bootstrap(
+                        ec, lengths, em_cfg, alpha_init=b_init,
+                        it_init=b_it, on_sync=b_sync)
                 boot = boot_alpha.cpu().numpy()
             metrics.count("bootstrap_iterations", boot_iters)
             log.info("bootstrap: %d replicates in %.2fs", B,
@@ -345,7 +454,7 @@ class Quantifier:
         for p in (em_snap, boot_snap):
             # the run is complete: a later fresh run must not warm-start
             # from these
-            if p and os.path.exists(p):
+            if p and comm.rank() == 0 and os.path.exists(p):
                 os.remove(p)
         timings = metrics.snapshot()
         metrics.log_summary()

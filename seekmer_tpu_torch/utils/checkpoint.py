@@ -11,13 +11,18 @@
 
 The files are the JAX package's: the same npz keys, ``FORMAT`` 3 and
 ``np.savez_compressed``, so a checkpoint written by either package loads in
-the other. Two additions, which the JAX package ignores: a pack-cache
-cursor's build id (``"build"``) in the cursor's metadata, and the
-fragment-length estimator's state (``fld_hist`` and the metadata's
-``fld_fed``), so that a resumed paired run estimates the FLD from the
-batches the uninterrupted run sampled. Left out: the host-cursor
-sidecars of multi-process checkpoints (``save_host_cursor``,
-``load_host_cursor``), which wait for the port's multi-GPU mapper.
+the other. Three additions, which the JAX package ignores: a pack-cache
+cursor's build id (``"build"``) and a file cursor's count of batches
+made (``"batch"``, by which ``io/fastq.rank_batches`` deals batches to
+ranks) in the cursor's metadata, and the fragment-length estimator's
+state (``fld_hist`` and the metadata's ``fld_fed``), so that a resumed
+paired run estimates the FLD from the batches the uninterrupted run
+sampled.
+
+Multi-process checkpoints (``parallel/ckpt_mp.py``) add a sidecar a rank,
+``<path>.host<i>.npz`` (``save_host_cursor``, ``load_host_cursor``): the
+rank's cursor, read count, FLD state and the save's ``step``; the table
+file's ``total_reads`` is then -1.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 FORMAT = 3
 
 _CURSOR_KEYS = ("v", "paired", "s1", "s2")
+_CURSOR_EXTRAS = ("build", "batch")  # the port's, where a cursor has them
 
 
 def _host(x) -> np.ndarray:
@@ -48,8 +54,9 @@ def _cursor_to_arrays(stream_state: Optional[dict]):
     if stream_state is None:
         return None, {}
     cursor_meta = {k: stream_state[k] for k in _CURSOR_KEYS}
-    if "build" in stream_state:
-        cursor_meta["build"] = stream_state["build"]
+    for k in _CURSOR_EXTRAS:
+        if k in stream_state:
+            cursor_meta[k] = stream_state[k]
     cursor_meta["buckets"] = sorted(stream_state["pending"])
     arrays = {}
     for bucket, d in stream_state["pending"].items():
@@ -69,8 +76,9 @@ def _cursor_from_npz(z, cm: Optional[dict]) -> Optional[dict]:
             if f"pend_{bucket}_{name}" in z.files
         }
     cursor = {k: cm[k] for k in _CURSOR_KEYS}
-    if "build" in cm:
-        cursor["build"] = cm["build"]
+    for k in _CURSOR_EXTRAS:
+        if k in cm:
+            cursor[k] = cm[k]
     cursor["pending"] = pending
     return cursor
 
@@ -106,12 +114,14 @@ def save_map_checkpoint(path: str, table, total_reads: int,
     os.replace(tmp, path)
 
 
-def load_map_checkpoint(path: str, device="cuda"):
+def load_map_checkpoint(path: str, device="cuda", with_step=False,
+                        multiprocess=False):
     """(SigTable on ``device``, total_reads, cursor, fld), or None when
     there is no file; ``fld`` is the FLD estimator's (histogram, batches
-    fed), None in a file without it (the JAX package's). Raises on another
-    format and on a multi-process save (its read counts live in per-host
-    files the port does not read yet)."""
+    fed), None in a file without it (the JAX package's); ``with_step``
+    appends the save's ``step``. Raises on another format, and on a
+    multi-process save unless ``multiprocess`` (its read counts live in
+    the ranks' sidecars)."""
     from ..map.signature import sig_table_from_numpy
 
     if not os.path.exists(path):
@@ -120,10 +130,12 @@ def load_map_checkpoint(path: str, device="cuda"):
         meta = json.loads(bytes(z["meta"]).decode())
         if meta["format"] != FORMAT:
             raise ValueError(f"checkpoint format {meta['format']} != {FORMAT}")
-        if meta["total_reads"] < 0:
+        if (meta["total_reads"] < 0) != multiprocess:
             raise ValueError(
-                f"checkpoint {path} was written by a multi-process run; "
-                "a single-process run cannot restore it")
+                f"checkpoint {path} was written by a "
+                f"{'multi' if meta['total_reads'] < 0 else 'single'}"
+                f"-process run; restore it under the process count that "
+                "wrote it, or delete the checkpoint files to start fresh")
         fields = {name: z[name] for name in ("key", "count", "sig",
                                               "overflow")}
         # absent in older format-3 files: zeros of overflow's shape, and
@@ -135,8 +147,52 @@ def load_map_checkpoint(path: str, device="cuda"):
         cursor = _cursor_from_npz(z, meta["cursor"])
         fld = ((z["fld_hist"], meta["fld_fed"]) if "fld_hist" in z.files
                else None)
-    return (sig_table_from_numpy(fields, device), meta["total_reads"],
-            cursor, fld)
+    out = (sig_table_from_numpy(fields, device), meta["total_reads"],
+           cursor, fld)
+    return out + (meta.get("step", 0),) if with_step else out
+
+
+def host_cursor_path(path: str, rank: int) -> str:
+    return f"{path}.host{rank}.npz"
+
+
+def save_host_cursor(path: str, rank: int, stream_state: Optional[dict],
+                     total_reads: int, step: int,
+                     fld: Optional[Tuple[np.ndarray, int]] = None) -> None:
+    """A rank's sidecar of a multi-process checkpoint: its cursor, read
+    count and FLD state, stamped with the save's ``step`` so that a
+    restore can prove the table file and every sidecar came from one
+    save. The JAX package's keys, plus ``fld_hist``/``fld_fed``."""
+    cursor_meta, arrays = _cursor_to_arrays(stream_state)
+    meta = dict(format=FORMAT, total_reads=int(total_reads),
+                cursor=cursor_meta, step=int(step), process_index=int(rank))
+    if fld is not None:
+        arrays["fld_hist"] = _host(fld[0])
+        meta["fld_fed"] = int(fld[1])
+    out = host_cursor_path(path, rank)
+    tmp = out + ".tmp.npz"
+    with open(tmp, "wb") as fh:
+        np.savez_compressed(
+            fh,
+            meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+            **arrays)
+    os.replace(tmp, out)
+
+
+def load_host_cursor(path: str, rank: int):
+    """(cursor, total_reads, step, fld) of a rank's sidecar, or None when
+    it is absent."""
+    out = host_cursor_path(path, rank)
+    if not os.path.exists(out):
+        return None
+    with np.load(out, allow_pickle=False) as z:
+        meta = json.loads(bytes(z["meta"]).decode())
+        if meta["format"] != FORMAT:
+            raise ValueError(f"cursor format {meta['format']} != {FORMAT}")
+        fld = ((z["fld_hist"], meta["fld_fed"]) if "fld_hist" in z.files
+               else None)
+        return (_cursor_from_npz(z, meta["cursor"]), meta["total_reads"],
+                meta.get("step", 0), fld)
 
 
 def adapt_ec_count(table, target_shape):

@@ -136,10 +136,13 @@ def test_cli_bootstrap_writes_replicates(world):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--data-shards", "2"], "Multi-GPU"),
-    (["--distributed"], "Multi-GPU"),
+    (["--index-shards", "2"], r"Multi-GPU \(prefix-sharded index\)"),
+    (["--index-shards", "4", "--data-shards", "2"],
+     r"Multi-GPU \(prefix-sharded index\)"),
 ])
 def test_cli_refuses_unported(argv, item):
+    """The prefix-sharded index is not ported: the CLI refuses it before
+    it reads anything, naming its ROADMAP.md item."""
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli.main(["infer", "index.npz", "out", "r1.fq", "--device", "cpu",
                   *argv])
@@ -250,9 +253,9 @@ def test_cli_flags_reach_the_config(world, monkeypatch):
     seen = []
     real = quantifier.Quantifier.__init__
 
-    def spy(self, index, cfg, device="cuda"):
+    def spy(self, index, cfg, device="cuda", **kw):
         seen.append(cfg.map)
-        real(self, index, cfg, device=device)
+        real(self, index, cfg, device=device, **kw)
 
     monkeypatch.setattr(quantifier.Quantifier, "__init__", spy)
     out = str(tmp / "flags_out")

@@ -61,7 +61,8 @@ def port_config(cfg):
     if isinstance(cfg, jconfig.PipelineConfig):
         return tconfig.PipelineConfig(index=port_config(cfg.index),
                                       map=port_config(cfg.map),
-                                      em=port_config(cfg.em))
+                                      em=port_config(cfg.em),
+                                      shard=port_config(cfg.shard))
     return getattr(tconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
 
 
@@ -79,9 +80,11 @@ def assert_same_index(a, b):
 
 
 def _port_sources():
+    """The port (``parallel/`` included), ``chip_smoke.py`` and the rank
+    functions the multi-process tests spawn."""
     files = sorted((REPO / "seekmer_tpu_torch").rglob("*.py"))
     return files + sorted((REPO / "tools").glob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_workers.py"]
 
 
 def _banned(name: str) -> bool:
@@ -173,16 +176,16 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["IndexConfig", "MapConfig", "EMConfig",
-                                  "PipelineConfig"])
+                                  "ShardConfig", "PipelineConfig"])
 def test_config_fields_and_defaults_match(name):
-    """Same fields, defaults and validation; the port's PipelineConfig has
-    no ``shard`` (the port runs on one device)."""
+    """Same fields, defaults and validation, ``ShardConfig`` and
+    ``PipelineConfig.shard`` included."""
     def default(f):
         d = f.default
         return dataclasses.asdict(d) if dataclasses.is_dataclass(d) else d
 
     want = {f.name: default(f) for f in dataclasses.fields(
-        getattr(jconfig, name)) if f.name != "shard"}
+        getattr(jconfig, name))}
     got = {f.name: default(f) for f in dataclasses.fields(
         getattr(tconfig, name))}
     assert got == want

@@ -437,9 +437,9 @@ def test_cli_probe_stride_reaches_the_config(world, tmp_path, monkeypatch):
     seen = []
     real = quantifier.Quantifier.__init__
 
-    def spy(self, index, cfg, device="cuda"):
+    def spy(self, index, cfg, device="cuda", **kw):
         seen.append(cfg.map)
-        real(self, index, cfg, device=device)
+        real(self, index, cfg, device=device, **kw)
 
     monkeypatch.setattr(quantifier.Quantifier, "__init__", spy)
     out = str(tmp_path / "out")
