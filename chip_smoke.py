@@ -7,14 +7,15 @@
 batch to PATH, for ``python -m seekmer_tpu_torch.utils.kernel_ab``, and
 config 2's EC table to PATH.c2_ec.npz, for ``python -m
 tests.test_torch_bootstrap``. ``--dp-cards 2,4`` runs only phase 7's
-``[dp ...]`` checks, over NCCL with a rank on each of 2, then 4 cards,
-after the one-rank runs they are held to; it holds no kernel against its
-plain version, so its last line is ``{"dp_cards_ok": true, ...}``, never
-the full run's ``{"ok": true, ...}``.)
+``[dp ...]`` and phase 8's ``[ps ...]`` checks, over NCCL with a rank on
+each of 2, then 4 cards, after the one-rank runs they are held to; it
+holds no kernel against its plain version, so its last line is
+``{"dp_cards_ok": true, ...}``, never the full run's ``{"ok": true,
+...}``.)
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit, build the nine kernels from
+1. print the card's name and power limit, build the kernels from
    ``seekmer_tpu_torch/csrc`` with nvcc (sm_90a, one nvcc per source);
 2. make two worlds from a seed and index them through the port's CLI: the
    config-1 world (1000 random transcripts, 4 x 65,536 single-end 100 bp
@@ -29,7 +30,10 @@ Phases; any failure exits non-zero:
    TFLOP/s; for K4 the operations on M's nonzeros): K1 pack (one mate,
    and both mates into one output), K2 lookup, K3 signature and A1
    accumulate at the shapes of one paired config-2 batch, K2 also on one
-   config-1 batch (a table that mostly sits in L2); K3 also on the rows of
+   config-1 batch (a table that mostly sits in L2); R1 (route: owner,
+   rank within the owner, send slab) and R2 (unroute) on the first half
+   of the config-2 batch, a rank's rows at 2 ranks (``[R1 route config
+   2]``, ``[R2 unroute config 2]``, R2 beside ``index_put_``); K3 also on the rows of
    ``tests/synthetic_signatures.py`` (both of its paths), with the
    run-head histogram of both batches; A1 also on a table pre-seeded with
    a colliding key, timed as claim alone and claim plus audit, empty
@@ -147,6 +151,21 @@ Phases; any failure exits non-zero:
    on both ranks. ``[dp c1 fast]``, ``[dp c1 strided]``:
    ``probe_sample`` 16 and ``probe_stride`` 4 at 2 ranks, mapped equal to
    one rank's ``infer``.
+8. the prefix-sharded index (run last, after phase 5's traces): 2
+   ranks on the one card over gloo, index layout (1, 2), a prefix shard
+   of the index a rank, lookups routed by ``all_to_all`` (R1, K2 on the
+   shard, R2), launch counts from 0 in each rank. ``[ps c2 map]``: the
+   main path, ``Quantifier`` with ``ShardConfig(index_axis=2,
+   index_mode="prefix")`` on config 2 (FLD estimated against shard 0,
+   ``--bootstrap 100``): the merged MapResult equal to one card's; the
+   shard-0 FLD histogram summed over the ranks equal to one card's
+   shard-0 estimator fed the global batches whole; est_counts bit-equal
+   to one card's quantifier given that fragment length; R1, R2, K1-K3
+   and A1 launched on each rank; walls, the shards' build apart, and
+   the bytes an ``all_to_all`` moves. ``[ps c2 fast s=16]``: sampled
+   routing, the MapResult equal to one card's fast mode (no K5).
+   ``[ps c1 low-capacity]``: config 1 at capacity factor 0.3, extra
+   routing rounds > 0 and the MapResult equal to one card's.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -789,6 +808,87 @@ def a1_tables_diff(tables, B: int, what: str):
                abs(mk.collisions - mp.collisions)), mk
 
 
+def check_route(hi, lo, valid, di, want):
+    """``[R1 route ...]``, ``[R2 unroute ...]``: the routing kernels on the
+    first half of a paired config-2 batch (a rank's rows at 2 ranks), 2
+    owners at capacity factor 2 (one round). R1's rank entry against its
+    plain version (owners and counts equal, each owner's ranks a
+    permutation of 0..count-1: the kernel's order within an owner varies
+    from run to run), its dispatch against the plain dispatch on the
+    kernel's ranks (every filled slot equal); the slab looked up by K2 on
+    the whole table and R2's unroute of the ECs against its plain version
+    and against K2 on the lanes themselves. R1's time is its rank entry
+    plus one dispatch; its bound moves hi, lo and valid in and owner,
+    rank and the routed slots out; R2's moves a filled slot's EC and
+    index in and its lane's EC out, beside ``index_put_`` of the same
+    values. Returns (R1, R2) records."""
+    import torch
+
+    from seekmer_tpu_torch.ops import probe_cuda, route, route_cuda
+    from seekmer_tpu_torch.parallel.prefix_shard import capacity
+
+    D = 2
+    half = hi.shape[0] // 2
+    hi, lo, valid = (t[:half].reshape(-1) for t in (hi, lo, valid))
+    want = want[:half].reshape(-1)
+    N = hi.numel()
+    K = capacity(N, D, 2.0)
+    owner, rank, counts = route_cuda.route_rank(hi, lo, valid, D)
+    p_owner, p_rank, p_counts = route.route_rank(hi, lo, valid, D)
+    err = max(max_abs_diff(owner, p_owner), max_abs_diff(counts, p_counts))
+    for d in range(D):
+        mine = torch.sort(rank[owner == d]).values
+        check(torch.equal(mine, torch.arange(int(counts[d]), device=hi.device,
+                                             dtype=mine.dtype)),
+              f"[R1 route] owner {d}'s ranks are not 0..count-1")
+    check(bool((rank[owner == D] == -1).all()), "[R1 route] invalid ranks")
+    slab = route_cuda.dispatch(hi, lo, owner, rank, D, 0, K)
+    f = route.filled(counts, 0, K)
+    err = max(err, *(max_abs_diff(a[f], b[f]) for a, b in zip(
+        slab, route.dispatch(hi, lo, owner, rank, D, 0, K))))
+    geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
+    ec_q = probe_cuda.lookup_ecs(slab[0], slab[1], f, *geo)
+    empty = torch.full((N,), -1, dtype=torch.int32, device=hi.device)
+    ecs = route_cuda.unroute(ec_q, slab[2], counts, 0, K, empty.clone())
+    err2 = max(max_abs_diff(ecs, route.unroute(ec_q, slab[2], counts, 0, K,
+                                               empty.clone())),
+               max_abs_diff(ecs, want))
+    routed = int(counts.sum())
+
+    def r1():
+        o, r, c = route_cuda.route_rank(hi, lo, valid, D)
+        return route_cuda.dispatch(hi, lo, o, r, D, 0, K)
+
+    def r1_plain():
+        o, r, c = route.route_rank(hi, lo, valid, D)
+        return route.dispatch(hi, lo, o, r, D, 0, K)
+
+    rank_ms = cuda_ms(lambda: route_cuda.route_rank(hi, lo, valid, D), 50)
+    out1 = record(err, cuda_ms(r1, 50), cuda_ms(r1_plain, 5),
+                  (17 * N + 12 * routed + 4 * D) / HBM_BYTES_S, "bytes")
+    idx, vals = slab[2][f].long(), ec_q[f]
+    out2 = record(
+        err2, cuda_ms(lambda: route_cuda.unroute(ec_q, slab[2], counts, 0,
+                                                 K, ecs), 50),
+        cuda_ms(lambda: route.unroute(ec_q, slab[2], counts, 0, K, ecs), 10),
+        12 * routed / HBM_BYTES_S, "bytes",
+        cuda_ms(lambda: ecs.index_put_((idx,), vals), 50))
+    log(f"[R1 route config 2] {N} lanes ({half} pairs x {hi.numel() // half}"
+        f" windows), {D} owners, K {K}: counts {counts.tolist()} "
+        f"({routed} valid lanes), max_abs_err {err} (owners, counts, every "
+        f"filled slot; each owner's ranks a permutation); rank entry "
+        f"{rank_ms:.6f} ms, rank + dispatch {out1['ms']:.6f} ms, plain "
+        f"{out1['plain_ms']:.6f} ms, bound {out1['bound_ms']:.6f} ms (share "
+        f"{out1['bound_ms'] / out1['ms']:.6f})")
+    log(f"[R2 unroute config 2] {D * K} slots, {routed} filled: max_abs_err "
+        f"{err2} (against its plain version and K2 on the lanes "
+        f"themselves), kernel {out2['ms']:.6f} ms, plain "
+        f"{out2['plain_ms']:.6f} ms, index_put_ {out2['library_ms']:.6f} ms,"
+        f" bound {out2['bound_ms']:.6f} ms (share "
+        f"{out2['bound_ms'] / out2['ms']:.6f})")
+    return out1, out2
+
+
 def compare_kernels(work: Path, batches, keep_inputs=None):
     """Each kernel against its plain version at one paired config-2 batch's
     shapes, with the bytes each must move at the least (each input read
@@ -862,6 +962,7 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
     check(c1["max_abs_err"] == 0, "K2 disagrees with its plain version on "
           f"config 1: {c1['max_abs_err']}")
     ecs = got[0]
+    out["R1"], out["R2"] = check_route(hi, lo, valid, di, ecs)
     C = 16
     if keep_inputs:
         torch.save({"ecs": ecs.cpu(), "valid": valid.cpu(), "max_ecs": C,
@@ -1597,27 +1698,32 @@ def check_ec_sum(ec, lengths):
 def reset_launches():
     from seekmer_tpu_torch.ops import (accumulate_cuda, em_csr_cuda,
                                        em_cuda, fast_cuda, pack_cuda,
-                                       probe_cuda, sig_cuda, strided_cuda)
+                                       probe_cuda, route_cuda, sig_cuda,
+                                       strided_cuda)
 
     for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
                sig_cuda.read_signatures, accumulate_cuda.fold_batch,
                em_cuda.em_fixed_point, fast_cuda.sample_classify,
                fast_cuda.merge_staging, em_csr_cuda.em_steps,
-               strided_cuda.lookup_ecs_strided, em_csr_cuda.ec_sums):
+               strided_cuda.lookup_ecs_strided, em_csr_cuda.ec_sums,
+               route_cuda.route_rank, route_cuda.dispatch,
+               route_cuda.unroute):
         fn.launches = 0
 
 
 FAST = ("sample", "merge")  # fast mode's kernels
 STRIDED = ("strided",)  # strided mode's
+ROUTED = ("route", "unroute")  # the prefix-sharded index's
 
 
 def run_infer(work: Path, tag: str, argv, unused=(), name=None):
     """Run the CLI's infer on world ``tag`` into ``<name>_out``; every
-    kernel but those in ``unused`` must have launched during it, and those
-    in ``unused`` must not have."""
+    kernel but those in ``unused`` and R1 and R2 must have launched during
+    it, and those must not have."""
     from seekmer_tpu_torch import cli
 
     name = name or tag
+    unused = (*unused, *ROUTED)  # one card routes nothing
     out = work / f"{name}_out"
     reset_launches()
     t0 = time.perf_counter()
@@ -2493,8 +2599,8 @@ def reads_in_memory(work: Path, card: str) -> dict:
 
 
 def slice_phases(work: Path, card: str) -> dict:
-    """Checkpoints, the pack cache, traces and reads in memory; returns
-    the sum of their runs' launches."""
+    """Checkpoints, several ranks, the pack cache, traces and reads in
+    memory; returns the sum of their runs' launches."""
     from seekmer_tpu_torch.index.store import KMerIndex
 
     runs = []
@@ -2886,8 +2992,271 @@ def dp_cards(work: Path, card: str, ranks) -> None:
     del index
     torch.cuda.empty_cache()
     for n in ranks:
-        dp_phase(work, card, plain, fin.calls[-1][1],
-                 devices=[f"cuda:{r}" for r in range(n)], backend="nccl")
+        devices = [f"cuda:{r}" for r in range(n)]
+        dp_phase(work, card, plain, fin.calls[-1][1], devices=devices,
+                 backend="nccl")
+        ps_phase(work, card, devices=devices, backend="nccl")
+
+
+# ---- the prefix-sharded index ---------------------------------------------
+
+PS_DEADLINE_S = 480  # the [ps ...] phase's whole launch; then it is killed
+
+
+def ps_rank(rank, device, work, cfgs):
+    """A rank of the ``[ps ...]`` phase: the main path (``cfgs["c2"]``:
+    config 2 paired under the prefix-sharded index, FLD estimated,
+    ``--bootstrap 100``; launch counts from 0 just before, read just
+    after), then config 2 in fast mode at s = 16 and config 1 at capacity
+    factor 0.3 through the mapper alone. Rank 0 also samples shard 0 for
+    the FLD on one card, fed the global batches whole."""
+    import torch
+
+    from seekmer_tpu_torch import cli
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.io.fastq import (batch_read_pairs_native,
+                                            batch_reads_native)
+    from seekmer_tpu_torch.map.fld import FLDEstimator
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+    from seekmer_tpu_torch.parallel import comm
+    from seekmer_tpu_torch.parallel.prefix_shard import PrefixShardedMapper
+
+    out = {"rank": rank}
+    index = KMerIndex.load(str(work / "c2.npz"))
+    files = ([str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
+    cfg = cfgs["c2"]
+
+    # [ps c2 map]: the main path
+    with Spy(PrefixShardedMapper, "finalize") as fin, \
+            Spy(PrefixShardedMapper, "__init__") as init:
+        comm.barrier()
+        reset_launches()
+        wall, res = timed(lambda: Quantifier(index, cfg, device)
+                          .quantify_files(*files), device)
+        out["launches"] = cli.kernel_launches()
+    mapper = fin.obj
+    out.update(wall=wall, setup=init.calls[0][0], map=fin.calls[-1][1],
+               timings=res.timings,
+               mapped=res.mapped, est_counts=res.est_counts,
+               fld=(res.fld_mean, res.fld_sd, res.fld_samples),
+               batches=mapper._fed_batches, hist=mapper.fld_histogram(),
+               own_hist=mapper.fld.hist.cpu().numpy(),
+               rounds=mapper.extra_routing_rounds,
+               shard_bytes=(mapper.sdi.table.numel()
+                            + mapper.sdi.stash.numel()) * 4)
+    if rank == 0:
+        table0, tid0, pos0 = mapper._fld_shard0
+        est = FLDEstimator.for_prefix_shard0(
+            index, torch.from_numpy(table0).to(device), tid0, pos0,
+            mapper.n_index)
+        for b in batch_read_pairs_native(*files, cfg.map):
+            if not est.active:
+                break
+            est.feed(b)
+        out["one_hist"] = est.hist.cpu().numpy()
+    del mapper, fin
+
+    def mapped_alone(index, mcfg, batches, cf=2.0):
+        comm.barrier()
+        reset_launches()
+        m = PrefixShardedMapper(index, mcfg, cfg.shard, device,
+                                capacity_factor=cf)
+        wall, r = timed(lambda: m.run(m.select(batches)), device)
+        return dict(map=r, wall=wall, rounds=m.extra_routing_rounds,
+                    launches=cli.kernel_launches())
+
+    # [ps c2 fast s=16]
+    out["fast"] = mapped_alone(index, cfgs["c2_fast"].map,
+                               batch_read_pairs_native(*files,
+                                                       cfgs["c2_fast"].map))
+    # [ps c1 low-capacity]
+    index1 = KMerIndex.load(str(work / "c1.npz"))
+    c1 = cfgs["c1"].map
+    out["c1"] = mapped_alone(index1, c1, batch_reads_native(
+        [str(work / "c1.fq")], c1), cf=0.3)
+    return out
+
+
+def ps_references(work: Path):
+    """The one-card runs the ``[ps ...]`` checks hold the ranks to, in this
+    process: config 2 dense and in fast mode at s = 16, config 1 dense
+    ((seconds, MapResult) each) and, given the ranks' FLD estimate,
+    config 2's quantifier with that fragment length
+    (``ps_est_counts``)."""
+    import torch
+
+    from seekmer_tpu_torch import MapConfig
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.io.fastq import (batch_read_pairs_native,
+                                            batch_reads_native)
+    from seekmer_tpu_torch.map.driver import Mapper
+
+    dev = torch.device(DEVICE)
+    out = {}
+    index = KMerIndex.load(str(work / "c2.npz"))
+    for name, s in (("c2", 0), ("fast", 16)):
+        cfg = MapConfig(batch_size=B, sig_table_bits=22, paired_end=True,
+                        probe_sample=s)
+        m = Mapper(index, cfg, DEVICE)
+        out[name] = timed(lambda: m.run(batch_read_pairs_native(
+            [str(work / "c2_1.fq")], [str(work / "c2_2.fq")], cfg)), dev)
+        del m
+    del index
+    index1 = KMerIndex.load(str(work / "c1.npz"))
+    c1 = MapConfig(batch_size=B)
+    m = Mapper(index1, c1, DEVICE)
+    out["c1"] = timed(lambda: m.run(batch_reads_native(
+        [str(work / "c1.fq")], c1)), dev)
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def ps_est_counts(work: Path, fld):
+    """One card's config-2 quantifier with ``--bootstrap 100`` and the
+    fragment length ``fld`` (mean, sd, samples) given: (seconds,
+    QuantResult)."""
+    import torch
+
+    from seekmer_tpu_torch.index.store import KMerIndex
+    from seekmer_tpu_torch.models.quantifier import Quantifier
+
+    index = KMerIndex.load(str(work / "c2.npz"))
+    cfg = c2_pipeline(mean_fragment_length=fld[0], fragment_length_sd=fld[1],
+                      estimate_fld=False, bootstrap_samples=100)
+    out = timed(lambda: Quantifier(index, cfg, DEVICE).quantify_files(
+        [str(work / "c2_1.fq")], [str(work / "c2_2.fq")]),
+        torch.device(DEVICE))
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
+def ps_phase(work: Path, card: str, devices=None,
+             backend: str = "gloo") -> dict:
+    """``[ps ...]``: the prefix-sharded index, a shard a rank, each rank's
+    kernels on its card, through ``parallel.comm.launch``: by default 2
+    ranks on the one card over gloo (NCCL refuses two ranks on one GPU),
+    index layout (1, 2); ``devices`` and ``backend`` put a rank on each of
+    several cards over NCCL, layout (1, n). Returns the launch counts of
+    the ranks' runs, summed."""
+    import numpy as np
+
+    from seekmer_tpu_torch import MapConfig, PipelineConfig, ShardConfig
+    from seekmer_tpu_torch.map.fld import estimate_from_hist
+    from seekmer_tpu_torch.parallel import comm
+
+    if devices is None:
+        devices = [DEVICE if DEVICE == "cpu" else "cuda:0"] * DP_RANKS
+    n = len(devices)
+    where = (f"{n} ranks on {len(set(devices))} card(s), {backend}, index "
+             f"layout (1, {n})")
+    shard = ShardConfig(data_axis=1, index_axis=n, index_mode="prefix")
+    cfgs = {"c2": c2_pipeline(bootstrap_samples=100).replace(shard=shard),
+            "c2_fast": PipelineConfig().replace(map=MapConfig(
+                batch_size=B, sig_table_bits=22, paired_end=True,
+                probe_sample=16), shard=shard),
+            "c1": PipelineConfig().replace(map=MapConfig(batch_size=B),
+                                           shard=shard)}
+    ref = ps_references(work)
+    plain_map = ref["c2"][1]
+    t0 = time.perf_counter()
+    outs = comm.launch(n, ps_rank, (work, cfgs), devices=devices,
+                       backend=backend, timeout_s=PS_DEADLINE_S,
+                       collective_timeout_s=DP_COLLECTIVE_S)
+    wall = time.perf_counter() - t0
+    r0 = outs[0]
+    one_wall, one = ps_est_counts(work, r0["fld"])
+
+    def each(get, fmt="{:.6f}"):
+        return " / ".join(fmt.format(get(o)) for o in outs)
+
+    def stages(t):
+        return ", ".join(f"{k} {t[k + '_s']:.6f} s"
+                         for k in ("map", "resolve", "em", "bootstrap"))
+
+    need = (*MAIN, *ROUTED)
+    # [ps c2 map]
+    want_fld = estimate_from_hist(r0["one_hist"])
+    for o in outs:
+        check(same_map(o["map"], plain_map),
+              f"[ps c2 map] rank {o['rank']}'s merged MapResult differs "
+              "from the one-rank run's")
+        check(np.array_equal(o["hist"], r0["one_hist"]),
+              "[ps c2 map] the shard-0 FLD histogram summed over the ranks "
+              "differs from one card's")
+        check(o["fld"] == want_fld, f"[ps c2 map] FLD estimate {o['fld']} "
+              f"!= one card's shard-0 estimate {want_fld}")
+        check(np.array_equal(o["est_counts"], one.est_counts),
+              "[ps c2 map] est_counts differ from one card's bits at the "
+              "same fragment length")
+        for k in need:
+            check(o["launches"][k] > 0, f"[ps c2 map] rank {o['rank']}: "
+                  f"kernel {k} was never launched")
+    check(np.array_equal(sum(o["own_hist"] for o in outs), r0["one_hist"]),
+          "[ps c2 map] the ranks' own histograms do not add up")
+    m = r0["map"]
+    lanes = B // n * 2 * (128 - 25 + 1)
+    K = int(np.ceil(lanes / n * 2.0))
+    log(f"[ps c2 map] {where}: batches {each(lambda o: o['batches'], '{}')}"
+        f", mapped {m.mapped} / {m.total_reads} and {m.sigs.shape[0]} "
+        f"signatures equal to one rank's, extra routing rounds "
+        f"{r0['rounds']}; shard-0 FLD histogram summed "
+        f"({int(r0['hist'][1:].sum())} pairs: "
+        f"{each(lambda o: int(o['own_hist'][1:].sum()), '{}')}) equal to one "
+        f"card's shard-0 estimator, estimate {r0['fld']}; est_counts "
+        f"bit-equal to one card's quantifier at that fragment length; a "
+        f"rank's shard {r0['shard_bytes']} bytes; a "
+        f"batch routes {lanes} lanes a rank, K {K}, each all_to_all out "
+        f"moves {n * K * 4} bytes a rank (hi, then lo), the one back as "
+        f"many; map stage {each(lambda o: o['timings']['map_s'])} s (one "
+        f"card {one.timings['map_s']:.6f} s); quantify with --bootstrap 100 "
+        f"{each(lambda o: o['wall'], '{:.3f}')} s (the shards' build and "
+        f"upload {each(lambda o: o['setup'], '{:.3f}')} s of it; rank 0: "
+        f"{stages(r0['timings'])}) against one card {one_wall:.3f} s "
+        f"({stages(one.timings)}); launches "
+        f"{[o['launches'] for o in outs]}; {card}")
+
+    # [ps c2 fast s=16]
+    one_wall, want = ref["fast"]
+    for o in outs:
+        check(same_map(o["fast"]["map"], want),
+              f"[ps c2 fast s=16] rank {o['rank']}: the MapResult differs "
+              "from one card's fast mode")
+        for k in ("pack", "lookup", "signature", "merge", "accumulate",
+                  *ROUTED):
+            check(o["fast"]["launches"][k] > 0, f"[ps c2 fast s=16] rank "
+                  f"{o['rank']}: kernel {k} was never launched")
+        check(o["fast"]["launches"]["sample"] == 0,
+              "[ps c2 fast s=16] K5 launched under the sharded index")
+    log(f"[ps c2 fast s=16] {where}: mapped {want.mapped} / "
+        f"{want.total_reads} and {want.sigs.shape[0]} signatures equal to "
+        f"one card's fast mode; map {each(lambda o: o['fast']['wall'])} s "
+        f"(one card {one_wall:.6f} s); launches "
+        f"{[o['fast']['launches'] for o in outs]}; {card}")
+
+    # [ps c1 low-capacity]
+    one_wall, want = ref["c1"]
+    for o in outs:
+        check(same_map(o["c1"]["map"], want),
+              f"[ps c1 low-capacity] rank {o['rank']}: the MapResult "
+              "differs from one card's")
+        check(o["c1"]["rounds"] > 0, "[ps c1 low-capacity] capacity "
+              "factor 0.3 took no extra routing round")
+    log(f"[ps c1 low-capacity] {where}, capacity factor 0.3: extra routing "
+        f"rounds {r0['c1']['rounds']}, mapped {want.mapped} / "
+        f"{want.total_reads} and {want.sigs.shape[0]} signatures equal to "
+        f"one card's; map {each(lambda o: o['c1']['wall'])} s (one card "
+        f"{one_wall:.6f} s); {card}")
+    log(f"[ps] {where}: phase wall {wall:.1f} s ({n} ranks spawned, each "
+        f"loading both indexes and building the shards)")
+    total = {k: sum(o["launches"][k] for o in outs)
+             for k in r0["launches"]}
+    for name in ("fast", "c1"):
+        for o in outs:
+            for k, v in o[name]["launches"].items():
+                total[k] += v
+    return total
 
 
 KERNELS = [
@@ -2911,6 +3280,10 @@ KERNELS = [
      "seekmer_tpu/ops/probe.py:493"),
     ("A4", "ec_sum", "seekmer_tpu_torch/csrc/em_csr.cu",
      "seekmer_tpu/em/em.py:441"),
+    ("R1", "route", "seekmer_tpu_torch/csrc/route.cu",
+     "seekmer_tpu/parallel/prefix_shard.py:205"),
+    ("R2", "unroute", "seekmer_tpu_torch/csrc/route.cu",
+     "seekmer_tpu/parallel/prefix_shard.py:247"),
 ]
 
 
@@ -2977,6 +3350,9 @@ def main(argv=None) -> int:
         more = slice_phases(work, card)
         launches = {k: launches[k] + more[k] for k in launches}
         timing.update(profile_stages(work, args.keep_inputs))
+        # the prefix-sharded index last: its launches are R1's and R2's
+        more = ps_phase(work, card)
+        launches = {k: launches[k] + more[k] for k in launches}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -28,8 +28,12 @@ parses every ``infer`` flag of the JAX CLI:
   (``--data-shards`` is then 1 or the world size). Rank 0 writes the
   outputs; ``run_info.json`` holds the ranks (``world_size``) and the
   kernels' launches summed over them;
-- ``--index-shards`` > 1, the prefix-sharded index, is refused with an
-  error naming its ROADMAP.md item.
+- ``--index-shards N`` (N > 1, a power of two) cuts the index into N
+  prefix shards, one a rank (``parallel/prefix_shard.py``): on one host
+  ``--data-shards D --index-shards N`` starts D x N ranks as above, rank
+  r holding shard r mod N and mapping its rows of every batch; under
+  ``--distributed`` the world must be D x N, and a host's ranks, whole
+  index groups, split the rows of the files on its command line.
 
 ``fuse`` (``_add_fuse`` and ``cmd_fuse`` after ``seekmer_tpu/cli.py``)
 takes the JAX CLI's arguments and ``--device``, and writes the same
@@ -45,14 +49,6 @@ import sys
 import time
 
 import numpy as np
-
-
-class NotPorted(SystemExit):
-    """A requested feature is not in the port yet (exit status 2)."""
-
-    def __init__(self, what: str, item: str):
-        super().__init__(f"seekmer_tpu_torch: {what} is not ported yet "
-                         f"(ROADMAP.md, still to port: {item})")
 
 
 def _add_index(sub):
@@ -150,8 +146,10 @@ def _add_infer(sub):
     p.add_argument("--data-shards", type=int, default=1,
                    help="ranks that map, one a card (cuda:0..N-1, or N "
                         "CPU ranks with --device cpu)")
-    # refused until the prefix-sharded index is ported
-    p.add_argument("--index-shards", type=int, default=1)
+    p.add_argument("--index-shards", type=int, default=1,
+                   help="prefix-shard the index over this many ranks, one "
+                        "shard a rank (a power of two; --data-shards x "
+                        "--index-shards ranks in all)")
     p.add_argument("--distributed", action="store_true",
                    help="join the torch.distributed group torchrun "
                         "describes: one rank a process on cuda:LOCAL_RANK; "
@@ -195,16 +193,11 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
-    if args.index_shards != 1:
-        raise NotPorted("the prefix-sharded index (--index-shards)",
-                        "Multi-GPU (prefix-sharded index)")
-
-
 def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers in this process."""
     from .ops import (accumulate_cuda, em_csr_cuda, em_cuda, fast_cuda,
-                      pack_cuda, probe_cuda, sig_cuda, strided_cuda)
+                      pack_cuda, probe_cuda, route_cuda, sig_cuda,
+                      strided_cuda)
 
     return {"pack": pack_cuda.pack_canonical_2bit.launches,
             "lookup": probe_cuda.lookup_ecs_aux.launches,
@@ -215,17 +208,28 @@ def kernel_launches() -> dict:
             "merge": fast_cuda.merge_staging.launches,
             "em_csr": em_csr_cuda.em_steps.launches,
             "strided": strided_cuda.lookup_ecs_strided.launches,
-            "ec_sum": em_csr_cuda.ec_sums.launches}
+            "ec_sum": em_csr_cuda.ec_sums.launches,
+            # R1's two entries, and R2
+            "route": (route_cuda.route_rank.launches
+                      + route_cuda.dispatch.launches),
+            "unroute": route_cuda.unroute.launches}
 
 
 def cmd_infer(args) -> int:
     from .map.driver import check_device
     from .parallel import comm
 
-    _refuse_unported(args)
+    if args.index_shards < 1:
+        raise ValueError(f"--index-shards {args.index_shards} < 1")
     if args.distributed:
         device = comm.init_distributed(device=args.device)
-        if args.data_shards not in (1, comm.world()):
+        if args.index_shards > 1:
+            if args.data_shards * args.index_shards != comm.world():
+                raise ValueError(
+                    f"--data-shards {args.data_shards} x --index-shards "
+                    f"{args.index_shards} under --distributed: must be "
+                    f"the world size {comm.world()}")
+        elif args.data_shards not in (1, comm.world()):
             raise ValueError(f"--data-shards {args.data_shards} under "
                              f"--distributed: 1 or the world size "
                              f"{comm.world()}")
@@ -234,33 +238,37 @@ def cmd_infer(args) -> int:
                  int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
         return _run_infer(args, check_device(device), comm.world(),
                           input_share=share)
-    if args.data_shards > 1:
-        return _launch_infer(args)
     if args.data_shards < 1:
         raise ValueError(f"--data-shards {args.data_shards} < 1")
+    if args.data_shards * args.index_shards > 1:
+        return _launch_infer(args)
     return _run_infer(args, check_device(args.device), 1)
 
 
 def _launch_infer(args) -> int:
-    """``--data-shards N`` on one host: N ranks, rank r on ``cuda:r`` (or
-    the CPU), each mapping global batches r, r + N, ..."""
+    """``--data-shards D --index-shards N`` on one host: D x N ranks, rank
+    r on ``cuda:r`` (or the CPU); with N = 1 each maps global batches r,
+    r + D, ..., with N > 1 its rows of every batch against shard r mod
+    N."""
     import torch
 
     from .map.driver import check_device
     from .parallel import comm
 
-    n = args.data_shards
+    n = args.data_shards * args.index_shards
+    flags = (f"--data-shards {args.data_shards} --index-shards "
+             f"{args.index_shards}")
     dev = torch.device(args.device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} was requested but CUDA is not "
                                "available")
         if dev.index is not None:
-            raise ValueError("--data-shards N takes --device cuda (rank r "
-                             "runs on cuda:r) or --device cpu")
+            raise ValueError(f"{flags} takes --device cuda (rank r runs on "
+                             "cuda:r) or --device cpu")
         if torch.cuda.device_count() < n:
-            raise RuntimeError(f"--data-shards {n} needs {n} CUDA devices; "
-                               f"this host has {torch.cuda.device_count()}")
+            raise RuntimeError(f"{flags} needs {n} CUDA devices; this host "
+                               f"has {torch.cuda.device_count()}")
         devices = [f"cuda:{r}" for r in range(n)]
     else:
         devices = [str(check_device(dev))] * n
@@ -270,7 +278,7 @@ def _launch_infer(args) -> int:
 
 
 def _infer_rank(rank: int, device, args) -> int:
-    """A rank of ``--data-shards N``, in its own process."""
+    """A rank of ``_launch_infer``, in its own process."""
     from .parallel import comm
 
     logging.basicConfig(
@@ -321,7 +329,10 @@ def _run_infer(args, device, ranks: int, input_share=None) -> int:
             bootstrap_samples=args.bootstrap,
             bootstrap_seed=args.seed,
             use_x64=args.x64),
-        shard=ShardConfig(data_axis=ranks),
+        shard=(ShardConfig(data_axis=ranks // args.index_shards,
+                           index_axis=args.index_shards,
+                           index_mode="prefix")
+               if args.index_shards > 1 else ShardConfig(data_axis=ranks)),
     )
     q = Quantifier(index, cfg, device=device, input_share=input_share)
     label = "infer" if ranks == 1 else f"infer.rank{comm.rank()}"

@@ -8,9 +8,10 @@ pick between XLA and Pallas (``pack_backend``, ``probe_backend``,
 ``sig_backend``) or bound TPU memory (``probe_chunks``) are kept for that
 equality and ignored by the port. ``ShardConfig`` (``PipelineConfig.shard``)
 keeps the JAX package's fields: ``data_axis`` is the number of ranks that
-map (``parallel/data_parallel.py``), one process a card; ``index_axis`` >
-1, the prefix-sharded index, is refused until it is ported (ROADMAP.md,
-"Multi-GPU (prefix-sharded index)"). The axis names name no mesh here (a
+map (``parallel/data_parallel.py``), one process a card; with
+``index_mode="prefix"`` and ``index_axis`` > 1 the ranks form
+``data_axis`` rows of ``index_axis``, each holding one prefix shard of the
+index (``parallel/prefix_shard.py``). The axis names name no mesh here (a
 rank is a card) and are kept for the equality of the dataclass.
 """
 
@@ -251,7 +252,7 @@ class ShardConfig:
     index_axis: int = 1
     data_axis_name: str = "reads"
     index_axis_name: str = "index"
-    # "replicated" or "prefix" (the prefix-sharded index, not ported yet)
+    # "replicated" or "prefix" (the prefix-sharded index: index_axis shards)
     index_mode: str = "replicated"
 
 

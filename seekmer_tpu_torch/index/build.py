@@ -157,13 +157,16 @@ def build_bucket_table(
     bucket: int,
     hash_fn,
     aux: Optional[np.ndarray] = None,
+    return_placement: bool = False,
 ) -> Tuple[np.ndarray, ...]:
     """Place keys in their home bucket (hash & (n_buckets-1)); a bucket holds
     ``bucket`` slots. Keys whose home bucket is full are returned in the
     overflow mask, NOT placed: the caller routes them to the stash.
 
-    Returns (table int32[n_buckets*bucket, 4], overflow_mask, slot, src):
-    placed key ``src[i]`` landed in table slot ``slot[i]``.
+    Returns (table int32[n_buckets*bucket, 4], overflow_mask), as the JAX
+    package's does; ``return_placement`` appends (slot, src): placed key
+    ``src[i]`` landed in table slot ``slot[i]``, from which callers fill
+    per-slot payloads (the FLD positions).
     """
     mask = np.uint32(n_buckets - 1)
     homes = (hash_fn(hi.view(np.uint32), lo.view(np.uint32)) & mask).astype(
@@ -188,7 +191,9 @@ def build_bucket_table(
     table[slot, 1] = lo[src]
     table[slot, 2] = vals[src]
     table[slot, 3] = 0 if aux is None else aux[src]
-    return table, overflow, slot, src
+    if return_placement:
+        return table, overflow, slot, src
+    return table, overflow
 
 
 def build_tables(
@@ -208,7 +213,8 @@ def build_tables(
         max(int(np.ceil(n / (cfg.load_factor * G))), 2)
     )
     table, overflow, slot, src = build_bucket_table(
-        hi, lo, key_ec, n_buckets, G, hash_kmer_np, aux=aux)
+        hi, lo, key_ec, n_buckets, G, hash_kmer_np, aux=aux,
+        return_placement=True)
     n_over = int(overflow.sum())
     log.info(
         "main table: %d keys, %d buckets x %d (load %.2f), %d stashed (%.2g)",
@@ -225,7 +231,7 @@ def build_tables(
     while True:
         stash, s_over, s_slot, s_src = build_bucket_table(
             s_hi, s_lo, s_val, stash_buckets, G, hash_kmer_stash_np,
-            aux=s_aux)
+            aux=s_aux, return_placement=True)
         if not s_over.any():
             break
         stash_buckets *= 2  # extremely unlikely at stash_load

@@ -32,9 +32,20 @@ every rank derives the same effective lengths and, on one host, the one
 card's estimate exactly. This repairs fault 5 of the JAX package, whose
 hosts each estimate from their own batches alone (``seekmer_tpu/map/
 fld.py`` ``estimate``, ``seekmer_tpu/models/quantifier.py`` ``_fld_cfg``)
-and may enter one collective EM with different effective lengths. The
-prefix-sharded estimator (``for_prefix_shard0``) waits for the
-prefix-sharded index (ROADMAP.md, "Multi-GPU (prefix-sharded index)").
+and may enter one collective EM with different effective lengths.
+
+Under the prefix-sharded index (``parallel/prefix_shard.py``) no rank holds
+the whole table. ``FLDEstimator.for_prefix_shard0`` samples against prefix
+shard 0's main table, whose keys are a hash of the k-mer and so an
+unbiased 1/n sample of the index: ``fld_step``'s ``owner_bits`` keeps only
+the windows whose k-mer hashes to owner 0, and it samples 16 offsets a
+mate (``SHARD0_OFFSETS``) for the yield, as the JAX package's
+``for_prefix_shard0`` does. Each rank samples its rows of the first
+``SAMPLE_BATCHES`` paired global batches against its own copy of shard 0's
+main table and FLD payload (1/n of the table and of the payload more
+memory on every rank but shard 0's own, dropped after sampling), and the
+ranks' histograms are summed, so the estimate equals the JAX package's,
+which samples each global batch whole.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from ..ops.hash import hash_kmer
 # window offsets sampled per mate, the longest fragment kept, the number of
 # paired batches sampled and the fewest observations for an estimate.
 DEFAULT_OFFSETS = (0, 7, 15, 23)
+SHARD0_OFFSETS = tuple(range(0, 64, 4))
 MAX_LEN = 1024
 SAMPLE_BATCHES = 4
 MIN_SAMPLES = 100
@@ -89,25 +101,28 @@ def _first_unique(tid, qpos, offs):
 
 def fld_step(table, fld_tid, fld_pos, hist, packed, bad, lengths, packed2,
              bad2, lengths2, pad_len: int, k: int, main_slots: int,
-             bucket: int):
+             bucket: int, offsets=DEFAULT_OFFSETS, owner_bits: int = 0):
     """One FLD sampling step over a 2-bit packed paired batch (``pad_len``
     is the unpacked padded length); adds to ``hist`` (int32[max_len + 1],
     index 0 the reject dump) in place and returns it. Fragments shorter
     than the longer mate are rejected, as in the JAX package and the
-    oracle."""
+    oracle. ``owner_bits`` > 0 samples only the windows whose k-mer
+    hashes to prefix-shard owner 0 (``table`` is then shard 0's)."""
     max_len = hist.shape[0] - 1
 
     def mate(packed, bad, lengths):
         hi, lo, valid = pack_cuda.pack_canonical_2bit(packed, bad, lengths,
                                                       pad_len, k)
         P = hi.shape[1]
-        w = torch.tensor([o for o in DEFAULT_OFFSETS if o < P] or [0],
+        w = torch.tensor([o for o in offsets if o < P] or [0],
                          device=hi.device)
         his, los, vs = hi[:, w], lo[:, w], valid[:, w]
         B, W = his.shape
-        slot = _match_slot(his.reshape(-1), los.reshape(-1), table,
-                           main_slots, bucket)
-        ok = vs.reshape(-1) & (slot >= 0)
+        his, los, vs = his.reshape(-1), los.reshape(-1), vs.reshape(-1)
+        if owner_bits:
+            vs = vs & (hash_kmer(his, los) >> (32 - owner_bits) == 0)
+        slot = _match_slot(his, los, table, main_slots, bucket)
+        ok = vs & (slot >= 0)
         si = slot.clamp(min=0)
         tid = torch.where(ok, fld_tid[si], -1).reshape(B, W)
         qp = torch.where(ok, fld_pos[si], 0).reshape(B, W)
@@ -136,11 +151,42 @@ class FLDEstimator:
         if index.fld_tid is None:
             raise ValueError("index has no FLD payload "
                              "(built with fld_positions=False)")
-        self.k = index.k
-        self.main_slots = index.main_slots
-        self.bucket = index.bucket
         self.device_index = device_index
-        self.device = device_index.table.device
+        # main-table part only: stash-resident k-mers are never sampled
+        self._setup(index.k, device_index.table, index.main_slots,
+                    index.bucket, index.fld_tid[:index.main_slots],
+                    index.fld_pos[:index.main_slots], DEFAULT_OFFSETS, 0,
+                    state, sample_batches)
+
+    @classmethod
+    def for_prefix_shard0(cls, index: KMerIndex, table0: torch.Tensor,
+                          fld_tid0: np.ndarray, fld_pos0: np.ndarray,
+                          n_shards: int,
+                          state: Optional[Tuple[np.ndarray, int]] = None,
+                          sample_batches: int = SAMPLE_BATCHES
+                          ) -> "FLDEstimator":
+        """An estimator over prefix shard 0's main table ``table0`` (slab
+        layout, on the device to sample on) and its per-slot payload
+        (``parallel/prefix_shard.shard_index_by_prefix(...,
+        return_fld_shard0=True)``), sampling the windows of owner 0 at
+        ``SHARD0_OFFSETS``."""
+        self = cls.__new__(cls)
+        self.device_index = None
+        G = index.bucket
+        self._setup(index.k, table0, table0.shape[0] * G, G, fld_tid0,
+                    fld_pos0, SHARD0_OFFSETS,
+                    int(n_shards).bit_length() - 1, state, sample_batches)
+        return self
+
+    def _setup(self, k, table, main_slots, bucket, fld_tid, fld_pos,
+               offsets, owner_bits, state, sample_batches):
+        self.k = k
+        self.table = table
+        self.main_slots = main_slots
+        self.bucket = bucket
+        self.offsets = offsets
+        self.owner_bits = owner_bits
+        self.device = table.device
         self.sample_batches = sample_batches
         self.hist = torch.zeros(MAX_LEN + 1, dtype=torch.int32,
                                 device=self.device)
@@ -154,11 +200,12 @@ class FLDEstimator:
             self._fed = int(state[1])
         self.fld_tid = self.fld_pos = None
         if self.active:
-            # main-table part only: stash-resident k-mers are never sampled
             self.fld_tid = torch.from_numpy(np.ascontiguousarray(
-                index.fld_tid[:index.main_slots])).to(self.device)
+                fld_tid)).to(self.device)
             self.fld_pos = torch.from_numpy(np.ascontiguousarray(
-                index.fld_pos[:index.main_slots])).to(self.device)
+                fld_pos)).to(self.device)
+        else:  # nothing left to sample: hold no table either
+            self.table = None
 
     def state(self) -> Tuple[np.ndarray, int]:
         """(histogram, batches fed): what a map checkpoint carries."""
@@ -178,13 +225,14 @@ class FLDEstimator:
         if batch.pad_len is None:
             batch = pack_batch_2bit(batch)
         u = lambda a: to_device(a, self.device)  # noqa: E731
-        fld_step(self.device_index.table, self.fld_tid, self.fld_pos,
-                 self.hist, u(batch.codes), u(batch.bad), u(batch.lengths),
+        fld_step(self.table, self.fld_tid, self.fld_pos, self.hist,
+                 u(batch.codes), u(batch.bad), u(batch.lengths),
                  u(batch.codes2), u(batch.bad2), u(batch.lengths2),
-                 batch.pad_len, self.k, self.main_slots, self.bucket)
+                 batch.pad_len, self.k, self.main_slots, self.bucket,
+                 self.offsets, self.owner_bits)
         self._fed += 1
         if not self.active:  # free the payload once sampling is done
-            self.fld_tid = self.fld_pos = None
+            self.table = self.fld_tid = self.fld_pos = None
 
     def estimate(self) -> Optional[Tuple[float, float, int]]:
         """(mean, sd, n_samples), or None if too few observations."""

@@ -32,8 +32,12 @@ restore is agreed: one rank's restore error makes every rank raise at the
 same point, and either every rank resumes or none. Rank 0 alone writes
 EM and bootstrap snapshots and deletes them; its snapshot reaches the
 other ranks by a broadcast (``_broadcast_snapshot``). ``--pack-cache`` on
-several ranks is refused, as the JAX package refuses it. The
-prefix-sharded index (``shard.index_axis`` > 1) is not ported yet.
+several ranks is refused, as the JAX package refuses it. Under the
+prefix-sharded index (``shard.index_mode`` "prefix", ``index_axis`` > 1;
+``parallel/prefix_shard.py``) every rank builds a ``PrefixShardedMapper``,
+holds one shard of the index on its card and maps its rows of every
+batch, routing lookups over its index group; what follows the map is the
+same as above.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ from ..map.fld import estimate_from_hist
 from ..parallel import comm
 from ..parallel.bootstrap_shard import run_bootstrap_sharded
 from ..parallel.data_parallel import DataParallelMapper, data_ranks
+from ..parallel.prefix_shard import PrefixShardedMapper, prefix_ranks
 from ..utils.checkpoint import load_em_snapshot, save_em_snapshot
 from ..utils.metrics import Metrics
 from ..utils.prefetch import device_put_batches, prefetch
@@ -118,14 +123,21 @@ class Quantifier:
         self.index = index
         self.cfg = cfg
         self.input_share = input_share
-        if cfg.shard.index_axis != 1:
-            raise ValueError("the prefix-sharded index (index_axis > 1) is "
-                             "not ported yet (ROADMAP.md, still to port: "
-                             "Multi-GPU (prefix-sharded index))")
-        self.ranks = (1 if cfg.shard.data_axis == 1 else
-                      data_ranks(cfg.shard))
+        shard = cfg.shard
+        self.prefix = shard.index_mode == "prefix" and shard.index_axis != 1
+        if shard.index_axis != 1 and not self.prefix:
+            raise ValueError(f"index_axis {shard.index_axis} takes the "
+                             "prefix-sharded index (index_mode='prefix')")
+        if self.prefix:
+            self.ranks = prefix_ranks(shard)
+        else:
+            self.ranks = 1 if shard.data_axis == 1 else data_ranks(shard)
 
     def _make_mapper(self) -> Mapper:
+        if self.prefix:
+            return PrefixShardedMapper(self.index, self.cfg.map,
+                                       self.cfg.shard, device=self.device,
+                                       input_share=self.input_share)
         if self.ranks > 1:
             return DataParallelMapper(self.index, self.cfg.map,
                                       self.cfg.shard, device=self.device,
@@ -153,8 +165,8 @@ class Quantifier:
         if pack_cache is not None and self.ranks > 1:
             raise ValueError(
                 "--pack-cache takes the single-card mapper (no "
-                "--data-shards/--distributed): cached batches are "
-                "pre-packed for one card's stream")
+                "--data-shards/--index-shards/--distributed): cached "
+                "batches are pre-packed for one card's stream")
         if pack_cache is not None:
             return self._quantify_pack_cache(
                 fastq_paths, mate_paths, checkpoint_path, checkpoint_every,

@@ -175,24 +175,33 @@ def sample_classify(mates, L: int, k: int, stride: int, table,
     ``units``, -1 when it is not re-probed; units: (packed, bad, lengths)
     of the Nu re-probed units, in (read, segment) order here).
     """
-    n_seg = len(mates)
     cols = torch.tensor(sample_columns(L - k + 1, stride),
                         device=mates[0][0].device)
-    oks, mxs, has_valid = [], [], []
+    ecs, has_valid = [], []
     for packed, bad, lengths in mates:
         hi, lo, valid = _pack(packed, bad, lengths, L, k)
-        ec = lookup_ecs(hi[:, cols], lo[:, cols], valid[:, cols], table,
-                        main_slots, stash, stash_slots, bucket)
-        hit = ec >= 0
-        mx = torch.where(hit, ec, -1).amax(dim=1)
-        oks.append((mx < 0) | (~hit | (ec == mx[:, None])).all(dim=1))
-        mxs.append(mx)
+        ecs.append(lookup_ecs(hi[:, cols], lo[:, cols], valid[:, cols], table,
+                              main_slots, stash, stash_slots, bucket))
         has_valid.append(valid.any(dim=1))
-    ok, mx = torch.stack(oks, dim=1), torch.stack(mxs, dim=1)
+    return classify_samples(torch.stack(ecs, dim=1),
+                            torch.stack(has_valid, dim=1), mates)
+
+
+def classify_samples(ec_s, has_valid, mates):
+    """Fast mode's classify step, on the sampled windows' ECs already
+    looked up: ``ec_s`` int32[B, n_seg, S] (MISS for no hit), ``has_valid``
+    bool[B, n_seg] (the segment has a valid window at all) and ``mates``
+    as in :func:`sample_classify`, whose (single, slot, units) it returns.
+    Torch ops on the tensors' device: the prefix-sharded index's sampled
+    routing runs it on the card after a routed lookup of the samples
+    (``parallel/prefix_shard.py``)."""
+    n_seg = len(mates)
+    hit = ec_s >= 0
+    mx = torch.where(hit, ec_s, -1).amax(dim=2)
+    ok = (mx < 0) | (~hit | (ec_s == mx[:, :, None])).all(dim=2)
     resolved = (mx >= 0).any(dim=1) & ok.all(dim=1)
     single = torch.where(ok & (mx >= 0), mx, SIG_PAD).to(torch.int32)
-    need = (~resolved[:, None] & (~ok | (mx < 0))
-            & torch.stack(has_valid, dim=1))
+    need = ~resolved[:, None] & (~ok | (mx < 0)) & has_valid
     flat = need.reshape(-1)
     slot = torch.where(flat, torch.cumsum(flat, 0) - 1, -1).to(
         torch.int32).reshape(need.shape)

@@ -1,4 +1,5 @@
-"""Multi-process checkpoints of the data-parallel mapper; counterpart of
+"""Multi-process checkpoints of the ranks' mappers (``data_parallel.
+RankMapper``: the data-parallel and the prefix-sharded one); counterpart of
 ``seekmer_tpu/parallel/ckpt_mp.py`` with the JAX package's protocol.
 
 One table file, written by rank 0: every rank's signature table stacked
@@ -45,7 +46,7 @@ def _stacked(gathered: torch.Tensor) -> torch.Tensor:
 
 def save_mapper_checkpoint(mapper, path: str,
                            stream_state: Optional[dict]) -> None:
-    """Collective save of a ``DataParallelMapper``: the stacked table by
+    """Collective save of a rank's mapper: the stacked table by
     rank 0, a barrier, each rank's sidecar, a barrier."""
     mapper._ckpt_step += 1
     step = mapper._ckpt_step
@@ -76,8 +77,6 @@ def restore_mapper_checkpoint(mapper, path: str) -> Optional[dict]:
     None when there is no table file. Raises on a missing or mismatched
     sidecar and on a table of another shape: the caller agrees with the
     other ranks before it raises (``Quantifier``)."""
-    from ..map.fld import FLDEstimator
-
     loaded = load_map_checkpoint(path, "cpu", with_step=True,
                                  multiprocess=True)
     if loaded is None:
@@ -103,6 +102,5 @@ def restore_mapper_checkpoint(mapper, path: str) -> Optional[dict]:
     cursor, mapper.total_reads, _, fld = hc
     mapper._ckpt_step = step
     if fld is not None:
-        mapper.fld = FLDEstimator(mapper.index, mapper.device_index, fld,
-                                  sample_batches=mapper.fld_batches)
+        mapper.make_fld_estimator(state=fld)
     return cursor if cursor is not None else {}

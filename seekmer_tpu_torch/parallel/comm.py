@@ -15,8 +15,12 @@ and the ranks meet only in the few collectives of this module.
   exits when its parent does;
 - the collectives: ``allreduce``, ``allgather`` (equal shapes),
   ``allgather_rows`` (row counts that differ), ``gather_to0``,
-  ``broadcast_from0`` and ``barrier``. Each takes a
-  tensor or a numpy array and gives back the same kind, on the same device.
+  ``broadcast_from0``, ``barrier`` and ``all_to_all`` (equal chunks, the
+  prefix-sharded index's routing). Each takes a
+  tensor or a numpy array and gives back the same kind, on the same device;
+  ``allreduce``, ``allgather`` and ``all_to_all`` take a ``group`` (None:
+  every rank), such as one of ``index_groups``, the index-axis subgroups
+  of a (data x index) layout of the ranks.
 
 NCCL serves CUDA ranks, gloo CPU ranks (the CPU tests) and several ranks on
 one card (NCCL refuses two ranks on one GPU; ``chip_smoke.py`` runs two on
@@ -55,17 +59,23 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 
 
+# The timeout of this process's group, which its subgroups take too.
+_timeout_s = COLLECTIVE_TIMEOUT_S
+
+
 class RankFailed(RuntimeError):
     """A rank started by ``launch`` raised, died or overran the deadline;
     the message carries its traceback where it wrote one."""
 
 
-def rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+def rank(group=None) -> int:
+    """This rank's place in ``group`` (every rank for None)."""
+    return dist.get_rank(group) if dist.is_initialized() else 0
 
 
-def world() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+def world(group=None) -> int:
+    """The number of ranks in ``group`` (every rank for None)."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def default_backend(device: torch.device) -> str:
@@ -76,8 +86,10 @@ def _join(rank_: int, size: int, device: torch.device, backend: str,
           init_method: str, timeout_s: float) -> None:
     if backend == "nccl" and device.type != "cuda":
         raise ValueError(f"NCCL needs a CUDA device, not {device}")
+    global _timeout_s
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    _timeout_s = timeout_s
     dist.init_process_group(
         backend, init_method=init_method, rank=rank_, world_size=size,
         timeout=datetime.timedelta(seconds=timeout_s))
@@ -237,10 +249,32 @@ def launch(n: int, fn: Callable, args: tuple = (),
 # ---- collectives ----------------------------------------------------------
 
 
-def _comm_device() -> torch.device:
+def index_groups(n_index: int):
+    """This rank's index group when the ranks are laid out as rows of
+    ``n_index``: rank r at (data row r // n_index, index column
+    r % n_index), its group the ranks of its row. Every rank must call it
+    at the same point, since each row's ``new_group`` is made on every
+    rank, in row order; None (every rank) when there is one row. The
+    subgroups take this process's group timeout."""
+    n = world()
+    if n % n_index:
+        raise ValueError(f"{n} ranks do not form rows of {n_index}")
+    if n == n_index:
+        return None
+    mine = None
+    for row in range(n // n_index):
+        ranks = list(range(row * n_index, (row + 1) * n_index))
+        g = dist.new_group(ranks, timeout=datetime.timedelta(
+            seconds=_timeout_s))
+        if rank() in ranks:
+            mine = g
+    return mine
+
+
+def _comm_device(group=None) -> torch.device:
     """Where this group's collectives run: the host under gloo, this
     rank's card under NCCL."""
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
@@ -255,26 +289,44 @@ def _back(t: torch.Tensor, like: torch.Tensor, was_np: bool):
     return t.cpu().numpy() if was_np else t.to(like.device)
 
 
-def allreduce(x, op: str = "sum"):
-    """Elementwise ``op`` ("sum", "max", "min") of ``x`` over the ranks."""
+def allreduce(x, op: str = "sum", group=None):
+    """Elementwise ``op`` ("sum", "max", "min") of ``x`` over the ranks
+    of ``group``."""
     t, was_np = _as_tensor(x)
-    if world() == 1:
+    if world(group) == 1:
         return x
-    buf = t.to(_comm_device(), copy=True).contiguous()
-    dist.all_reduce(buf, op=_OPS[op])
+    buf = t.to(_comm_device(group), copy=True).contiguous()
+    dist.all_reduce(buf, op=_OPS[op], group=group)
     return _back(buf, t, was_np)
 
 
-def allgather(x):
-    """Every rank's ``x`` (equal shapes), stacked in rank order:
-    (world, *x.shape)."""
+def allgather(x, group=None):
+    """Every rank's ``x`` (equal shapes) in ``group``, stacked in the
+    group's rank order: (world(group), *x.shape)."""
     t, was_np = _as_tensor(x)
-    if world() == 1:
+    if world(group) == 1:
         return x[None]
-    buf = t.to(_comm_device()).contiguous()
-    out = [torch.empty_like(buf) for _ in range(world())]
-    dist.all_gather(out, buf)
+    buf = t.to(_comm_device(group)).contiguous()
+    out = [torch.empty_like(buf) for _ in range(world(group))]
+    dist.all_gather(out, buf, group=group)
     return _back(torch.stack(out), t, was_np)
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x``'s first dimension cut in world(group) equal chunks, chunk j
+    sent to the group's rank j; returns the chunks received, in the
+    group's rank order, shaped as ``x`` and on its device. On the card
+    under NCCL; under gloo staged through the host like every
+    collective here."""
+    n = world(group)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all of {x.shape[0]} rows over {n} ranks")
+    buf = x.to(_comm_device(group)).contiguous()
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    return out.to(x.device)
 
 
 def allgather_rows(a: np.ndarray) -> List[np.ndarray]:

@@ -56,42 +56,17 @@ def data_ranks(shard: ShardConfig) -> int:
     return n
 
 
-class DataParallelMapper(Mapper):
-    """A rank's ``Mapper`` that takes its share of the batches and merges
-    with the other ranks at ``finalize``."""
+class RankMapper:
+    """What a mapper on several ranks does the same whatever cuts its work
+    (``DataParallelMapper`` here, ``prefix_shard.PrefixShardedMapper``):
+    the collective feed loop with checkpoints, the multi-process checkpoint
+    (``ckpt_mp.py``), the FLD histograms summed, and ``finalize``'s merge
+    of every rank's table. A subclass sets ``table``, ``total_reads``,
+    ``fld``, ``n_ranks``, ``restored_cursor`` (None) and ``_ckpt_step``
+    (0), and makes its estimator in ``make_fld_estimator(state)``."""
 
-    def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
-                 shard: ShardConfig = ShardConfig(), device="cuda",
-                 input_share: Optional[Tuple[int, int]] = None):
-        super().__init__(index, cfg, device=device)
-        self.n_ranks = data_ranks(shard)
-        self.rank = comm.rank()
-        self.place, self.sharers = (input_share if input_share is not None
-                                    else (self.rank, self.n_ranks))
-        # a restored checkpoint's cursor, the one to save again when the
-        # stream has nothing after it, and the global index of the next
-        # batch (its "batch"), from which rank_batches deals
-        self.restored_cursor = None
-        self.first_batch = 0
-        self._ckpt_step = 0
-
-    def select(self, batches: Iterable[ReadBatch]) -> Iterator[ReadBatch]:
-        """This rank's batches of the stream it reads."""
-        return rank_batches(batches, self.place, self.sharers,
-                            self.first_batch)
-
-    @property
-    def fld_batches(self) -> int:
-        """The paired batches this rank samples for the FLD: its own among
-        the first SAMPLE_BATCHES of the stream it shares."""
-        return len(range(self.place, SAMPLE_BATCHES, self.sharers))
-
-    def make_fld_estimator(self):
-        if self.index.fld_tid is None:
-            return None
-        self.fld = FLDEstimator(self.index, self.device_index,
-                                sample_batches=self.fld_batches)
-        return self.fld
+    def supports_checkpoint(self) -> bool:
+        return True
 
     def fld_histogram(self) -> np.ndarray:
         """The ranks' FLD histograms summed (collective; a rank without an
@@ -130,7 +105,6 @@ class DataParallelMapper(Mapper):
         state = restore_mapper_checkpoint(self, path)
         if state:
             self.restored_cursor = state
-            self.first_batch = int(state.get("batch", 0))
         return state
 
     def finalize(self) -> MapResult:
@@ -142,3 +116,47 @@ class DataParallelMapper(Mapper):
                         int(self.table.collisions)], np.int64)))
         return merge_sig_rows(sigs, counts, total, overflow,
                               collisions=collisions)
+
+
+class DataParallelMapper(RankMapper, Mapper):
+    """A rank's ``Mapper`` that takes its share of the batches and merges
+    with the other ranks at ``finalize``."""
+
+    def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
+                 shard: ShardConfig = ShardConfig(), device="cuda",
+                 input_share: Optional[Tuple[int, int]] = None):
+        super().__init__(index, cfg, device=device)
+        self.n_ranks = data_ranks(shard)
+        self.rank = comm.rank()
+        self.place, self.sharers = (input_share if input_share is not None
+                                    else (self.rank, self.n_ranks))
+        # a restored checkpoint's cursor, the one to save again when the
+        # stream has nothing after it, and the global index of the next
+        # batch (its "batch"), from which rank_batches deals
+        self.restored_cursor = None
+        self.first_batch = 0
+        self._ckpt_step = 0
+
+    def select(self, batches: Iterable[ReadBatch]) -> Iterator[ReadBatch]:
+        """This rank's batches of the stream it reads."""
+        return rank_batches(batches, self.place, self.sharers,
+                            self.first_batch)
+
+    @property
+    def fld_batches(self) -> int:
+        """The paired batches this rank samples for the FLD: its own among
+        the first SAMPLE_BATCHES of the stream it shares."""
+        return len(range(self.place, SAMPLE_BATCHES, self.sharers))
+
+    def make_fld_estimator(self, state=None):
+        if self.index.fld_tid is None:
+            return None
+        self.fld = FLDEstimator(self.index, self.device_index, state,
+                                sample_batches=self.fld_batches)
+        return self.fld
+
+    def restore_checkpoint(self, path: str) -> Optional[dict]:
+        state = super().restore_checkpoint(path)
+        if state:
+            self.first_batch = int(state.get("batch", 0))
+        return state

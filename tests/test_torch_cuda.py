@@ -32,6 +32,8 @@ from seekmer_tpu_torch.ops import (
     pack_cuda,
     probe,
     probe_cuda,
+    route,
+    route_cuda,
     sig_cuda,
     strided_cuda,
 )
@@ -1836,3 +1838,41 @@ def test_pack_cache_batch_on_card_equals_ingest_batch(dev, world, tmp_path):
     want = Mapper(idx["default"], cfg, device=dev).run(ingest)
     np.testing.assert_array_equal(got.sigs, want.sigs)
     np.testing.assert_array_equal(got.sig_counts, want.sig_counts)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 64])
+@pytest.mark.parametrize("N", [0, 1, 31, 5000, 70001])
+def test_route_kernels(dev, D, N):
+    """R1's rank entry: owners and counts equal to the plain version's,
+    each owner's ranks a permutation of 0..count-1, -1 for invalid lanes;
+    its dispatch equal to the plain dispatch on every filled slot, round
+    by round at a capacity of three rounds; R2 equal to the plain unroute;
+    the lanes' answers back in place."""
+    g = torch.Generator().manual_seed(N + D)
+    hi = torch.randint(0, 1 << 26, (N,), generator=g, dtype=torch.int32)
+    lo = torch.randint(0, 1 << 24, (N,), generator=g, dtype=torch.int32)
+    valid = torch.rand(N, generator=g) < 0.8
+    hi, lo, valid = hi.to(dev), lo.to(dev), valid.to(dev)
+    owner, rank, counts = route_cuda.route_rank(hi, lo, valid, D)
+    p_owner, p_rank, p_counts = route.route_rank(hi, lo, valid, D)
+    assert torch.equal(owner, p_owner) and torch.equal(counts, p_counts)
+    assert bool((rank[~valid] == -1).all())
+    for d in range(D):
+        mine = torch.sort(rank[owner == d]).values
+        assert torch.equal(mine, torch.arange(int(counts[d]), device=dev,
+                                              dtype=torch.int32))
+    K = max(1, -(-int(counts.max()) // 3)) if N else 1
+    ecs = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    p_ecs = ecs.clone()
+    for j in range(3):
+        base = j * K
+        slab = route_cuda.dispatch(hi, lo, owner, rank, D, base, K)
+        want = route.dispatch(hi, lo, owner, rank, D, base, K)
+        f = route.filled(counts, base, K)
+        for a, b in zip(slab, want):
+            assert torch.equal(a[f], b[f])
+        back = (slab[0] ^ slab[1]) & 0xFFFF
+        route_cuda.unroute(back, slab[2], counts, base, K, ecs)
+        route.unroute(back, slab[2], counts, base, K, p_ecs)
+    assert torch.equal(ecs, p_ecs)
+    assert torch.equal(ecs, torch.where(valid, (hi ^ lo) & 0xFFFF, -1))

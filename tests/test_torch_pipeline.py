@@ -106,7 +106,7 @@ def test_cli_index_and_infer(world):
     assert set(info["kernel_launches"]) == {"pack", "lookup", "signature",
                                             "accumulate", "em", "sample",
                                             "merge", "em_csr", "strided",
-                                            "ec_sum"}
+                                            "ec_sum", "route", "unroute"}
     assert info["fld"] is None and info["bootstrap_samples"] == 0
     assert info["probe_sample"] == 0 and info["probe_stride"] == 1
     assert not os.path.exists(os.path.join(out, "bootstrap.npz"))
@@ -133,19 +133,6 @@ def test_cli_bootstrap_writes_replicates(world):
         assert int(f["aux/num_bootstrap"][0]) == 4
         np.testing.assert_array_equal(f["bootstrap/bs3"][:],
                                       boot["est_counts"][3])
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["--index-shards", "2"], r"Multi-GPU \(prefix-sharded index\)"),
-    (["--index-shards", "4", "--data-shards", "2"],
-     r"Multi-GPU \(prefix-sharded index\)"),
-])
-def test_cli_refuses_unported(argv, item):
-    """The prefix-sharded index is not ported: the CLI refuses it before
-    it reads anything, naming its ROADMAP.md item."""
-    with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
-        cli.main(["infer", "index.npz", "out", "r1.fq", "--device", "cpu",
-                  *argv])
 
 
 def _paired_infer(world, out, *argv):

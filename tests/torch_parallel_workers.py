@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-process tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_ckpt_mp.py``), run
+(``tests/test_torch_parallel.py``, ``tests/test_torch_ckpt_mp.py``,
+``tests/test_torch_prefix_shard.py``), run
 by ``seekmer_tpu_torch.parallel.comm.launch``. Spawned ranks import this
 module, so it imports neither JAX nor ``seekmer_tpu``
 (``tests/test_torch_self_contained.py`` scans it); the JAX references are
@@ -208,3 +209,54 @@ def ckpt_suite(rank, device, index, cfg, boot_cfg, files, work):
         f for f in os.listdir(work) if f.endswith((".em.npz", ".boot.npz")))
     return out
 
+
+
+# ---- the prefix-sharded index (tests/test_torch_prefix_shard.py) ---------
+
+
+def ps_map(mapper, batches, fld: bool):
+    """Map this rank's rows of ``batches`` with a prefix-sharded mapper,
+    sampling the FLD against shard 0 as the quantifier does; returns
+    (MapResult, extra routing rounds, this rank's FLD histogram, the
+    summed one) (histograms None without ``fld``)."""
+    est = mapper.make_fld_estimator() if fld else None
+    for b in mapper.select(batches):
+        if est is not None and est.active:
+            est.feed(b)
+        mapper.feed(b)
+    res = mapper.finalize()
+    if est is None:
+        return res, mapper.extra_routing_rounds, None, None
+    return (res, mapper.extra_routing_rounds, est.hist.numpy().copy(),
+            mapper.fld_histogram())
+
+
+def ps_suite(rank, device, index, cases):
+    """``cases``: [(name, MapConfig, ShardConfig, capacity_factor, reads,
+    mates, fld)], each mapped by a ``PrefixShardedMapper`` on this group
+    (the ShardConfigs lay out the same number of ranks)."""
+    from seekmer_tpu_torch.parallel.prefix_shard import PrefixShardedMapper
+
+    out = {"rank": rank, "world": comm.world()}
+    for name, cfg, shard, cf, reads, mates, fld in cases:
+        mapper = PrefixShardedMapper(index, cfg, shard, device=device,
+                                     capacity_factor=cf)
+        out[name] = ps_map(mapper, _batches(reads, mates, cfg), fld)
+    return out
+
+
+def ps_ckpt(rank, device, index, cfg, files, work):
+    """A prefix-sharded run checkpointed every batch, stopped after its
+    first save and resumed, beside the run without a checkpoint; returns
+    the (uninterrupted, resumed) QuantResults and the stopped run's
+    sidecar (cursor, read count, step)."""
+    from seekmer_tpu_torch.parallel.prefix_shard import PrefixShardedMapper
+
+    tfastq.CheckpointableBatchSource.CHUNK = CHUNK
+    plain = _quant(index, cfg, device, files)
+    ckpt = os.path.join(work, "ps.ckpt.npz")
+    run = lambda: _quant(index, cfg, device, files,  # noqa: E731
+                         checkpoint_path=ckpt, checkpoint_every=1)
+    _interrupted(run, PrefixShardedMapper, "save_checkpoint", 1)
+    stopped = tckpt.load_host_cursor(ckpt, rank)[:3]
+    return plain, run(), stopped
