@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--keep-inputs PATH] [--dp-cards N[,N...]]
 
-(``--keep-inputs`` also writes K3's and fast mode's inputs of the config-2
-batch to PATH, for ``python -m seekmer_tpu_torch.utils.kernel_ab``, and
-config 2's EC table to PATH.c2_ec.npz, for ``python -m
-tests.test_torch_bootstrap``. ``--dp-cards 2,4`` runs only phase 7's
-``[dp ...]`` and phase 8's ``[ps ...]`` checks, over NCCL with a rank on
+(``--keep-inputs`` also writes K3's, fast mode's and R1's inputs of the
+config-2 batch to PATH and A4's to PATH.a4.pt, for ``python -m
+seekmer_tpu_torch.utils.kernel_ab``, and config 2's EC table to
+PATH.c2_ec.npz, for ``python -m tests.test_torch_bootstrap``.
+``--dp-cards 2,4`` runs only phase 7's ``[dp ...]`` and phase 8's
+``[ps ...]`` checks, over NCCL with a rank on
 each of 2, then 4 cards, after the one-rank runs they are held to; it
 holds no kernel against its plain version, so its last line is
 ``{"dp_cards_ok": true, ...}``, never the full run's ``{"ok": true,
@@ -31,9 +32,11 @@ Phases; any failure exits non-zero:
    and both mates into one output), K2 lookup, K3 signature and A1
    accumulate at the shapes of one paired config-2 batch, K2 also on one
    config-1 batch (a table that mostly sits in L2); R1 (route: owner,
-   rank within the owner, send slab) and R2 (unroute) on the first half
-   of the config-2 batch, a rank's rows at 2 ranks (``[R1 route config
-   2]``, ``[R2 unroute config 2]``, R2 beside ``index_put_``); K3 also on the rows of
+   rank within the owner, round 0's send slab and the spill list in one
+   pass; a later round's slab from the spill list) and R2 (unroute) on
+   the first half of the config-2 batch, a rank's rows at 2 ranks, in
+   one round and in three (``[R1 route config 2]``, ``[R2 unroute config
+   2]``, R2 beside ``index_put_``); K3 also on the rows of
    ``tests/synthetic_signatures.py`` (both of its paths), with the
    run-head histogram of both batches; A1 also on a table pre-seeded with
    a colliding key, timed as claim alone and claim plus audit, empty
@@ -109,9 +112,10 @@ Phases; any failure exits non-zero:
    launch, the iterations' operations), its plain blocked loop and two
    cuSPARSE products an iteration. ``infer`` must launch A3 once a fixed
    point. Then A4, ``log_likelihood``'s per-EC sums in nnz order
-   (``[A4 ec_sum config 2]``), bit for bit against its plain version on
-   the card and the CPU, timed beside it and ``index_add_``; ``infer``
-   launches it once a run.
+   (``[A4 ec_sum config 2]``), one launch a call, bit for bit against its
+   plain version on the card and the CPU, timed beside it,
+   ``index_add_``, ``segment_reduce`` (its bits compared with A4's) and
+   an empty launch of its grid; ``infer`` launches it once a run.
 6. checkpoints, the pack cache, traces and reads in memory, each run
    with the launch counts set to 0 just before and read just after (K1,
    K2, K3 and A1 must launch, and A3 where EM runs):
@@ -161,8 +165,9 @@ Phases; any failure exits non-zero:
    shard-0 FLD histogram summed over the ranks equal to one card's
    shard-0 estimator fed the global batches whole; est_counts bit-equal
    to one card's quantifier given that fragment length; R1, R2, K1-K3
-   and A1 launched on each rank; walls, the shards' build apart, and
-   the bytes an ``all_to_all`` moves. ``[ps c2 fast s=16]``: sampled
+   and A1 launched on each rank; walls, the shards' build apart, the
+   bytes an ``all_to_all`` moves, and one ``all_to_all`` of a round's
+   slab hi timed. ``[ps c2 fast s=16]``: sampled
    routing, the MapResult equal to one card's fast mode (no K5).
    ``[ps c1 low-capacity]``: config 1 at capacity factor 0.3, extra
    routing rounds > 0 and the MapResult equal to one card's.
@@ -811,74 +816,147 @@ def a1_tables_diff(tables, B: int, what: str):
 def check_route(hi, lo, valid, di, want):
     """``[R1 route ...]``, ``[R2 unroute ...]``: the routing kernels on the
     first half of a paired config-2 batch (a rank's rows at 2 ranks), 2
-    owners at capacity factor 2 (one round). R1's rank entry against its
-    plain version (owners and counts equal, each owner's ranks a
-    permutation of 0..count-1: the kernel's order within an owner varies
-    from run to run), its dispatch against the plain dispatch on the
-    kernel's ranks (every filled slot equal); the slab looked up by K2 on
-    the whole table and R2's unroute of the ECs against its plain version
-    and against K2 on the lanes themselves. R1's time is its rank entry
-    plus one dispatch; its bound moves hi, lo and valid in and owner,
-    rank and the routed slots out; R2's moves a filled slot's EC and
-    index in and its lane's EC out, beside ``index_put_`` of the same
+    owners, every round's slab looked up by K2 on the whole table. At
+    capacity factor 2 (one round): R1's counts equal to its plain
+    version's; each owner's round-0 slots hold min(count, K) distinct
+    valid lanes of that owner with their hi and lo; R2 equal to its plain
+    version; the lanes' ECs equal to K2 on the lanes themselves. At a
+    capacity of three rounds: each owner's round-0 lanes and spilled lanes
+    disjoint and together exactly its valid lanes, the spilled ranks
+    K..count-1; each later round's filled slots equal to the plain
+    ``route_spill`` on the kernel's own spill list; the ECs equal to K2's, and a second run's bits equal (the
+    lanes that spill may differ). R1's time is its one-round call (device
+    time, card kept busy), bounded by the function's bytes: hi, lo and
+    valid in, the routed lanes' slab out; R2's moves a filled slot's EC
+    and index in and its lane's EC out, beside ``index_put_`` of the same
     values. Returns (R1, R2) records."""
     import torch
 
     from seekmer_tpu_torch.ops import probe_cuda, route, route_cuda
+    from seekmer_tpu_torch.ops.hash import hash_kmer
     from seekmer_tpu_torch.parallel.prefix_shard import capacity
+    from seekmer_tpu_torch.utils import kernel_ab
 
     D = 2
     half = hi.shape[0] // 2
     hi, lo, valid = (t[:half].reshape(-1) for t in (hi, lo, valid))
     want = want[:half].reshape(-1)
     N = hi.numel()
-    K = capacity(N, D, 2.0)
-    owner, rank, counts = route_cuda.route_rank(hi, lo, valid, D)
-    p_owner, p_rank, p_counts = route.route_rank(hi, lo, valid, D)
-    err = max(max_abs_diff(owner, p_owner), max_abs_diff(counts, p_counts))
-    for d in range(D):
-        mine = torch.sort(rank[owner == d]).values
-        check(torch.equal(mine, torch.arange(int(counts[d]), device=hi.device,
-                                             dtype=mine.dtype)),
-              f"[R1 route] owner {d}'s ranks are not 0..count-1")
-    check(bool((rank[owner == D] == -1).all()), "[R1 route] invalid ranks")
-    slab = route_cuda.dispatch(hi, lo, owner, rank, D, 0, K)
-    f = route.filled(counts, 0, K)
-    err = max(err, *(max_abs_diff(a[f], b[f]) for a, b in zip(
-        slab, route.dispatch(hi, lo, owner, rank, D, 0, K))))
+    dev = hi.device
     geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
-    ec_q = probe_cuda.lookup_ecs(slab[0], slab[1], f, *geo)
-    empty = torch.full((N,), -1, dtype=torch.int32, device=hi.device)
-    ecs = route_cuda.unroute(ec_q, slab[2], counts, 0, K, empty.clone())
-    err2 = max(max_abs_diff(ecs, route.unroute(ec_q, slab[2], counts, 0, K,
-                                               empty.clone())),
-               max_abs_diff(ecs, want))
+    owner = torch.where(valid, hash_kmer(hi, lo) >> (32 - route.owner_bits(D)),
+                        D)
+
+    def lookup(K):
+        """Every round at capacity K: (ECs, round 0's slab, counts, the
+        spill list's written part, rounds, the largest difference of a
+        later round's filled slots from the plain ``route_spill`` on the
+        kernel's own spill list)."""
+        *slab0, counts, spill = route_cuda.route_first(hi, lo, valid, D, K)
+        n_spill = int((counts.long() - K).clamp(min=0).sum())
+        rounds = -(-int(counts.max()) // K)
+        ecs = torch.full((N,), -1, dtype=torch.int32, device=dev)
+        slab, err = slab0, 0
+        for j in range(rounds):
+            f = route.filled(counts, j * K, K)
+            if j:
+                slab = route_cuda.route_spill(hi, lo, spill, n_spill, D,
+                                              j * K, K)
+                p_slab = route.route_spill(hi, lo, spill, n_spill, D, j * K,
+                                           K)
+                err = max([err] + [max_abs_diff(a[f], b[f])
+                                   for a, b in zip(slab, p_slab)])
+            ec_q = probe_cuda.lookup_ecs(slab[0], slab[1], f, *geo)
+            route_cuda.unroute(ec_q, slab[2], counts, j * K, K, ecs)
+        return ecs, slab0, counts, spill[:, :n_spill].long(), rounds, err
+
+    def round0(slab0, counts, K):
+        """Each owner's round-0 lanes, checked."""
+        f = route.filled(counts, 0, K)
+        lanes = slab0[2][f].long()
+        check(torch.equal(slab0[0][f], hi[lanes])
+              and torch.equal(slab0[1][f], lo[lanes]),
+              "[R1 route] a round-0 slot's hi or lo is not its lane's")
+        of = torch.arange(D * K, device=dev)[f] // K  # a slot's owner
+        out = []
+        for d in range(D):
+            mine = lanes[of == d]
+            check(mine.numel() == min(int(counts[d]), K)
+                  and torch.unique(mine).numel() == mine.numel()
+                  and bool((owner[mine] == d).all()),
+                  f"[R1 route] owner {d}'s round-0 slots are not "
+                  f"min(count, K) distinct lanes of that owner")
+            out.append(mine)
+        return out
+
+    # one round, as the [ps] phase routes a config-2 batch
+    K = capacity(N, D, 2.0)
+    ecs, slab0, counts, _, rounds, _ = lookup(K)
+    p_counts = route.route_first(hi, lo, valid, D, K)[3]
+    err = max_abs_diff(counts, p_counts)
+    check(err == 0 and rounds == 1, f"[R1 route] counts {counts.tolist()} "
+          f"!= the plain version's {p_counts.tolist()}, or {rounds} rounds")
+    round0(slab0, counts, K)
+    f = route.filled(counts, 0, K)
+    ec_q = probe_cuda.lookup_ecs(slab0[0], slab0[1], f, *geo)
+    empty = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    ecs2 = route_cuda.unroute(ec_q, slab0[2], counts, 0, K, empty.clone())
+    err2 = max(max_abs_diff(ecs2, route.unroute(ec_q, slab0[2], counts, 0, K,
+                                                empty.clone())),
+               max_abs_diff(ecs2, want))
+    err = max(err, max_abs_diff(ecs, want))
     routed = int(counts.sum())
 
-    def r1():
-        o, r, c = route_cuda.route_rank(hi, lo, valid, D)
-        return route_cuda.dispatch(hi, lo, o, r, D, 0, K)
+    # three rounds: round 0 and the spill list split each owner's lanes
+    K3 = -(-int(counts.max()) // 3)
+    runs = [lookup(K3) for _ in range(2)]
+    for ecs3, slab3, counts3, spill3, rounds3, err3 in runs:
+        check(rounds3 == 3, f"[R1 route] K {K3} took {rounds3} rounds")
+        err = max(err, err3, max_abs_diff(ecs3, want))
+        for d, first in enumerate(round0(slab3, counts3, K3)):
+            spilled = spill3[0][spill3[1] == d]
+            check(torch.equal(torch.sort(spill3[2][spill3[1] == d]).values,
+                              torch.arange(K3, int(counts3[d]), device=dev))
+                  and torch.equal(torch.sort(torch.cat([first, spilled]))
+                                  .values,
+                                  torch.nonzero(owner == d).squeeze(1)),
+                  f"[R1 route] owner {d}: round 0 and the spill list are "
+                  f"not a split of its valid lanes")
+    check(torch.equal(runs[0][0], runs[1][0]),
+          "[R1 route] two three-round runs gave different ECs")
+    same_spill = torch.equal(torch.sort(runs[0][3][0]).values,
+                             torch.sort(runs[1][3][0]).values)
+    spill_ms = kernel_ab.device_ms(lambda: route_cuda.route_spill(
+        hi, lo, runs[0][3].int().contiguous(), runs[0][3].shape[1], D, K3,
+        K3), 50)
 
-    def r1_plain():
-        o, r, c = route.route_rank(hi, lo, valid, D)
-        return route.dispatch(hi, lo, o, r, D, 0, K)
-
-    rank_ms = cuda_ms(lambda: route_cuda.route_rank(hi, lo, valid, D), 50)
-    out1 = record(err, cuda_ms(r1, 50), cuda_ms(r1_plain, 5),
-                  (17 * N + 12 * routed + 4 * D) / HBM_BYTES_S, "bytes")
-    idx, vals = slab[2][f].long(), ec_q[f]
+    out1 = record(
+        err, kernel_ab.device_ms(
+            lambda: route_cuda.route_first(hi, lo, valid, D, K), 50),
+        cuda_ms(lambda: route.route_first(hi, lo, valid, D, K), 5),
+        (9 * N + 12 * routed + 4 * D) / HBM_BYTES_S, "bytes")
+    idx, vals = slab0[2][f].long(), ec_q[f]
     out2 = record(
-        err2, cuda_ms(lambda: route_cuda.unroute(ec_q, slab[2], counts, 0,
-                                                 K, ecs), 50),
-        cuda_ms(lambda: route.unroute(ec_q, slab[2], counts, 0, K, ecs), 10),
+        err2, cuda_ms(lambda: route_cuda.unroute(ec_q, slab0[2], counts, 0,
+                                                 K, ecs2), 50),
+        cuda_ms(lambda: route.unroute(ec_q, slab0[2], counts, 0, K, ecs2),
+                10),
         12 * routed / HBM_BYTES_S, "bytes",
-        cuda_ms(lambda: ecs.index_put_((idx,), vals), 50))
+        cuda_ms(lambda: ecs2.index_put_((idx,), vals), 50))
     log(f"[R1 route config 2] {N} lanes ({half} pairs x {hi.numel() // half}"
         f" windows), {D} owners, K {K}: counts {counts.tolist()} "
-        f"({routed} valid lanes), max_abs_err {err} (owners, counts, every "
-        f"filled slot; each owner's ranks a permutation); rank entry "
-        f"{rank_ms:.6f} ms, rank + dispatch {out1['ms']:.6f} ms, plain "
-        f"{out1['plain_ms']:.6f} ms, bound {out1['bound_ms']:.6f} ms (share "
+        f"({routed} valid lanes), max_abs_err {err} (counts; the spill "
+        f"entry's filled slots against the plain route_spill on the "
+        f"kernel's spill list; every lane's EC against K2 on the lanes, "
+        f"one round and three); each owner's "
+        f"round-0 slots min(count, K) distinct lanes of its own; at K {K3}, "
+        f"3 rounds, round 0 and {runs[0][3].shape[1]} spilled lanes split "
+        f"each owner's lanes, a second run's ECs bit-equal (its spilled "
+        f"lanes {'the same' if same_spill else 'others'}); one round "
+        f"{out1['ms']:.6f} ms (device time, card kept busy; one launch and "
+        f"the counts' memset), a later round's spill entry at K {K3} "
+        f"{spill_ms:.6f} ms, plain {out1['plain_ms']:.6f} ms, bound "
+        f"{out1['bound_ms']:.6f} ms (share "
         f"{out1['bound_ms'] / out1['ms']:.6f})")
     log(f"[R2 unroute config 2] {D * K} slots, {routed} filled: max_abs_err "
         f"{err2} (against its plain version and K2 on the lanes "
@@ -973,7 +1051,10 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
                              "main_slots": di.main_slots,
                              "stash_slots": di.stash_slots,
                              "bucket": di.bucket, "L": L, "k": k,
-                             "max_ecs": C, "strides": [16, 8]}},
+                             "max_ecs": C, "strides": [16, 8]},
+                    # R1's: a rank's half of the batch at 2 owners
+                    "route": {"hi": hi[:B // 2].cpu(), "lo": lo[:B // 2].cpu(),
+                              "valid": valid[:B // 2].cpu(), "D": 2}},
                    keep_inputs)
     log_heads("config 2", ecs, valid)
     got = sig_cuda.read_signatures(ecs, valid, C)
@@ -1630,23 +1711,27 @@ def compare_csr_em(ec, lengths):
                   "bytes" if b_bytes >= b_ops else "operations", library_ms)
 
 
-def check_ec_sum(ec, lengths):
+def check_ec_sum(ec, lengths, keep=None):
     """A4 (``em_csr_cuda.ec_sums``, ``log_likelihood``'s per-EC sums) at
     config 2's EC table on the terms ``log_likelihood`` sums (theta / eff
     of each member, alpha from a seeded generator): bit for bit against
     its plain version on the card and on the CPU; device time (card kept
-    busy) beside the plain version (one elementwise add a rank, as many
-    ranks as the largest EC has members), ``index_add_`` (the library
-    call, atomics in no fixed order) and the bytes bound (w and ec_ids
-    read, the sums written); and the host wall of a call with the read
-    back ``log_likelihood`` does, for A4, the plain version and
-    ``index_add_``. Returns A4's record."""
+    busy; the whole call, one launch) beside the plain version (one
+    elementwise add a rank, as many ranks as the largest EC has members),
+    two library calls (``index_add_``, atomics in no fixed order, and
+    ``segment_reduce`` on offsets built once outside the timed call,
+    whose bits are compared with A4's), an empty launch of A4's grid and
+    the bytes bound (w and ec_ids read, the sums written); and the host
+    wall of a call with the read back ``log_likelihood`` does, for A4, the
+    plain version and ``index_add_``. ``keep``: write (w, ec_ids, E) there
+    for ``utils/kernel_ab.py``. Returns A4's record; its library time is
+    ``segment_reduce``'s where its bits are A4's, else ``index_add_``'s."""
     import numpy as np
     import torch
 
     from seekmer_tpu_torch import EMConfig
     from seekmer_tpu_torch.em.em import effective_lengths, ordered_sum
-    from seekmer_tpu_torch.ops import em_csr_cuda
+    from seekmer_tpu_torch.ops import accumulate_cuda, em_csr_cuda
     from seekmer_tpu_torch.utils import kernel_ab
 
     dev = ec.counts.device
@@ -1657,7 +1742,12 @@ def check_ec_sum(ec, lengths):
     theta = alpha / ordered_sum(alpha)
     w = theta[ec.txp_ids] / eff[ec.txp_ids]
     ids = ec.ec_ids
+    if keep:
+        torch.save({"w": w.cpu(), "ec_ids": ids.cpu(), "E": E}, keep)
+    before = em_csr_cuda.ec_sums.launches
     got = em_csr_cuda.ec_sums(w, ids, E)
+    check(em_csr_cuda.ec_sums.launches == before + 1,
+          "A4 ec_sum config 2: not one launch a call")
     plain = em_csr_cuda.plain_ec_sums(w, ids, E)
     cpu = em_csr_cuda.plain_ec_sums(w.cpu(), ids.cpu(), E)
     err = float((got - plain).abs().max())
@@ -1668,10 +1758,19 @@ def check_ec_sum(ec, lengths):
     def library():
         return torch.zeros(E, dtype=w.dtype, device=dev).index_add_(0, ids, w)
 
+    offsets = torch.searchsorted(ids, torch.arange(E + 1, device=dev))
+
+    def segment():
+        return torch.segment_reduce(w, "sum", offsets=offsets)
+
+    seg_same = torch.equal(segment(), got)
     largest = int(torch.bincount(ids, minlength=E).max())
     ms = kernel_ab.device_ms(lambda: em_csr_cuda.ec_sums(w, ids, E), 50)
     plain_ms = cuda_ms(lambda: em_csr_cuda.plain_ec_sums(w, ids, E), 3)
     library_ms = kernel_ab.device_ms(library, 50)
+    segment_ms = kernel_ab.device_ms(segment, 50)
+    floor_ms = kernel_ab.device_ms(
+        lambda: accumulate_cuda.empty_launch(nnz, dev, False), 50)
 
     def host_ms(fn, reps=10):
         fn().cpu()
@@ -1687,12 +1786,17 @@ def check_ec_sum(ec, lengths):
     log(f"[A4 ec_sum config 2] {E} ECs, nnz {nnz}, the largest EC "
         f"{largest} members; max_abs_err {err} (the plain version on the "
         f"card and on the CPU: equal bits), kernel {ms:.6f} ms (device "
-        f"time, the CSR offsets' search included), plain {plain_ms:.6f} ms, "
-        f"index_add_ {library_ms:.6f} ms, bound {bound_s * 1e3:.6f} ms "
-        f"(share {bound_s * 1e3 / ms:.6f}); host wall a call with the read "
-        f"back: A4 {walls[0]:.6f} ms, plain {walls[1]:.6f} ms, index_add_ "
+        f"time, the whole call: one launch), plain {plain_ms:.6f} ms, "
+        f"index_add_ {library_ms:.6f} ms, segment_reduce {segment_ms:.6f} "
+        f"ms (offsets built outside; its bits "
+        f"{'equal to' if seg_same else 'differ from'} A4's), an empty "
+        f"launch of A4's grid {floor_ms:.6f} ms, bound "
+        f"{bound_s * 1e3:.6f} ms (share {bound_s * 1e3 / ms:.6f}; below "
+        f"the launch floor); host wall a call with the read back: A4 "
+        f"{walls[0]:.6f} ms, plain {walls[1]:.6f} ms, index_add_ "
         f"{walls[2]:.6f} ms")
-    return record(err, ms, plain_ms, bound_s, "bytes", library_ms)
+    return record(err, ms, plain_ms, bound_s, "bytes",
+                  segment_ms if seg_same else library_ms)
 
 
 def reset_launches():
@@ -1706,7 +1810,7 @@ def reset_launches():
                em_cuda.em_fixed_point, fast_cuda.sample_classify,
                fast_cuda.merge_staging, em_csr_cuda.em_steps,
                strided_cuda.lookup_ecs_strided, em_csr_cuda.ec_sums,
-               route_cuda.route_rank, route_cuda.dispatch,
+               route_cuda.route_first, route_cuda.route_spill,
                route_cuda.unroute):
         fn.launches = 0
 
@@ -2155,7 +2259,9 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
         if not dense:
             out["A3"] = compare_csr_em(ec, index.lengths)
         if paired:
-            out["A4"] = check_ec_sum(ec, index.lengths)
+            out["A4"] = check_ec_sum(
+                ec, index.lengths,
+                keep_inputs and f"{keep_inputs}.a4.pt")
         log(f"[profile {tag} em] nnz {ec.ec_ids.numel()}, {ec.num_ecs} ECs")
         report_stage(f"{tag} em", lambda trace: traced(lambda: (
             run_em(ec, index.lengths, fixed)[0].sum().item()), trace))
@@ -3019,7 +3125,8 @@ def ps_rank(rank, device, work, cfgs):
     from seekmer_tpu_torch.map.fld import FLDEstimator
     from seekmer_tpu_torch.models.quantifier import Quantifier
     from seekmer_tpu_torch.parallel import comm
-    from seekmer_tpu_torch.parallel.prefix_shard import PrefixShardedMapper
+    from seekmer_tpu_torch.parallel.prefix_shard import (PrefixShardedMapper,
+                                                        capacity)
 
     out = {"rank": rank}
     index = KMerIndex.load(str(work / "c2.npz"))
@@ -3044,6 +3151,20 @@ def ps_rank(rank, device, work, cfgs):
                rounds=mapper.extra_routing_rounds,
                shard_bytes=(mapper.sdi.table.numel()
                             + mapper.sdi.stash.numel()) * 4)
+    # one all_to_all of a round's slab hi as routed_lookup sends a config-2
+    # batch's (a rank's lanes at the mapper's capacity factor), R1's
+    # neighbour on the routed path
+    lanes = cfg.map.batch_size // mapper.sharers * 2 * (128 - index.k + 1)
+    slab = torch.zeros(mapper.n_index * capacity(
+        lanes, mapper.n_index, mapper.capacity_factor), dtype=torch.int32,
+        device=device)
+    spans = []
+    for _ in range(5):
+        comm.barrier()
+        spans.append(timed(lambda: comm.all_to_all(slab, mapper.group),
+                           device)[0])
+    out.update(a2a_ms=sorted(spans)[2] * 1e3, a2a_bytes=slab.numel() * 4)
+    del slab
     if rank == 0:
         table0, tid0, pos0 = mapper._fld_shard0
         est = FLDEstimator.for_prefix_shard0(
@@ -3209,7 +3330,10 @@ def ps_phase(work: Path, card: str, devices=None,
         f"rank's shard {r0['shard_bytes']} bytes; a "
         f"batch routes {lanes} lanes a rank, K {K}, each all_to_all out "
         f"moves {n * K * 4} bytes a rank (hi, then lo), the one back as "
-        f"many; map stage {each(lambda o: o['timings']['map_s'])} s (one "
+        f"many; one all_to_all of a round's slab hi ({r0['a2a_bytes']} "
+        f"bytes a rank), host clock, median of 5: "
+        f"{each(lambda o: o['a2a_ms'])} ms; map stage "
+        f"{each(lambda o: o['timings']['map_s'])} s (one "
         f"card {one.timings['map_s']:.6f} s); quantify with --bootstrap 100 "
         f"{each(lambda o: o['wall'], '{:.3f}')} s (the shards' build and "
         f"upload {each(lambda o: o['setup'], '{:.3f}')} s of it; rank 0: "
@@ -3292,8 +3416,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keep-inputs", metavar="PATH",
-                    help="write K3's and fast mode's inputs of the config-2 "
-                    "batch there, for "
+                    help="write K3's, fast mode's and R1's inputs of the "
+                    "config-2 batch there and A4's to PATH.a4.pt, for "
                     "python -m seekmer_tpu_torch.utils.kernel_ab, and config "
                     "2's EC table to PATH.c2_ec.npz")
     ap.add_argument("--dp-cards", metavar="N[,N...]",

@@ -210,8 +210,8 @@ def kernel_launches() -> dict:
             "strided": strided_cuda.lookup_ecs_strided.launches,
             "ec_sum": em_csr_cuda.ec_sums.launches,
             # R1's two entries, and R2
-            "route": (route_cuda.route_rank.launches
-                      + route_cuda.dispatch.launches),
+            "route": (route_cuda.route_first.launches
+                      + route_cuda.route_spill.launches),
             "unroute": route_cuda.unroute.launches}
 
 

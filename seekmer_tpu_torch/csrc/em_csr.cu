@@ -501,49 +501,85 @@ Params<F> params(const void* alpha0, void* out, void* prev, const void* n,
                    (F)rel_tol, (F)abs_floor, (F)count_floor};
 }
 
-// A4: each EC's sum of its members' terms w in CSR order from 0, d_c =
+// A4: each EC's sum of its members' terms w in nnz order from 0, d_c =
 // ((0 + w_z0) + w_z0+1) + ..., the order of the CPU's index_add_ and of
 // the E-phase above, so the card gives the CPU's bits (log_likelihood's
 // denominators; seekmer_tpu/em/em.py:441 summed them by XLA's
-// segment_sum). A thread an EC: only the adds chain, the loads of a row
-// are independent and unrolled ahead of them.
+// segment_sum). The table is small (config 2: 83,019 ECs, nnz 168,900)
+// and its bytes bound is below the launch floor, so the call is one
+// launch over the sorted ids themselves, with no CSR offsets built first:
+// a thread an nnz entry; the entry that starts a run (z == 0 or
+// ids[z - 1] != ids[z]) adds its run's terms in order, 8 ids and terms
+// loaded ahead of each 8 adds, and writes out[c]. The same thread zeroes
+// the empty ECs between the previous run's id and c, and the last run's
+// head those after c, so every output is written exactly once, with no
+// memset and no race.
 template <typename F>
 __global__ void ec_sum_kernel(const F* __restrict__ w,
-                              const int32_t* __restrict__ ec_off,
-                              F* __restrict__ out, int E) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < E; c += stride) {
-    const int end = ec_off[c + 1];
-    F d = 0;
-#pragma unroll 8
-    for (int z = ec_off[c]; z < end; ++z) d = add(d, __ldg(w + z));
-    out[c] = d;
+                              const int64_t* __restrict__ ids,
+                              F* __restrict__ out, int nnz, int E) {
+  constexpr int kAhead = 8;
+  const int z = blockIdx.x * blockDim.x + threadIdx.x;
+  if (z >= nnz) return;
+  const int64_t c = ids[z];
+  const int64_t prev = z ? ids[z - 1] : -1;
+  if (prev == c) return;
+  for (int64_t e = prev + 1; e < c && e < E; ++e) out[e] = F(0);
+  F d = 0;
+  int end = z;
+  for (bool more = true; more;) {
+    int64_t id[kAhead];
+    F v[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      const bool in = end + i < nnz;
+      id[i] = in ? ids[end + i] : c + 1;
+      v[i] = in ? __ldg(w + end + i) : F(0);
+    }
+    int took = 0;
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      more = more && id[i] == c;
+      if (more) {
+        d = add(d, v[i]);
+        ++took;
+      }
+    }
+    end += took;
   }
+  if (c < E) out[c] = d;
+  if (end == nnz)
+    for (int64_t e = c + 1; e < E; ++e) out[e] = F(0);
 }
 
 template <typename F>
-int ec_sum(const void* w, const void* ec_off, void* out, int E,
+int ec_sum(const void* w, const void* ids, void* out, int nnz, int E,
            cudaStream_t st) {
   constexpr int kThreads = 256;
-  ec_sum_kernel<F><<<seekmer::grid_for(E, kThreads), kThreads, 0, st>>>(
-      (const F*)w, (const int32_t*)ec_off, (F*)out, E);
+  ec_sum_kernel<F><<<seekmer::grid_for(nnz, kThreads), kThreads, 0, st>>>(
+      (const F*)w, (const int64_t*)ids, (F*)out, nnz, E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// A4: out[c] = the sum of w[ec_off[c]:ec_off[c + 1]] in order from 0, for
-// the E ECs of a CSR (ec_off int32, E + 1 entries); float64 when dbl.
-extern "C" int seekmer_ec_sum(const void* w, const void* ec_off, void* out,
-                              void* stream, int64_t device, int64_t E,
-                              int64_t dbl) {
-  if (E < 0 || E >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+// A4: out[c] = the sum of the terms w[z] with ids[z] == c in order from
+// 0, for the E ECs of the nnz sorted int64 ids (every id in [0, E)); 0 for
+// an EC with no term; float64 when dbl.
+extern "C" int seekmer_ec_sum(const void* w, const void* ids, void* out,
+                              void* stream, int64_t device, int64_t nnz,
+                              int64_t E, int64_t dbl) {
+  if (E < 0 || E >= ((int64_t)1 << 31) || nnz < 0 ||
+      nnz >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   if (E == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  return dbl ? ec_sum<double>(w, ec_off, out, (int)E, st)
-             : ec_sum<float>(w, ec_off, out, (int)E, st);
+  if (nnz == 0)
+    return (int)cudaMemsetAsync(out, 0, E * (dbl ? 8 : 4), st);
+  return dbl ? ec_sum<double>(w, ids, out, (int)nnz, (int)E, st)
+             : ec_sum<float>(w, ids, out, (int)nnz, (int)E, st);
 }
 
 // {blocks the card holds at once, shared-memory bytes each may take}.

@@ -437,33 +437,33 @@ def plain_ec_sums(w: torch.Tensor, ec_ids: torch.Tensor,
 
 
 def ec_sums(w: torch.Tensor, ec_ids: torch.Tensor, E: int) -> torch.Tensor:
-    """A4: each EC's sum of the terms w[nnz] (``ec_ids`` sorted, int64), in
-    nnz order from 0, [E] of w's type: the order of the CPU's
+    """A4: each EC's sum of the terms w[nnz] (``ec_ids`` sorted, int64, in
+    [0, E)), in nnz order from 0, [E] of w's type: the order of the CPU's
     ``index_add_`` and of A3's E-phase, so the card gives the CPU's bits,
     which ``index_add_``'s atomics on the card do not. CPU tensors take
     the plain version; CUDA tensors the kernel (float32 or float64, one
-    launch after the CSR offsets, no read back)."""
+    launch over the sorted ids, no offsets built, no read back; a table
+    with no term is one memset and no launch)."""
     if w.device.type == "cpu":
         return plain_ec_sums(w, ec_ids, E)
-    if w.dtype not in DTYPES or w.dim() != 1 or ec_ids.shape != w.shape:
+    if (w.dtype not in DTYPES or w.dim() != 1 or ec_ids.shape != w.shape
+            or ec_ids.dtype != torch.int64):
         raise ValueError("ec_sums takes float32 or float64 w [nnz] and its "
-                         "ec_ids [nnz]")
+                         "int64 ec_ids [nnz]")
     if w.numel() >= 2**31 or E >= 2**31:
         raise ValueError("EC tables of 2^31 entries or more do not fit "
-                         "A4's int32 offsets")
+                         "A4's int32 indices")
     if E == 0:
         return w.new_empty(0)
-    # the CSR offsets of the sorted ids: where each EC's run starts
-    ec_off = torch.searchsorted(ec_ids, torch.arange(
-        E + 1, dtype=ec_ids.dtype, device=w.device)).to(torch.int32)
-    w = w.contiguous()
+    w, ec_ids = w.contiguous(), ec_ids.contiguous()
     out = torch.empty(E, dtype=w.dtype, device=w.device)
-    _build.require_cuda("ec_sums", w, ec_off, out)
-    fn = _build.function("seekmer_ec_sum", 4, 3)
-    _build.check(fn(w.data_ptr(), ec_off.data_ptr(), out.data_ptr(),
-                    _build.stream_of(w), w.device.index, E,
+    _build.require_cuda("ec_sums", w, ec_ids, out)
+    nnz = w.numel()
+    fn = _build.function("seekmer_ec_sum", 4, 4)
+    _build.check(fn(w.data_ptr(), ec_ids.data_ptr(), out.data_ptr(),
+                    _build.stream_of(w), w.device.index, nnz, E,
                     int(w.dtype == torch.float64)), "ec_sum")
-    ec_sums.launches += 1
+    ec_sums.launches += nnz > 0
     return out
 
 

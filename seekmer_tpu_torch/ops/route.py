@@ -3,12 +3,13 @@ R1 and R2 (``csrc/route.cu``, ``ops/route_cuda.py``) are held against.
 
 Counterpart of the XLA code of ``seekmer_tpu/parallel/prefix_shard.py``
 ``routed_lookup``: the owner of a lane is the top ``log2(D)`` bits of its
-main-table slot hash, lanes are ranked within their owner
-(``route_rank``; a stable sort by owner here, the JAX package's
-``lax.sort`` + associative scan), a round's lanes, those ranked in
-``[base, base + K)``, are scattered into the (D, K) send slab
-(``dispatch``), and the ECs that come back go to their lanes
-(``unroute``). Invalid lanes take owner D and rank -1 and route nowhere.
+main-table slot hash, lanes are ranked within their owner (a stable sort
+by owner here, the JAX package's ``lax.sort`` + associative scan), the
+lanes of round j, those ranked in ``[jK, (j+1)K)``, are scattered into the
+(D, K) send slab, and the ECs that come back go to their lanes
+(``unroute``). ``route_first`` ranks and writes round 0's slab, and lists
+the lanes ranked K or more (the spill list); ``route_spill`` writes a
+later round's slab from that list alone. Invalid lanes route nowhere.
 """
 
 from __future__ import annotations
@@ -26,11 +27,30 @@ def owner_bits(n_owners: int) -> int:
     return n_owners.bit_length() - 1
 
 
-def route_rank(hi, lo, valid, n_owners: int):
-    """(owner int32[N], rank int32[N], counts int32[D]) of flat lanes: each
-    valid lane's owner (the top log2(D) bits of its slot hash) and its
-    rank among the lanes of that owner (their order in the batch here),
-    the lanes each owner gets; invalid lanes have owner D and rank -1."""
+def _slab(hi, lo, lane, own, rank, n_owners: int, base: int, K: int):
+    """(send_hi, send_lo, ret), each int32[D * K]: the listed lanes ranked
+    in [base, base + K) at slot own * K + rank - base with their own index
+    in ``ret``. Unfilled slots hold 0, 0 and -1 here (the kernels leave
+    them unwritten)."""
+    sel = (rank >= base) & (rank < base + K)
+    lane = lane[sel].to(torch.int64)
+    dest = own[sel].to(torch.int64) * K + rank[sel] - base
+    send_hi = torch.zeros(n_owners * K, dtype=torch.int32, device=hi.device)
+    send_lo = torch.zeros_like(send_hi)
+    ret = torch.full_like(send_hi, -1)
+    send_hi[dest] = hi[lane]
+    send_lo[dest] = lo[lane]
+    ret[dest] = lane.to(torch.int32)
+    return send_hi, send_lo, ret
+
+
+def route_first(hi, lo, valid, n_owners: int, K: int):
+    """(send_hi, send_lo, ret, counts, spill) of flat lanes: round 0's
+    slab (each int32[D * K]) of the lanes ranked below K within their
+    owner (their order in the batch here), the lanes each owner gets
+    (int32[D]), and the spill list, int32[3, S]: the index, owner and rank
+    of each lane ranked K or more, in lane order;
+    S = sum_d max(counts[d] - K, 0)."""
     b = owner_bits(n_owners)
     own = (hash_kmer(hi, lo) >> (32 - b) if b
            else torch.zeros(hi.shape, dtype=torch.int64, device=hi.device))
@@ -41,26 +61,21 @@ def route_rank(hi, lo, valid, n_owners: int):
     rank = torch.empty_like(own)
     rank[order] = torch.arange(own.numel(), device=own.device) - starts[
         own[order]]
-    rank = torch.where(own < n_owners, rank, -1)
-    return (own.to(torch.int32), rank.to(torch.int32),
-            counts[:n_owners].to(torch.int32))
+    mine = torch.nonzero(own < n_owners).squeeze(1)
+    own, rank = own[mine], rank[mine]
+    slab = _slab(hi, lo, mine, own, rank, n_owners, 0, K)
+    out = rank >= K
+    spill = torch.stack([mine[out], own[out], rank[out]]).to(torch.int32)
+    return (*slab, counts[:n_owners].to(torch.int32), spill)
 
 
-def dispatch(hi, lo, owner, rank, n_owners: int, base: int, K: int):
-    """A round's send slab: (send_hi, send_lo, ret), each int32[D * K];
-    the lane of owner d ranked r in [base, base + K) goes to slot
-    d * K + r - base with its own index in ``ret``. Unfilled slots hold
-    0, 0 and -1 here (the kernel leaves them unwritten)."""
-    D = n_owners
-    sel = (owner < D) & (rank >= base) & (rank < base + K)
-    dest = (owner[sel].to(torch.int64) * K + rank[sel] - base)
-    send_hi = torch.zeros(D * K, dtype=torch.int32, device=hi.device)
-    send_lo = torch.zeros_like(send_hi)
-    ret = torch.full_like(send_hi, -1)
-    send_hi[dest] = hi[sel]
-    send_lo[dest] = lo[sel]
-    ret[dest] = torch.nonzero(sel).squeeze(1).to(torch.int32)
-    return send_hi, send_lo, ret
+def route_spill(hi, lo, spill, n_spill: int, n_owners: int, base: int,
+                K: int):
+    """Round ``base // K``'s slab (send_hi, send_lo, ret) from the first
+    ``n_spill`` entries of the spill list: those ranked in
+    [base, base + K)."""
+    lane, own, rank = spill[:, :n_spill].to(torch.int64)
+    return _slab(hi, lo, lane, own, rank, n_owners, base, K)
 
 
 def filled(counts, base: int, K: int) -> torch.Tensor:

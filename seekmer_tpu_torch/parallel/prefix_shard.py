@@ -24,10 +24,12 @@ A dense step, each rank on its rows: K1 packs both mates into one (B,
 K3 makes the signatures and A1 folds them into this rank's own table.
 ``routed_lookup`` (JAX ``:183-264``):
 
-  1. R1 (``ops/route_cuda.route_rank``): each lane's owner, its rank
-     among the lanes of its owner, and the per-owner counts. It replaces
-     the JAX ``lax.sort`` by owner and the associative-scan rank: the
-     kernel ranks by atomic counters, so the order within an owner varies
+  1. R1 (``ops/route_cuda.route_first``), one pass: each lane's owner,
+     its rank among the lanes of its owner, the per-owner counts, round
+     0's (D, K) send slab of the lanes ranked below K and a spill list of
+     the others. It replaces the JAX ``lax.sort`` by owner, the
+     associative-scan rank and the scatter: the kernel ranks by atomic
+     counters, so the order within an owner, and which lanes spill, vary
      from run to run, but the ECs and the rounds depend only on the
      counts;
   2. one all-gather of the counts over the index group, read on the host:
@@ -36,12 +38,14 @@ K3 makes the signatures and A1 folds them into this rank's own table.
      (the JAX ``psum``-agreed ``while_loop`` condition, read once here
      instead of a device-side loop), and tells each owner how many of the
      slots it receives are filled, so no valid bytes cross;
-  3. a round: R1's dispatch writes the lanes ranked in [jK, (j+1)K) to
-     the (D, K) send slab; two all_to_alls carry their hi and lo to the
-     owners; K2 (``probe_cuda.lookup_ecs``, unchanged) looks them up on
-     the owner's shard; one all_to_all carries the ECs back; R2
-     (``route_cuda.unroute``) writes them to their lanes. Lanes past the
-     capacity drain in later rounds, so routing is exact and
+  3. a round: round 0 takes R1's slab; a later round j's slab holds the
+     spilled lanes ranked in [jK, (j+1)K) (``route_cuda.route_spill``,
+     over the spill list alone, sized on the host from this rank's row of
+     the counts: sum_d max(counts[d] - K, 0)); two all_to_alls carry their
+     hi and lo to the owners; K2 (``probe_cuda.lookup_ecs``, unchanged)
+     looks them up on the owner's shard; one all_to_all carries the ECs
+     back; R2 (``route_cuda.unroute``) writes them to their lanes. Lanes
+     past the capacity drain in later rounds, so routing is exact and
      ``extra_rounds`` = rounds - 1 measures capacity pressure only.
 
 Sampled routing (``probe_sample`` >= 2, JAX ``:381-415`` over
@@ -268,21 +272,24 @@ def routed_lookup(hi, lo, valid, sdi: ShardedDeviceIndex, group,
                          f"{comm.world(group)} ranks")
     shape = hi.shape
     hi_f, lo_f, v_f = hi.reshape(-1), lo.reshape(-1), valid.reshape(-1)
-    owner, rank, counts = route_cuda.route_rank(hi_f, lo_f, v_f, D)
+    send_hi, send_lo, ret, counts, spill = route_cuda.route_first(
+        hi_f, lo_f, v_f, D, capacity)
     # [source, owner] lanes of the whole group
     every = comm.allgather(counts, group).cpu().numpy().astype(np.int64)
     most = int(every.max()) if every.size else 0
     if most and capacity < 1:
         raise ValueError(f"routing capacity {capacity} for {most} lanes")
     rounds = -(-most // capacity) if most else 0
-    incoming = torch.as_tensor(every[:, comm.rank(group)],
-                               device=hi.device)
+    me = comm.rank(group)
+    incoming = torch.as_tensor(every[:, me], device=hi.device)
+    spilled = int(np.maximum(every[me] - capacity, 0).sum())
     ecs = torch.full((hi_f.numel(),), -1, dtype=torch.int32,
                      device=hi.device)
     for j in range(rounds):
         base = j * capacity
-        send_hi, send_lo, ret = route_cuda.dispatch(hi_f, lo_f, owner, rank,
-                                                    D, base, capacity)
+        if j:
+            send_hi, send_lo, ret = route_cuda.route_spill(
+                hi_f, lo_f, spill, spilled, D, base, capacity)
         q_hi = comm.all_to_all(send_hi, group)
         q_lo = comm.all_to_all(send_lo, group)
         ec_q = probe_cuda.lookup_ecs(q_hi, q_lo,

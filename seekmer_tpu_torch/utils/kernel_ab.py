@@ -1,6 +1,6 @@
 """Timers for K3 (signatures), A1 (accumulate), K5 and K6 (fast mode's
-sample and merge) and K7 (strided lookup) on one card, and the same
-timings of two checkouts of the port in turns.
+sample and merge), K7 (strided lookup), R1 (routing) and A4 (per-EC sums)
+on one card, and the same timings of two checkouts of the port in turns.
 
     python -m seekmer_tpu_torch.utils.kernel_ab INPUTS A B [--rounds 3]
         [--k7-segs 4,7,14]
@@ -17,7 +17,12 @@ the timers below (this file's, whichever side is timed), on the same
 inputs: K3, then A1 on the signatures K3 made, then K5 at strides 16 and
 8 and K6 on what the checkout's own K5, K1, K2 and K3 make at 16, then,
 where the checkout has them, K7 at strides 16, 8, 4 and 2 and K3 with
-``segments=2`` on the batch's windows packed by K1. ``--k7-segs`` also
+``segments=2`` on the batch's windows packed by K1, then, where INPUTS
+holds them (``route``: a rank's half of the batch at 2 owners), R1's
+one-round call at capacity factor 2 in the checkout's form (its one
+entry, or an earlier checkout's rank entry plus one dispatch), and, where
+INPUTS.a4.pt exists (config 2's EC table and terms), A4's whole call
+and an empty launch of its grid. ``--k7-segs`` also
 times K7 under tiles of each of those sizes of segments, where the
 checkout's plan has a carve (``strided_cuda._carve``) and it fits a warp's
 share of shared memory at 4 blocks an SM, each checked bit for bit against
@@ -239,13 +244,46 @@ def time_k7(fast: dict, dev, strides=(16, 8, 4, 2), reps: int = 50,
     return res
 
 
+def time_route(r: dict, dev, reps: int = 50) -> dict:
+    """R1 at capacity factor 2 on a rank's lanes, one round, in whichever
+    form the checkout has: ``route_first`` (rank and round 0's slab in
+    one pass) or ``route_rank`` + one ``dispatch``. Device ms. The second
+    form is there only to time a checkout from before ``route_first``;
+    drop it once no A/B run compares such a checkout."""
+    from seekmer_tpu_torch.ops import route_cuda
+
+    hi, lo, valid = (r[k].to(dev).reshape(-1) for k in ("hi", "lo", "valid"))
+    D = r["D"]
+    K = int(np.ceil(hi.numel() / D * 2.0))  # prefix_shard.capacity
+    if hasattr(route_cuda, "route_first"):
+        def call():
+            return route_cuda.route_first(hi, lo, valid, D, K)
+    else:
+        def call():
+            o, rk, _ = route_cuda.route_rank(hi, lo, valid, D)
+            return route_cuda.dispatch(hi, lo, o, rk, D, 0, K)
+    return {"R1_ms": device_ms(call, reps)}
+
+
+def time_a4(a4: dict, dev, reps: int = 50) -> dict:
+    """A4's whole call on config 2's EC table, and an empty launch of its
+    grid (a thread an nnz entry, 256 a block: A1's grid for nnz reads).
+    Device ms."""
+    from seekmer_tpu_torch.ops import accumulate_cuda, em_csr_cuda
+
+    w, ids, E = a4["w"].to(dev), a4["ec_ids"].to(dev), a4["E"]
+    return {"A4_ms": device_ms(lambda: em_csr_cuda.ec_sums(w, ids, E), reps),
+            "floor_ms": device_ms(lambda: accumulate_cuda.empty_launch(
+                w.numel(), dev, False), reps)}
+
+
 def _child(inputs: str, k7_segs=()) -> None:
     import torch
 
     from seekmer_tpu_torch.ops import sig_cuda
 
     data = torch.load(inputs)
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     ecs, valid = data["ecs"].to(dev), data["valid"].to(dev)
     C = data["max_ecs"]
     sig, mapped = sig_cuda.read_signatures(ecs, valid, C)
@@ -255,6 +293,10 @@ def _child(inputs: str, k7_segs=()) -> None:
     if "fast" in data:
         out["fast"] = time_fast(data["fast"], dev)
         out["strided"] = time_k7(data["fast"], dev, segs=k7_segs)
+    if "route" in data:
+        out["R1"] = time_route(data["route"], dev)
+    if os.path.exists(f"{inputs}.a4.pt"):
+        out["A4"] = time_a4(torch.load(f"{inputs}.a4.pt"), dev)
     print(json.dumps(out))
 
 
@@ -262,7 +304,10 @@ def run_side(checkout: str, inputs: str, k7_segs: str = "") -> dict:
     env = dict(os.environ, PYTHONPATH=checkout)
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
                         inputs, "--k7-segs", k7_segs], cwd=checkout, env=env,
-                       capture_output=True, text=True, check=True)
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"the timers failed on {checkout}:\n"
+                           f"{r.stderr[-4000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 

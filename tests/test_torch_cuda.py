@@ -1613,26 +1613,48 @@ def test_log_likelihood_on_card_equals_cpu_bits(dev, dtype, size):
     assert card[0].item() == card[1].item() == cpu.item()
 
 
+def _ec_sum_table(size, dtype):
+    """(w, ec_ids, E) on the CPU for ``test_ec_sum_kernel``: ``_ll_table``'s
+    tiny or config-2-sized table with three empty ECs appended, or 5,000
+    ECs of 1-5 members with empty runs at the start, inside and at the
+    end of the id range (``gaps``) or one EC of 1,234 members (``long``)."""
+    from seekmer_tpu_torch.em.em import build_ec_table
+
+    if size in ("tiny", "config2"):
+        E, T, big = (150, 60, 40) if size == "tiny" else (83019, 57273, 300)
+        members, counts, _, _ = _ll_table(E, T, big, seed=E + 1)
+        ec = build_ec_table(members + [members[1]] * 3,
+                            np.append(counts, [0] * 3), T, dtype=dtype,
+                            device="cpu")
+        ids, E = ec.ec_ids, ec.num_ecs
+    else:
+        rng = np.random.default_rng(len(size))
+        sizes = rng.integers(1, 6, size=5000)
+        if size == "gaps":
+            sizes[[0, 1, 2, 999, 2000, 2001, 2002, 2003, 4997, 4998,
+                   4999]] = 0
+        else:
+            sizes[777] = 1234
+        ids, E = torch.from_numpy(np.repeat(np.arange(5000), sizes)), 5000
+    w = torch.from_numpy(np.random.default_rng(E).random(
+        ids.numel()) * 10).to(dtype)
+    return w, ids, E
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("size", ["tiny", "config2"])
+@pytest.mark.parametrize("size", ["tiny", "config2", "gaps", "long"])
 def test_ec_sum_kernel(dev, dtype, size, monkeypatch):
     """A4 (``em_csr_cuda.ec_sums``) on CUDA tensors: one launch a call, no
     plain version, and the bits of the plain version on the CPU and on the
     card, on a tiny table and on one of config 2's size (an EC of 300
     members), each with an empty EC and three empty ECs after the last
-    member; an empty table launches nothing."""
-    from seekmer_tpu_torch.em.em import build_ec_table
-
-    E, T, big = (150, 60, 40) if size == "tiny" else (83019, 57273, 300)
-    members, counts, _, _ = _ll_table(E, T, big, seed=E + 1)
-    ec = build_ec_table(members + [members[1]] * 3, np.append(counts, [0] * 3),
-                        T, dtype=dtype, device="cpu")
-    w = torch.from_numpy(np.random.default_rng(E).random(
-        ec.ec_ids.numel()) * 10).to(dtype)
-    want = em_csr_cuda.plain_ec_sums(w, ec.ec_ids, ec.num_ecs)
-    on_card = em_csr_cuda.plain_ec_sums(w.to(dev), ec.ec_ids.to(dev),
-                                        ec.num_ecs)
+    member, and on tables with empty runs at the start, inside and at the
+    end, and with an EC of 1,234 members; a table with no term is zeros
+    and launches nothing, an empty table too."""
+    w, ids, E = _ec_sum_table(size, dtype)
+    want = em_csr_cuda.plain_ec_sums(w, ids, E)
+    on_card = em_csr_cuda.plain_ec_sums(w.to(dev), ids.to(dev), E)
     assert torch.equal(on_card.cpu(), want)
 
     def no_plain(*a, **k):
@@ -1640,12 +1662,14 @@ def test_ec_sum_kernel(dev, dtype, size, monkeypatch):
 
     monkeypatch.setattr(em_csr_cuda, "plain_ec_sums", no_plain)
     before = em_csr_cuda.ec_sums.launches
-    got = em_csr_cuda.ec_sums(w.to(dev), ec.ec_ids.to(dev), ec.num_ecs)
+    got = em_csr_cuda.ec_sums(w.to(dev), ids.to(dev), E)
     assert em_csr_cuda.ec_sums.launches == before + 1
     assert got.dtype == dtype and torch.equal(got.cpu(), want)
     empty = torch.empty(0, dtype=dtype, device=dev)
     assert em_csr_cuda.ec_sums(
         empty, empty.to(torch.int64), 0).numel() == 0
+    none = em_csr_cuda.ec_sums(empty, empty.to(torch.int64), 7)
+    assert torch.equal(none.cpu(), torch.zeros(7, dtype=dtype))
     assert em_csr_cuda.ec_sums.launches == before + 1
 
 
@@ -1843,36 +1867,64 @@ def test_pack_cache_batch_on_card_equals_ingest_batch(dev, world, tmp_path):
 @pytest.mark.parametrize("D", [1, 2, 4, 64])
 @pytest.mark.parametrize("N", [0, 1, 31, 5000, 70001])
 def test_route_kernels(dev, D, N):
-    """R1's rank entry: owners and counts equal to the plain version's,
-    each owner's ranks a permutation of 0..count-1, -1 for invalid lanes;
-    its dispatch equal to the plain dispatch on every filled slot, round
-    by round at a capacity of three rounds; R2 equal to the plain unroute;
-    the lanes' answers back in place."""
+    """R1's first entry at a capacity K of three rounds: counts equal to
+    the plain version's; each owner's round-0 slots hold min(count, K)
+    distinct valid lanes of that owner with their hi and lo; the spill
+    list holds the rest, their ranks K..count-1, disjoint from round 0's
+    lanes; the spill entry's later slabs and R2's unroute put every lane's
+    answer back in place, as the plain versions do; an empty batch
+    zeroes the counts and launches nothing."""
+    from seekmer_tpu_torch.ops.hash import hash_kmer
+
     g = torch.Generator().manual_seed(N + D)
     hi = torch.randint(0, 1 << 26, (N,), generator=g, dtype=torch.int32)
     lo = torch.randint(0, 1 << 24, (N,), generator=g, dtype=torch.int32)
     valid = torch.rand(N, generator=g) < 0.8
     hi, lo, valid = hi.to(dev), lo.to(dev), valid.to(dev)
-    owner, rank, counts = route_cuda.route_rank(hi, lo, valid, D)
-    p_owner, p_rank, p_counts = route.route_rank(hi, lo, valid, D)
-    assert torch.equal(owner, p_owner) and torch.equal(counts, p_counts)
-    assert bool((rank[~valid] == -1).all())
+    *_, p_counts, _ = route.route_first(hi.cpu(), lo.cpu(), valid.cpu(), D,
+                                        1)
+    K = max(1, -(-int(p_counts.max()) // 3))
+    before = (route_cuda.route_first.launches,
+              route_cuda.route_spill.launches)
+    s_hi, s_lo, ret, counts, spill = route_cuda.route_first(hi, lo, valid, D,
+                                                            K)
+    assert route_cuda.route_first.launches == before[0] + (N > 0)
+    assert torch.equal(counts.cpu(), p_counts)
+    n_spill = int((counts.long() - K).clamp(min=0).sum())
+    assert spill.shape[0] == 3 and n_spill <= spill.shape[1] <= max(N - K, 0)
+    b = route.owner_bits(D)
+    owner = torch.where(valid, hash_kmer(hi, lo) >> (32 - b) if b else
+                        torch.zeros_like(hi, dtype=torch.int64), D)
+    f = route.filled(counts, 0, K)
+    lanes0 = ret[f].long()
+    assert torch.equal(s_hi[f], hi[lanes0]) and torch.equal(s_lo[f],
+                                                            lo[lanes0])
+    sp = spill[:, :n_spill].long()
     for d in range(D):
-        mine = torch.sort(rank[owner == d]).values
-        assert torch.equal(mine, torch.arange(int(counts[d]), device=dev,
-                                              dtype=torch.int32))
-    K = max(1, -(-int(counts.max()) // 3)) if N else 1
+        c = int(counts[d])
+        got0 = lanes0[(torch.arange(D * K, device=dev)[f] // K) == d]
+        assert got0.numel() == min(c, K)
+        assert bool((owner[got0] == d).all())
+        mine = sp[0][sp[1] == d]
+        assert torch.equal(torch.sort(sp[2][sp[1] == d]).values,
+                           torch.arange(K, max(c, K), device=dev))
+        both = torch.cat([got0, mine])
+        assert torch.equal(torch.sort(both).values,
+                           torch.nonzero(owner == d).squeeze(1))
     ecs = torch.full((N,), -1, dtype=torch.int32, device=dev)
     p_ecs = ecs.clone()
     for j in range(3):
         base = j * K
-        slab = route_cuda.dispatch(hi, lo, owner, rank, D, base, K)
-        want = route.dispatch(hi, lo, owner, rank, D, base, K)
-        f = route.filled(counts, base, K)
-        for a, b in zip(slab, want):
-            assert torch.equal(a[f], b[f])
+        slab = ((s_hi, s_lo, ret) if j == 0 else route_cuda.route_spill(
+            hi, lo, spill, n_spill, D, base, K))
+        if j:
+            want = route.route_spill(hi, lo, spill, n_spill, D, base, K)
+            f = route.filled(counts, base, K)
+            for a, b in zip(slab, want):
+                assert torch.equal(a[f], b[f])
         back = (slab[0] ^ slab[1]) & 0xFFFF
         route_cuda.unroute(back, slab[2], counts, base, K, ecs)
         route.unroute(back, slab[2], counts, base, K, p_ecs)
+    assert route_cuda.route_spill.launches == before[1] + 2 * (n_spill > 0)
     assert torch.equal(ecs, p_ecs)
     assert torch.equal(ecs, torch.where(valid, (hi ^ lo) & 0xFFFF, -1))

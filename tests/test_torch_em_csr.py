@@ -691,3 +691,42 @@ def test_ec_sums_plain_in_nnz_order(dtype):
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, torch.zeros(40, dtype=dtype).index_add_(0, ids,
                                                                      w))
+
+
+def _ec_sum_sizes(case):
+    """Members an EC for ``test_ec_sums_plain_edges``."""
+    rng = np.random.default_rng(len(case))
+    if case == "no_terms":
+        return np.zeros(30, np.int64)
+    sizes = rng.integers(1, 6, size=60)
+    if case == "gaps":  # empty runs at the start, inside and at the end
+        sizes[[0, 1, 2, 20, 21, 40, 57, 58, 59]] = 0
+    if case == "long":  # one EC of 1,234 members among short ones
+        sizes[33] = 1234
+    return sizes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["gaps", "no_terms", "long"])
+def test_ec_sums_plain_edges(dtype, case):
+    """A4's plain version where the kernel's run heads do more than add:
+    empty ECs at the start, inside and at the end of the id range (zeros,
+    each written once by a neighbouring run's head), a table with no term
+    at all (nnz 0: zeros) and one EC of 1,234 members; bits equal to a
+    numpy loop in nnz order and to the CPU's ``index_add_``."""
+    sizes = _ec_sum_sizes(case)
+    E = sizes.size
+    ids = torch.from_numpy(np.repeat(np.arange(E), sizes))
+    rng = np.random.default_rng(E)
+    w = torch.from_numpy(rng.random(int(sizes.sum())) * 3).to(dtype)
+    got = em_csr_cuda.ec_sums(w, ids, E)
+    wn = w.numpy()
+    want = np.zeros(E, wn.dtype)
+    for z, c in enumerate(ids.numpy()):
+        want[c] = want[c] + wn[z]
+    assert got.dtype == dtype and got.shape == (E,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, torch.zeros(E, dtype=dtype).index_add_(0, ids,
+                                                                    w))
+    assert not got[torch.from_numpy(sizes == 0)].any()

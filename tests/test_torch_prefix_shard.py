@@ -7,8 +7,9 @@ conftest's 8 fake devices (a mesh over the first n).
 - ``shard_index_by_prefix`` at 2 and 4 shards byte-equal to JAX's, shard
   0's FLD payload too, and ``build_bucket_table``'s placement;
 - R1 and R2's plain versions (``ops/route.py``) against numpy: each
-  owner's count, the ranks a permutation of 0..count-1, every round's
-  slab at a capacity that takes three rounds, the ECs back in place;
+  owner's count, round 0's slab and the spill list at a capacity that
+  takes three rounds, the later rounds' slabs from the spill list, the
+  ECs back in place, and an empty batch;
 - ``PrefixShardedMapper``'s merged MapResult and ``extra_routing_rounds``
   equal to JAX ``PrefixShardedMapper``'s: meshes (1, 2) single-end and
   paired, (2, 2) paired, (1, 4) at capacity_factor 0.3 (extra rounds >
@@ -133,44 +134,54 @@ def test_build_bucket_table_placement_equal_to_jax(world):
 # ---- R1 and R2's plain versions ------------------------------------------
 
 
+@pytest.mark.parametrize("N", [3000, 0])
 @pytest.mark.parametrize("D", [1, 2, 4])
-def test_route_plain_against_numpy(D):
-    """owner = the top log2(D) bits of the slot hash (D for an invalid
-    lane); counts per owner; ranks a permutation of 0..count-1 in lane
-    order; each of three rounds' slab as numpy places it; every lane's EC
-    back in place after the rounds."""
+def test_route_plain_against_numpy(D, N):
+    """owner = the top log2(D) bits of the slot hash; counts per owner;
+    ranks in lane order within an owner; at a capacity K of three rounds,
+    round 0's slab (the lanes ranked below K) and the spill list (index,
+    owner, rank of every lane ranked K or more, in lane order) as numpy
+    places them, each later round's slab from the spill list alone, and
+    every lane's EC back in place after the rounds; an empty batch only
+    zeroes the counts."""
     rng = np.random.default_rng(D)
-    N = 3000
     hi = rng.integers(0, 1 << 26, N, dtype=np.int64).astype(np.int32)
     lo = rng.integers(0, 1 << 24, N, dtype=np.int64).astype(np.int32)
     valid = rng.random(N) < 0.8
-    owner, rank, counts = route.route_rank(
-        torch.from_numpy(hi), torch.from_numpy(lo), torch.from_numpy(valid),
-        D)
     h = hash_kmer_np(hi.view(np.uint32), lo.view(np.uint32))
     b = D.bit_length() - 1
-    want_owner = np.where(valid, (h >> np.uint32(32 - b)).astype(np.int64)
-                          if b else 0, D)
-    np.testing.assert_array_equal(owner.numpy(), want_owner)
-    want_counts = np.bincount(want_owner, minlength=D + 1)[:D]
-    np.testing.assert_array_equal(counts.numpy(), want_counts)
-    rk = rank.numpy()
-    assert (rk[~valid] == -1).all()
+    owner = np.where(valid, (h >> np.uint32(32 - b)).astype(np.int64)
+                     if b else 0, D)
+    want_counts = np.bincount(owner, minlength=D + 1)[:D]
+    rank = np.full(N, -1)
     for d in range(D):
-        mine = np.flatnonzero(want_owner == d)
-        np.testing.assert_array_equal(rk[mine], np.arange(mine.size))
-    K = -(-int(want_counts.max()) // 3)  # three rounds
+        mine = np.flatnonzero(owner == d)
+        rank[mine] = np.arange(mine.size)
+    K = max(-(-int(want_counts.max(initial=0)) // 3), 1)  # three rounds
+
+    def slab(base):
+        sel = (owner < D) & (rank >= base) & (rank < base + K)
+        ret = np.full(D * K, -1)
+        ret[owner[sel] * K + rank[sel] - base] = np.flatnonzero(sel)
+        return ret
+
+    t_hi, t_lo = torch.from_numpy(hi), torch.from_numpy(lo)
+    *first, counts, spill = route.route_first(t_hi, t_lo,
+                                              torch.from_numpy(valid), D, K)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    out = rank >= K
+    np.testing.assert_array_equal(
+        spill.numpy(), np.stack([np.flatnonzero(out), owner[out], rank[out]]))
+    n_spill = int(np.maximum(want_counts - K, 0).sum())
+    assert spill.shape == (3, n_spill)
     ec = (hi ^ lo) & 0xFFFF  # an owner's answer: any function of the key
     ecs = torch.full((N,), -1, dtype=torch.int32)
     for j in range(3):
         base = j * K
-        s_hi, s_lo, ret = route.dispatch(
-            torch.from_numpy(hi), torch.from_numpy(lo), owner, rank, D,
-            base, K)
+        s_hi, s_lo, ret = (first if j == 0 else route.route_spill(
+            t_hi, t_lo, spill, n_spill, D, base, K))
         f = route.filled(counts, base, K).numpy()
-        want_ret = np.full(D * K, -1)
-        sel = (want_owner < D) & (rk >= base) & (rk < base + K)
-        want_ret[want_owner[sel] * K + rk[sel] - base] = np.flatnonzero(sel)
+        want_ret = slab(base)
         np.testing.assert_array_equal(ret.numpy(), want_ret)
         np.testing.assert_array_equal(f, want_ret >= 0)
         np.testing.assert_array_equal(s_hi.numpy()[f], hi[want_ret[f]])
