@@ -815,21 +815,36 @@ def a1_tables_diff(tables, B: int, what: str):
 
 def check_route(hi, lo, valid, di, want):
     """``[R1 route ...]``, ``[R2 unroute ...]``: the routing kernels on the
-    first half of a paired config-2 batch (a rank's rows at 2 ranks), 2
-    owners, every round's slab looked up by K2 on the whole table. At
-    capacity factor 2 (one round): R1's counts equal to its plain
-    version's; each owner's round-0 slots hold min(count, K) distinct
-    valid lanes of that owner with their hi and lo; R2 equal to its plain
-    version; the lanes' ECs equal to K2 on the lanes themselves. At a
-    capacity of three rounds: each owner's round-0 lanes and spilled lanes
-    disjoint and together exactly its valid lanes, the spilled ranks
-    K..count-1; each later round's filled slots equal to the plain
-    ``route_spill`` on the kernel's own spill list; the ECs equal to K2's, and a second run's bits equal (the
-    lanes that spill may differ). R1's time is its one-round call (device
-    time, card kept busy), bounded by the function's bytes: hi, lo and
-    valid in, the routed lanes' slab out; R2's moves a filled slot's EC
-    and index in and its lane's EC out, beside ``index_put_`` of the same
-    values. Returns (R1, R2) records."""
+    first half of a paired config-2 batch (a rank's rows at 2 ranks), at 2
+    owners and again at 4 on the same lanes, every round's slab looked up
+    by K2 on the whole table. At capacity factor 2 (one round): R1's
+    counts equal to its plain version's; each owner's round-0 slots hold
+    min(count, K) distinct valid lanes of that owner with their hi and lo;
+    R2 equal to its plain version; the lanes' ECs equal to K2 on the lanes
+    themselves. At a capacity of three rounds: each owner's round-0 lanes
+    and spilled lanes disjoint and together exactly its valid lanes, the
+    spilled ranks K..count-1; each later round's filled slots equal to the
+    plain ``route_spill`` on the kernel's own spill list; the ECs equal to
+    K2's, and a second run's bits equal (the lanes that spill may differ).
+    R1's time is its one-round call, bounded by the function's bytes: hi,
+    lo and valid in, the routed lanes' slab out; R2's moves a filled
+    slot's EC and index in and its lane's EC out, beside ``index_put_`` of
+    the same values; the spill entry's is a later round's at the three
+    rounds' capacity. Device times, card kept busy. Returns the (R1, R2)
+    records at 2 owners, their errors the larger of both passes'."""
+    half = hi.shape[0] // 2
+    hi, lo, valid = (t[:half].reshape(-1) for t in (hi, lo, valid))
+    want = want[:half].reshape(-1)
+    r1, r2 = route_pass(hi, lo, valid, di, want, 2, half)
+    r1_4, r2_4 = route_pass(hi, lo, valid, di, want, 4, half)
+    r1["max_abs_err"] = max(r1["max_abs_err"], r1_4["max_abs_err"])
+    r2["max_abs_err"] = max(r2["max_abs_err"], r2_4["max_abs_err"])
+    return r1, r2
+
+
+def route_pass(hi, lo, valid, di, want, D, half):
+    """One pass of ``check_route`` at D owners on a rank's flat lanes;
+    returns its (R1, R2) records."""
     import torch
 
     from seekmer_tpu_torch.ops import probe_cuda, route, route_cuda
@@ -837,15 +852,12 @@ def check_route(hi, lo, valid, di, want):
     from seekmer_tpu_torch.parallel.prefix_shard import capacity
     from seekmer_tpu_torch.utils import kernel_ab
 
-    D = 2
-    half = hi.shape[0] // 2
-    hi, lo, valid = (t[:half].reshape(-1) for t in (hi, lo, valid))
-    want = want[:half].reshape(-1)
     N = hi.numel()
     dev = hi.device
     geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
     owner = torch.where(valid, hash_kmer(hi, lo) >> (32 - route.owner_bits(D)),
                         D)
+    tag = "config 2" if D == 2 else f"config 2 D={D}"
 
     def lookup(K):
         """Every round at capacity K: (ECs, round 0's slab, counts, the
@@ -876,7 +888,7 @@ def check_route(hi, lo, valid, di, want):
         lanes = slab0[2][f].long()
         check(torch.equal(slab0[0][f], hi[lanes])
               and torch.equal(slab0[1][f], lo[lanes]),
-              "[R1 route] a round-0 slot's hi or lo is not its lane's")
+              f"[R1 route {tag}] a round-0 slot's hi or lo is not its lane's")
         of = torch.arange(D * K, device=dev)[f] // K  # a slot's owner
         out = []
         for d in range(D):
@@ -884,7 +896,7 @@ def check_route(hi, lo, valid, di, want):
             check(mine.numel() == min(int(counts[d]), K)
                   and torch.unique(mine).numel() == mine.numel()
                   and bool((owner[mine] == d).all()),
-                  f"[R1 route] owner {d}'s round-0 slots are not "
+                  f"[R1 route {tag}] owner {d}'s round-0 slots are not "
                   f"min(count, K) distinct lanes of that owner")
             out.append(mine)
         return out
@@ -894,8 +906,9 @@ def check_route(hi, lo, valid, di, want):
     ecs, slab0, counts, _, rounds, _ = lookup(K)
     p_counts = route.route_first(hi, lo, valid, D, K)[3]
     err = max_abs_diff(counts, p_counts)
-    check(err == 0 and rounds == 1, f"[R1 route] counts {counts.tolist()} "
-          f"!= the plain version's {p_counts.tolist()}, or {rounds} rounds")
+    check(err == 0 and rounds == 1, f"[R1 route {tag}] counts "
+          f"{counts.tolist()} != the plain version's {p_counts.tolist()}, "
+          f"or {rounds} rounds")
     round0(slab0, counts, K)
     f = route.filled(counts, 0, K)
     ec_q = probe_cuda.lookup_ecs(slab0[0], slab0[1], f, *geo)
@@ -911,7 +924,7 @@ def check_route(hi, lo, valid, di, want):
     K3 = -(-int(counts.max()) // 3)
     runs = [lookup(K3) for _ in range(2)]
     for ecs3, slab3, counts3, spill3, rounds3, err3 in runs:
-        check(rounds3 == 3, f"[R1 route] K {K3} took {rounds3} rounds")
+        check(rounds3 == 3, f"[R1 route {tag}] K {K3} took {rounds3} rounds")
         err = max(err, err3, max_abs_diff(ecs3, want))
         for d, first in enumerate(round0(slab3, counts3, K3)):
             spilled = spill3[0][spill3[1] == d]
@@ -920,10 +933,10 @@ def check_route(hi, lo, valid, di, want):
                   and torch.equal(torch.sort(torch.cat([first, spilled]))
                                   .values,
                                   torch.nonzero(owner == d).squeeze(1)),
-                  f"[R1 route] owner {d}: round 0 and the spill list are "
-                  f"not a split of its valid lanes")
+                  f"[R1 route {tag}] owner {d}: round 0 and the spill list "
+                  f"are not a split of its valid lanes")
     check(torch.equal(runs[0][0], runs[1][0]),
-          "[R1 route] two three-round runs gave different ECs")
+          f"[R1 route {tag}] two three-round runs gave different ECs")
     same_spill = torch.equal(torch.sort(runs[0][3][0]).values,
                              torch.sort(runs[1][3][0]).values)
     spill_ms = kernel_ab.device_ms(lambda: route_cuda.route_spill(
@@ -937,13 +950,13 @@ def check_route(hi, lo, valid, di, want):
         (9 * N + 12 * routed + 4 * D) / HBM_BYTES_S, "bytes")
     idx, vals = slab0[2][f].long(), ec_q[f]
     out2 = record(
-        err2, cuda_ms(lambda: route_cuda.unroute(ec_q, slab0[2], counts, 0,
-                                                 K, ecs2), 50),
+        err2, kernel_ab.device_ms(lambda: route_cuda.unroute(
+            ec_q, slab0[2], counts, 0, K, ecs2), 50),
         cuda_ms(lambda: route.unroute(ec_q, slab0[2], counts, 0, K, ecs2),
                 10),
         12 * routed / HBM_BYTES_S, "bytes",
-        cuda_ms(lambda: ecs2.index_put_((idx,), vals), 50))
-    log(f"[R1 route config 2] {N} lanes ({half} pairs x {hi.numel() // half}"
+        kernel_ab.device_ms(lambda: ecs2.index_put_((idx,), vals), 50))
+    log(f"[R1 route {tag}] {N} lanes ({half} pairs x {N // half}"
         f" windows), {D} owners, K {K}: counts {counts.tolist()} "
         f"({routed} valid lanes), max_abs_err {err} (counts; the spill "
         f"entry's filled slots against the plain route_spill on the "
@@ -958,11 +971,12 @@ def check_route(hi, lo, valid, di, want):
         f"{spill_ms:.6f} ms, plain {out1['plain_ms']:.6f} ms, bound "
         f"{out1['bound_ms']:.6f} ms (share "
         f"{out1['bound_ms'] / out1['ms']:.6f})")
-    log(f"[R2 unroute config 2] {D * K} slots, {routed} filled: max_abs_err "
+    log(f"[R2 unroute {tag}] {D * K} slots, {routed} filled: max_abs_err "
         f"{err2} (against its plain version and K2 on the lanes "
-        f"themselves), kernel {out2['ms']:.6f} ms, plain "
-        f"{out2['plain_ms']:.6f} ms, index_put_ {out2['library_ms']:.6f} ms,"
-        f" bound {out2['bound_ms']:.6f} ms (share "
+        f"themselves), kernel {out2['ms']:.6f} ms (device time, card kept "
+        f"busy), plain {out2['plain_ms']:.6f} ms, index_put_ "
+        f"{out2['library_ms']:.6f} ms (device time), bound "
+        f"{out2['bound_ms']:.6f} ms (share "
         f"{out2['bound_ms'] / out2['ms']:.6f})")
     return out1, out2
 

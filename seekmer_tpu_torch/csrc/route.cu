@@ -44,13 +44,25 @@
 // Slots past an owner's count in a round are not written: the receiver
 // knows the counts and marks them invalid, so no valid bytes cross.
 //
-// R2, seekmer_route_unroute, once a round: a thread a slot; slot j of
-// owner d is filled when j < counts[d] - base, and then writes its
-// returned EC to the lane named by the slab's return index.
+// R2, seekmer_route_unroute, once a round: slot j of owner d is filled
+// when j < counts[d] - base, and then writes its returned EC to the lane
+// named by the slab's return index. Only 37% of a config-2 round's slots
+// are filled, so a block takes 2,048 slots of one owner's run (grid y the
+// owner, x a chunk of its K slots): it reads the owner's count once and
+// exits before any other load when its chunk starts past the filled run.
+// The owner's 64-bit offset d * K is taken once a block, a slot's place in
+// the run is 32-bit, and no thread divides. A thread takes 8 slots strided
+// by the block, so the loads are coalesced, and issues all 16 loads of ret
+// and ec_back before its first store. Those loads are marked evict-first
+// (ld.global.cs): the slab is read once, so L2 keeps the lines of ecs
+// instead, whose 32-byte sectors take lanes of every owner at different
+// times in the launch: a third less time than plain loads at a config-2
+// half batch (utils/route_bench.py; PERF.md). A grid-stride loop in place
+// of the blocks past the runs was no faster.
 //
 // What bounds them: the bytes they move, a few bytes a lane (R1 reads hi,
 // lo and valid, 9 bytes a lane, and writes 12 bytes a routed lane; R2
-// reads 8 bytes a filled slot and writes 4). R2 is not tuned yet.
+// reads 8 bytes a filled slot and writes 4 to its lane).
 
 #include "common.cuh"
 
@@ -59,6 +71,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLanesPerThread = 8;
 constexpr int kMaxOwners = 64;
+constexpr int kSlotsPerThread = 8;  // R2's slots a thread
 
 __global__ void __launch_bounds__(kThreads)
 first_kernel(const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
@@ -177,11 +190,27 @@ __global__ void __launch_bounds__(kThreads)
 unroute_kernel(const int32_t* __restrict__ ec_back,
                const int32_t* __restrict__ ret,
                const int32_t* __restrict__ counts, int32_t* __restrict__ ecs,
-               int D, int64_t base, int64_t K) {
-  const int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (s >= (int64_t)D * K) return;
-  const int64_t d = s / K;
-  if (s - d * K < (int64_t)__ldg(counts + d) - base) ecs[ret[s]] = ec_back[s];
+               int64_t base, int K) {
+  constexpr int kSlots = kThreads * kSlotsPerThread;
+  const int d = blockIdx.y;
+  const int first = blockIdx.x * kSlots + threadIdx.x;
+  // the owner's filled run this round: clamp(counts[d] - base, 0, K)
+  const int n = (int)max((int64_t)0,
+                         min((int64_t)__ldg(counts + d) - base, (int64_t)K));
+  if ((int)(blockIdx.x * kSlots) >= n) return;
+  const int64_t run = (int64_t)d * K;
+  int32_t lane[kSlotsPerThread], ec[kSlotsPerThread];
+#pragma unroll
+  for (int i = 0; i < kSlotsPerThread; ++i) {
+    const int j = first + i * kThreads;
+    if (j < n) {
+      lane[i] = __ldcs(ret + run + j);  // read once: evict first
+      ec[i] = __ldcs(ec_back + run + j);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kSlotsPerThread; ++i)
+    if (first + i * kThreads < n) ecs[lane[i]] = ec[i];
 }
 
 }  // namespace
@@ -228,16 +257,21 @@ extern "C" int seekmer_route_spill(const void* hi, const void* lo,
   return (int)cudaGetLastError();
 }
 
+// R2: the filled slots of a round's (D, K) slab, their ECs to their lanes.
+// K + 2,048 must fit an int: a slot's place in its run is 32-bit.
 extern "C" int seekmer_route_unroute(const void* ec_back, const void* ret,
                                      const void* counts, void* ecs,
                                      void* stream, int64_t device, int64_t D,
                                      int64_t base, int64_t K) {
   cudaSetDevice((int)device);
+  constexpr int64_t kSlots = kThreads * kSlotsPerThread;
+  if (D < 0 || D > kMaxOwners || K < 0 || K > INT32_MAX - kSlots)
+    return (int)cudaErrorInvalidValue;
   if (D * K > 0) {
-    unroute_kernel<<<seekmer::grid_for(D * K, kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>(
+    const dim3 grid(seekmer::grid_for(K, kSlots), (unsigned int)D);
+    unroute_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)ec_back, (const int32_t*)ret, (const int32_t*)counts,
-        (int32_t*)ecs, (int)D, base, K);
+        (int32_t*)ecs, base, (int)K);
   }
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,13 @@ returned ECs to their lanes). They replace the XLA of
 ``seekmer_tpu/parallel/prefix_shard.py`` ``routed_lookup`` (``:205-233``
 and ``:247-249``). CPU tensors take the plain versions of
 ``ops/route.py``; CUDA tensors the kernels.
+
+All three are bound by the bytes they move. R2 touches only a round's
+filled slots: a block a chunk of 2,048 slots of one owner's run, which
+reads the owner's count once and exits when its chunk is past the run;
+each thread loads 8 slots' return index and EC, evict-first so that L2
+keeps ``ecs``, before it stores any, and no thread divides (a slot's
+place in its run is 32-bit, hence ``MAX_UNROUTE_K``).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from . import route as plain
 from .route import owner_bits
 
 MAX_OWNERS = 64  # R1's per-owner counters live in a block's shared memory
+MAX_UNROUTE_K = 2**31 - 1 - 2048  # R2's slot place plus its chunk in an int
 
 
 def route_first(hi, lo, valid, n_owners: int, K: int):
@@ -93,13 +101,21 @@ route_spill.launches = 0
 
 def unroute(ec_back, ret, counts, base: int, K: int, ecs):
     """Write a round's returned ECs to their lanes in ``ecs``, as
-    ``route.unroute``."""
+    ``route.unroute``: ``ecs[ret[s]] = ec_back[s]`` for slot s = d * K + j
+    of every owner d with j < counts[d] - base; no other lane is touched
+    and no other slot read."""
     if ec_back.device.type == "cpu":
         return plain.unroute(ec_back, ret, counts, base, K, ecs)
     D = counts.numel()
     if ec_back.numel() != D * K or ret.numel() != D * K:
         raise ValueError(f"slab of {ec_back.numel()} / {ret.numel()} slots, "
                          f"expected {D} x {K}")
+    if D > MAX_OWNERS or K > MAX_UNROUTE_K:
+        raise ValueError(f"R2 takes at most {MAX_OWNERS} owners and "
+                         f"{MAX_UNROUTE_K} slots an owner, got {D} x {K}")
+    if not (ec_back.dtype == ret.dtype == counts.dtype == ecs.dtype
+            == torch.int32):
+        raise ValueError("ec_back, ret, counts and ecs must be int32")
     _build.require_cuda("unroute", ec_back, ret, counts, ecs)
     fn = _build.function("seekmer_route_unroute", 5, 4)
     _build.check(fn(ec_back.data_ptr(), ret.data_ptr(), counts.data_ptr(),

@@ -1,6 +1,7 @@
 """Timers for K3 (signatures), A1 (accumulate), K5 and K6 (fast mode's
-sample and merge), K7 (strided lookup), R1 (routing) and A4 (per-EC sums)
-on one card, and the same timings of two checkouts of the port in turns.
+sample and merge), K7 (strided lookup), R1 and R2 (routing) and A4
+(per-EC sums) on one card, and the same timings of two checkouts of the
+port in turns.
 
     python -m seekmer_tpu_torch.utils.kernel_ab INPUTS A B [--rounds 3]
         [--k7-segs 4,7,14]
@@ -19,10 +20,9 @@ inputs: K3, then A1 on the signatures K3 made, then K5 at strides 16 and
 where the checkout has them, K7 at strides 16, 8, 4 and 2 and K3 with
 ``segments=2`` on the batch's windows packed by K1, then, where INPUTS
 holds them (``route``: a rank's half of the batch at 2 owners), R1's
-one-round call at capacity factor 2 in the checkout's form (its one
-entry, or an earlier checkout's rank entry plus one dispatch), and, where
-INPUTS.a4.pt exists (config 2's EC table and terms), A4's whole call
-and an empty launch of its grid. ``--k7-segs`` also
+one-round call at capacity factor 2 and R2 on its round-0 slab, and,
+where INPUTS.a4.pt exists (config 2's EC table and terms), A4's whole
+call and an empty launch of its grid. ``--k7-segs`` also
 times K7 under tiles of each of those sizes of segments, where the
 checkout's plan has a carve (``strided_cuda._carve``) and it fits a warp's
 share of shared memory at 4 blocks an SM, each checked bit for bit against
@@ -245,24 +245,25 @@ def time_k7(fast: dict, dev, strides=(16, 8, 4, 2), reps: int = 50,
 
 
 def time_route(r: dict, dev, reps: int = 50) -> dict:
-    """R1 at capacity factor 2 on a rank's lanes, one round, in whichever
-    form the checkout has: ``route_first`` (rank and round 0's slab in
-    one pass) or ``route_rank`` + one ``dispatch``. Device ms. The second
-    form is there only to time a checkout from before ``route_first``;
-    drop it once no A/B run compares such a checkout."""
+    """R1's one-round call (``route_first``) at capacity factor 2 on a
+    rank's lanes, and R2 (``unroute``) on R1's round-0 slab with an EC a
+    filled slot made from its key. Device ms."""
+    import torch
+
     from seekmer_tpu_torch.ops import route_cuda
 
     hi, lo, valid = (r[k].to(dev).reshape(-1) for k in ("hi", "lo", "valid"))
     D = r["D"]
     K = int(np.ceil(hi.numel() / D * 2.0))  # prefix_shard.capacity
-    if hasattr(route_cuda, "route_first"):
-        def call():
-            return route_cuda.route_first(hi, lo, valid, D, K)
-    else:
-        def call():
-            o, rk, _ = route_cuda.route_rank(hi, lo, valid, D)
-            return route_cuda.dispatch(hi, lo, o, rk, D, 0, K)
-    return {"R1_ms": device_ms(call, reps)}
+    send_hi, send_lo, ret, counts, _ = route_cuda.route_first(hi, lo, valid,
+                                                              D, K)
+    ec_back = (send_hi ^ send_lo) & 0xFFFF
+    ecs = torch.full_like(hi, -1)
+    return {"R1_ms": device_ms(
+                lambda: route_cuda.route_first(hi, lo, valid, D, K), reps),
+            "R2_ms": device_ms(
+                lambda: route_cuda.unroute(ec_back, ret, counts, 0, K, ecs),
+                reps)}
 
 
 def time_a4(a4: dict, dev, reps: int = 50) -> dict:
@@ -294,7 +295,7 @@ def _child(inputs: str, k7_segs=()) -> None:
         out["fast"] = time_fast(data["fast"], dev)
         out["strided"] = time_k7(data["fast"], dev, segs=k7_segs)
     if "route" in data:
-        out["R1"] = time_route(data["route"], dev)
+        out["route"] = time_route(data["route"], dev)
     if os.path.exists(f"{inputs}.a4.pt"):
         out["A4"] = time_a4(torch.load(f"{inputs}.a4.pt"), dev)
     print(json.dumps(out))

@@ -1864,17 +1864,33 @@ def test_pack_cache_batch_on_card_equals_ingest_batch(dev, world, tmp_path):
     np.testing.assert_array_equal(got.sig_counts, want.sig_counts)
 
 
+UNROUTE_SENTINEL = -7  # an EC no lane may end up holding
+
+
+def _poisoned(back, ret, counts, base, K, lane):
+    """The slab with every unfilled slot sent to ``lane`` with the
+    sentinel EC: a kernel that reads past an owner's filled run writes
+    it."""
+    f = route.filled(counts, base, K)
+    return (torch.where(f, back, UNROUTE_SENTINEL),
+            torch.where(f, ret, lane).to(torch.int32))
+
+
+@pytest.mark.parametrize("rounds", [3, 1])
 @pytest.mark.parametrize("D", [1, 2, 4, 64])
 @pytest.mark.parametrize("N", [0, 1, 31, 5000, 70001])
-def test_route_kernels(dev, D, N):
-    """R1's first entry at a capacity K of three rounds: counts equal to
+def test_route_kernels(dev, D, N, rounds):
+    """R1's first entry at a capacity K of three rounds, or of one (K at
+    or above every count, as the ``[ps]`` phase routes): counts equal to
     the plain version's; each owner's round-0 slots hold min(count, K)
     distinct valid lanes of that owner with their hi and lo; the spill
     list holds the rest, their ranks K..count-1, disjoint from round 0's
     lanes; the spill entry's later slabs and R2's unroute put every lane's
-    answer back in place, as the plain versions do; an empty batch
+    answer back in place, as the plain versions do, with every unfilled
+    slot poisoned (a lane index and the sentinel EC); an empty batch
     zeroes the counts and launches nothing."""
     from seekmer_tpu_torch.ops.hash import hash_kmer
+    from seekmer_tpu_torch.parallel.prefix_shard import capacity
 
     g = torch.Generator().manual_seed(N + D)
     hi = torch.randint(0, 1 << 26, (N,), generator=g, dtype=torch.int32)
@@ -1883,7 +1899,9 @@ def test_route_kernels(dev, D, N):
     hi, lo, valid = hi.to(dev), lo.to(dev), valid.to(dev)
     *_, p_counts, _ = route.route_first(hi.cpu(), lo.cpu(), valid.cpu(), D,
                                         1)
-    K = max(1, -(-int(p_counts.max()) // 3))
+    most = int(p_counts.max())
+    K = (max(1, -(-most // 3)) if rounds == 3
+         else max(1, most, capacity(N, D, 2.0)))
     before = (route_cuda.route_first.launches,
               route_cuda.route_spill.launches)
     s_hi, s_lo, ret, counts, spill = route_cuda.route_first(hi, lo, valid, D,
@@ -1891,6 +1909,7 @@ def test_route_kernels(dev, D, N):
     assert route_cuda.route_first.launches == before[0] + (N > 0)
     assert torch.equal(counts.cpu(), p_counts)
     n_spill = int((counts.long() - K).clamp(min=0).sum())
+    assert rounds == 3 or n_spill == 0
     assert spill.shape[0] == 3 and n_spill <= spill.shape[1] <= max(N - K, 0)
     b = route.owner_bits(D)
     owner = torch.where(valid, hash_kmer(hi, lo) >> (32 - b) if b else
@@ -1911,9 +1930,13 @@ def test_route_kernels(dev, D, N):
         both = torch.cat([got0, mine])
         assert torch.equal(torch.sort(both).values,
                            torch.nonzero(owner == d).squeeze(1))
+    # poison with a lane no slot fills, where there is one
+    spare = torch.nonzero(~valid).squeeze(1)
+    lane = int(spare[0]) if spare.numel() else 0
     ecs = torch.full((N,), -1, dtype=torch.int32, device=dev)
     p_ecs = ecs.clone()
-    for j in range(3):
+    unroutes = route_cuda.unroute.launches
+    for j in range(rounds):
         base = j * K
         slab = ((s_hi, s_lo, ret) if j == 0 else route_cuda.route_spill(
             hi, lo, spill, n_spill, D, base, K))
@@ -1922,9 +1945,52 @@ def test_route_kernels(dev, D, N):
             f = route.filled(counts, base, K)
             for a, b in zip(slab, want):
                 assert torch.equal(a[f], b[f])
-        back = (slab[0] ^ slab[1]) & 0xFFFF
-        route_cuda.unroute(back, slab[2], counts, base, K, ecs)
-        route.unroute(back, slab[2], counts, base, K, p_ecs)
-    assert route_cuda.route_spill.launches == before[1] + 2 * (n_spill > 0)
+        back, r = _poisoned((slab[0] ^ slab[1]) & 0xFFFF, slab[2], counts,
+                            base, K, lane)
+        route_cuda.unroute(back, r, counts, base, K, ecs)
+        route.unroute(back, r, counts, base, K, p_ecs)
+        assert not bool((ecs == UNROUTE_SENTINEL).any())
+    assert route_cuda.unroute.launches == unroutes + rounds * (D * K > 0)
+    assert route_cuda.route_spill.launches == before[1] + (
+        (rounds - 1) * (n_spill > 0))
     assert torch.equal(ecs, p_ecs)
     assert torch.equal(ecs, torch.where(valid, (hi ^ lo) & 0xFFFF, -1))
+
+
+@pytest.mark.parametrize("K", [1, 31, 2049])
+@pytest.mark.parametrize("D", [1, 4, 64])
+def test_unroute_kernel_capacities(dev, D, K):
+    """R2 alone on slabs made here, at capacities that are not a multiple
+    of a block's 2,048 slots: owners with no lanes, owners whose run fills
+    the round, owners that end inside it or before it; rounds 0 and 1.
+    Every unfilled slot is poisoned with a lane that no slot fills and the
+    sentinel EC. Equal to the plain version; each routed lane of the round
+    gets its EC, every other lane stays -1."""
+    rng = np.random.default_rng(D * 4099 + K)
+    counts = rng.integers(0, 2 * K + 2, D)
+    counts[0] = K + K // 2 + 1  # past round 0, ending inside round 1
+    counts[2::3] = 0  # owners with no lanes
+    counts[1::5] = K  # owners whose run fills round 0
+    routed = int(counts.sum())
+    N = routed + 5  # the last lanes route nowhere
+    lanes = rng.permutation(routed)
+    starts = np.cumsum(counts) - counts
+    t_counts = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    for base in (0, K):
+        ret = np.zeros(D * K, np.int32)
+        want = np.full(N, -1, np.int32)
+        for d in range(D):
+            run = lanes[starts[d]:starts[d] + counts[d]][base:base + K]
+            ret[d * K:d * K + run.size] = run
+            want[run] = run * 3 + 1
+        t_ret = torch.from_numpy(ret).to(dev)
+        back, r = _poisoned(t_ret * 3 + 1, t_ret, t_counts, base, K, N - 1)
+        before = route_cuda.unroute.launches
+        got = route_cuda.unroute(back, r, t_counts, base, K,
+                                 torch.full((N,), -1, dtype=torch.int32,
+                                            device=dev))
+        assert route_cuda.unroute.launches == before + 1
+        p = route.unroute(back.cpu(), r.cpu(), t_counts.cpu(), base, K,
+                          torch.full((N,), -1, dtype=torch.int32))
+        assert torch.equal(got.cpu(), p)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -134,16 +134,19 @@ def test_build_bucket_table_placement_equal_to_jax(world):
 # ---- R1 and R2's plain versions ------------------------------------------
 
 
+@pytest.mark.parametrize("rounds", [3, 1])
 @pytest.mark.parametrize("N", [3000, 0])
 @pytest.mark.parametrize("D", [1, 2, 4])
-def test_route_plain_against_numpy(D, N):
+def test_route_plain_against_numpy(D, N, rounds):
     """owner = the top log2(D) bits of the slot hash; counts per owner;
     ranks in lane order within an owner; at a capacity K of three rounds,
+    or of one (K at or above every count, as the ``[ps]`` phase routes),
     round 0's slab (the lanes ranked below K) and the spill list (index,
     owner, rank of every lane ranked K or more, in lane order) as numpy
     places them, each later round's slab from the spill list alone, and
-    every lane's EC back in place after the rounds; an empty batch only
-    zeroes the counts."""
+    every lane's EC back in place after the rounds, with every unfilled
+    slot poisoned (a lane no slot fills and a sentinel EC, which no lane
+    may end up holding); an empty batch only zeroes the counts."""
     rng = np.random.default_rng(D)
     hi = rng.integers(0, 1 << 26, N, dtype=np.int64).astype(np.int32)
     lo = rng.integers(0, 1 << 24, N, dtype=np.int64).astype(np.int32)
@@ -157,7 +160,8 @@ def test_route_plain_against_numpy(D, N):
     for d in range(D):
         mine = np.flatnonzero(owner == d)
         rank[mine] = np.arange(mine.size)
-    K = max(-(-int(want_counts.max(initial=0)) // 3), 1)  # three rounds
+    most = int(want_counts.max(initial=0))
+    K = max(-(-most // rounds), 1)  # rounds == 1: K at or above every count
 
     def slab(base):
         sel = (owner < D) & (rank >= base) & (rank < base + K)
@@ -176,7 +180,10 @@ def test_route_plain_against_numpy(D, N):
     assert spill.shape == (3, n_spill)
     ec = (hi ^ lo) & 0xFFFF  # an owner's answer: any function of the key
     ecs = torch.full((N,), -1, dtype=torch.int32)
-    for j in range(3):
+    spare = np.flatnonzero(~valid)
+    lane = int(spare[0]) if spare.size else 0  # no slot fills it
+    sentinel = -7
+    for j in range(rounds):
         base = j * K
         s_hi, s_lo, ret = (first if j == 0 else route.route_spill(
             t_hi, t_lo, spill, n_spill, D, base, K))
@@ -186,8 +193,10 @@ def test_route_plain_against_numpy(D, N):
         np.testing.assert_array_equal(f, want_ret >= 0)
         np.testing.assert_array_equal(s_hi.numpy()[f], hi[want_ret[f]])
         np.testing.assert_array_equal(s_lo.numpy()[f], lo[want_ret[f]])
-        back = (s_hi ^ s_lo) & 0xFFFF
-        route.unroute(back, ret, counts, base, K, ecs)
+        tf = torch.from_numpy(f)
+        back = torch.where(tf, (s_hi ^ s_lo) & 0xFFFF, sentinel)
+        route.unroute(back, torch.where(tf, ret, lane), counts, base, K, ecs)
+        assert not bool((ecs == sentinel).any())
     np.testing.assert_array_equal(ecs.numpy(), np.where(valid, ec, -1))
 
 
