@@ -56,7 +56,9 @@ Phases; any failure exits non-zero:
    be a non-empty subset of, the dense one, K5 timed beside K2 on exactly
    its valid sampled keys and K6 beside an empty launch of its grid; the
    device map step on the pre-uploaded config-2 batch dense and fast
-   (``[map step]``, ``[map step fast s=16]``, ``[map step fast s=8]``),
+   (``[map step]``, ``[map step fast s=16]``, ``[map step fast s=8]``) and
+   on the config-1 batch (``[map step config 1]``, ``[map step config 1
+   fast s=16]``),
    the card's idle time at the fast step's unit-count readback from a
    ``torch.profiler`` trace (``[map step fast s=16 readback]``), and the
    fast step's table held against the plain route's on the same card
@@ -155,7 +157,7 @@ Phases; any failure exits non-zero:
    on both ranks. ``[dp c1 fast]``, ``[dp c1 strided]``:
    ``probe_sample`` 16 and ``probe_stride`` 4 at 2 ranks, mapped equal to
    one rank's ``infer``.
-8. the prefix-sharded index (run last, after phase 5's traces): 2
+8. the prefix-sharded index (run last, after phase 9): 2
    ranks on the one card over gloo, index layout (1, 2), a prefix shard
    of the index a rank, lookups routed by ``all_to_all`` (R1, K2 on the
    shard, R2), launch counts from 0 in each rank. ``[ps c2 map]``: the
@@ -171,6 +173,22 @@ Phases; any failure exits non-zero:
    routing, the MapResult equal to one card's fast mode (no K5).
    ``[ps c1 low-capacity]``: config 1 at capacity factor 0.3, extra
    routing rounds > 0 and the MapResult equal to one card's.
+9. the compiled single-core CPU baseline (``native/cpu_baseline``, run
+   after phase 5's traces) on the card's host, with the host CPU's model
+   and usable cores and the card's name and power limit on every line:
+   ``[baseline c1]`` maps every read of c1.fq once (mapped and distinct
+   signatures equal to the plain path's raw MapResult on the CPU, before
+   the resolve drops), then times the dense and the skip arm on the first
+   batch (a warm-up of 256 rows, the best of 5 passes, every pass shown);
+   ``[baseline c2]`` maps the first pair batch's 131,072 mate rows, each
+   a single-end read, with the port's dense ``Mapper`` on the card (K1-K3
+   and A1, launch counts from 0) and times both arms on them (the dense
+   arm's mapped and distinct signatures equal to the port's). The skip
+   arm's mapped may differ from the dense arm's by at most 0.1% of the
+   rows. Each prints the port's reads/s over 10x the baseline's: the
+   device map step and the map stage as ``infer`` ran it (phase 4's
+   ``timings.map_s``) against the dense arm, both at fast s = 16 against
+   the skip arm.
 
 The last three lines are the card's name and power limit, the JSON line of
 kernel results, and ``{"ok": true, "device": {...}}``. JAX and the JAX
@@ -182,6 +200,7 @@ versions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import shutil
 import subprocess
@@ -222,6 +241,21 @@ def check(ok: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def load_index(work: Path, tag: str):
+    """World ``tag``'s index, loaded once for the whole run (config 2's
+    compressed file takes seconds to load) and shared by the phases of this
+    process; its arrays are made read-only, so a phase cannot change what
+    a later one reads."""
+    from seekmer_tpu_torch.index.store import KMerIndex
+
+    index = KMerIndex.load(str(work / f"{tag}.npz"))
+    for value in vars(index).values():
+        if hasattr(value, "flags"):
+            value.flags.writeable = False
+    return index
 
 
 def card_line() -> str:
@@ -987,12 +1021,14 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
     once, each output written once; for the table kernels, what this
     batch needs of the table); K2 also on one config-1 batch, whose table
     mostly sits in L2. No single PyTorch call computes any of these
-    functions, so none has a library time. Returns {name: record}."""
+    functions, so none has a library time. Also times the device map step
+    on one pre-uploaded batch of each world, dense and fast at s = 16.
+    Returns ({name: record}, {"c1" | "c1 fast" | "c2" | "c2 fast": step
+    ms})."""
     import numpy as np
     import torch
 
     from seekmer_tpu_torch import MapConfig
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.map.driver import (DeviceIndex, map_step,
                                               merge_sig_rows)
     from seekmer_tpu_torch.map.signature import make_sig_table, table_to_host
@@ -1005,7 +1041,7 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
     out = {}
 
     # K2 on config 1 first: its table leaves the card before config 2's
-    index = KMerIndex.load(str(work / "c1.npz"))
+    index = load_index(work, "c1")
     di = DeviceIndex.from_host(index, dev)
     c1_lanes = pack_cuda.pack_canonical_2bit(
         *upload_mate(batches[0], L, dev), L, index.k)
@@ -1016,9 +1052,24 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         check_fast("config 1", di, [upload_mate(batches[0], L, dev)], L,
                    stride, sig_cuda.read_signatures(c1_got[0], c1_lanes[2],
                                                     16))
-    del di, c1_lanes, c1_got
+    # the device map step on the pre-uploaded config-1 batch (K1, K2, K3,
+    # A1 with the audit; fast: K5, the readback, K1-K3 on the units, K6,
+    # A1): the numerators of [baseline c1]'s step ratios
+    steps = {}
+    mate = upload_mate(batches[0], L, dev)
+    table = make_sig_table(20, 16, num_ecs=index.num_ecs, device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    for tag, sample in (("c1", 0), ("c1 fast", 16)):
+        cfg = MapConfig(batch_size=B, probe_sample=sample)
+        steps[tag] = cuda_ms(lambda cfg=cfg: map_step(
+            di, cfg, table, mate[0], mate[2], ones, bad=mate[1], pad_len=L,
+            audit=True), 20)
+        log(f"[map step config 1{' fast s=16' if sample else ''}] one "
+            f"batch on the card: {steps[tag]:.6f} ms, "
+            f"{B / steps[tag] * 1e3:.0f} reads/s of device time")
+    del di, c1_lanes, c1_got, mate, table
 
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     di = DeviceIndex.from_host(index, dev)
     k = index.k
     mates = [upload_mate(codes, L, dev) for codes in batches[1]]
@@ -1205,6 +1256,7 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         di, cfg, tables[0], mates[0][0], mates[0][2], weights,
         codes2=mates[1][0], lengths2=mates[1][2], bad=mates[0][1],
         bad2=mates[1][1], pad_len=L, audit=True), 20)
+    steps["c2"] = step_ms
     log(f"[map step] one paired batch on the card: {step_ms:.6f} ms, "
         f"{B / step_ms * 1e3:.0f} pairs/s of device time")
     # fast mode's step: K5, the unit count read back, K1, K2, K3 on the
@@ -1216,6 +1268,8 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
             di, fcfg, tables[0], mates[0][0], mates[0][2], weights,
             codes2=mates[1][0], lengths2=mates[1][2], bad=mates[0][1],
             bad2=mates[1][1], pad_len=L, audit=True), 20)
+        if stride == 16:
+            steps["c2 fast"] = fast_ms
         log(f"[map step fast s={stride}] one paired batch on the card: "
             f"{fast_ms:.6f} ms (the unit count's readback included), "
             f"{B / fast_ms * 1e3:.0f} pairs/s; dense {step_ms:.6f} ms")
@@ -1246,7 +1300,7 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
         f"{fk.mapped}, overflow {fk.overflow}, collisions {fk.collisions}")
     del di
     torch.cuda.empty_cache()
-    return out
+    return out, steps
 
 
 def group_masses(alpha, M):
@@ -1370,14 +1424,13 @@ def compare_em_kernel(work: Path):
     from seekmer_tpu_torch.em.bootstrap import resample_counts
     from seekmer_tpu_torch.em.em import (build_ec_table, dense_membership,
                                          effective_lengths)
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.io.fastq import batch_reads_native
     from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
     from seekmer_tpu_torch.ops import em_cuda, em_dense
     from seekmer_tpu_torch.utils.prefetch import device_put_batches
 
     dev = torch.device(DEVICE)
-    index = KMerIndex.load(str(work / "c1.npz"))
+    index = load_index(work, "c1")
     cfg_map = MapConfig(batch_size=B)
     result = Mapper(index, cfg_map, device=dev).run(device_put_batches(
         batch_reads_native([str(work / "c1.fq")], cfg_map), dev))
@@ -1890,17 +1943,20 @@ def check_bootstrap(tag: str, out: Path, info, T: int):
 
 
 def end_to_end(work: Path):
+    """The ``infer`` runs of phase 4. Returns the sum of their launches,
+    the run_info of the dense and fast runs ({"c1" | "c2" | "c1 fast" |
+    "c2 fast": run_info}) and config 1's raw MapResult from the plain path
+    on the CPU."""
     import numpy as np
 
     from seekmer_tpu_torch import EMConfig, MapConfig
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.io.writer import read_abundance
 
     out, info, l1 = run_infer(work, "c1", [
         str(work / "c1.fq"), "--em-tolerance", "1e-6", "--em-max-iters",
         "2000", "--bootstrap", "100", "--seed", "1"],
         unused=(*FAST, *STRIDED))
-    index = KMerIndex.load(str(work / "c1.npz"))
+    index = load_index(work, "c1")
     check_bootstrap("c1", out, info, index.num_transcripts)
     em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
     t0 = time.perf_counter()
@@ -2028,7 +2084,8 @@ def end_to_end(work: Path):
     a3 = [l["em_csr"] for l in runs]
     check(a3 == [1, 2, 1, 1, 1, 1], f"A3 launches per infer run {a3}, "
           "expected one a fixed point: [1, 2, 1, 1, 1, 1]")
-    return {k: sum(l[k] for l in runs) for k in l1}
+    infos = {"c1": info, "c2": info2, "c1 fast": info3, "c2 fast": info4}
+    return {k: sum(l[k] for l in runs) for k in l1}, infos, ref["result"]
 
 
 def fuse_check(work: Path, injected) -> dict:
@@ -2040,7 +2097,6 @@ def fuse_check(work: Path, injected) -> dict:
     stride flag) must give the same table and tallies. Returns the
     launches of the two runs, each counted from 0."""
     from seekmer_tpu_torch import MapConfig, cli, fusion
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.io.writer import write_fusions
 
     f1, f2 = str(work / "fuse_1.fq"), str(work / "fuse_2.fq")
@@ -2075,7 +2131,7 @@ def fuse_check(work: Path, injected) -> dict:
         f"unresolved {info['unresolved']}, split reads {info['split_reads']};"
         f" CLI wall {wall:.1f} s, kernel launches {dense}")
 
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     reset_launches()
     rep = fusion.detect_fusions_files(
         index, [f1], [f2], cfg=MapConfig(sig_table_bits=22, probe_stride=4),
@@ -2226,7 +2282,6 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
     from seekmer_tpu_torch import EMConfig, MapConfig
     from seekmer_tpu_torch.em.bootstrap import run_bootstrap
     from seekmer_tpu_torch.em.em import build_ec_table, run_em, use_dense
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.io.fastq import (batch_read_pairs_native,
                                             batch_reads_native)
     from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
@@ -2238,7 +2293,7 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
     boot = EMConfig(rel_tol=0.0, min_iters=480, max_iters=480,
                     bootstrap_samples=100, bootstrap_seed=1)
     for tag, paired, bits in (("c1", False, 20), ("c2", True, 22)):
-        index = KMerIndex.load(str(work / f"{tag}.npz"))
+        index = load_index(work, tag)
         cfg = MapConfig(batch_size=B, sig_table_bits=bits, paired_end=paired)
 
         def map_run(trace, cfg=cfg):
@@ -2286,6 +2341,158 @@ def profile_stages(work: Path, keep_inputs=None) -> dict:
     check("A3" in out and "A4" in out,
           "no world took the batched CSR route, or A4 was not checked")
     return out
+
+
+# ---- the compiled single-core CPU baseline -------------------------------
+
+BASELINE_PASSES = 5  # timed passes an arm; the best is the rate (bench.py)
+
+
+def host_line() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it (its model name, and its
+    vendor, family, model number and clock, which a virtual machine shows
+    where it hides the name) and the cores this process may use."""
+    import os
+
+    cpu = {}
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            if not line.strip():
+                break  # the first processor's block
+            key, _, value = line.partition(":")
+            cpu[key.strip()] = value.strip()
+    return (f"CPU model name {cpu.get('model name')!r} "
+            f"({cpu.get('vendor_id')} family {cpu.get('cpu family')} model "
+            f"{cpu.get('model')}, {cpu.get('cpu MHz')} MHz), "
+            f"{len(os.sched_getaffinity(0))} cores usable")
+
+
+def baseline_arm(tag: str, base, codes, use_skip: bool):
+    """One warm-up map of 256 rows, then the best of BASELINE_PASSES timed
+    passes of ``codes``; prints every pass's rate. Returns (reads/s, mapped
+    a pass)."""
+    base.map(codes[:256], use_skip=use_skip)
+    rates, mapped = [], set()
+    for _ in range(BASELINE_PASSES):
+        t0 = time.perf_counter()
+        mapped.add(base.map(codes, use_skip=use_skip))
+        rates.append(codes.shape[0] / (time.perf_counter() - t0))
+    check(len(mapped) == 1, f"{tag}: mapped differs between passes {mapped}")
+    n = mapped.pop()
+    log(f"[{tag}] {'skip' if use_skip else 'dense'} arm: best "
+        f"{max(rates):.1f} reads/s of "
+        f"{', '.join(f'{r:.1f}' for r in rates)}; {n} / {codes.shape[0]} "
+        f"mapped")
+    return max(rates), n
+
+
+def baseline_ratios(tag: str, where: str, mates: int, step_ms: float,
+                    fast_ms: float, run, fast_run, dense: float,
+                    skip: float) -> None:
+    """The port's reads/s over 10x the baseline's: the device map step of
+    one batch and the map stage as ``infer`` ran it (``timings.map_s``)
+    against the dense arm, fast mode at s = 16 against the skip arm; a
+    read (pair) counts ``mates`` reads, as the baseline maps each mate."""
+    rows = mates * B
+    for what, rate, arm, base in (
+            ("device map step, dense", rows / step_ms * 1e3, "dense", dense),
+            ("map stage as infer ran it, dense", mates * run["total_reads"]
+             / run["timings"]["map_s"], "dense", dense),
+            ("device map step, fast s=16", rows / fast_ms * 1e3, "skip",
+             skip),
+            ("map stage as infer ran it, fast s=16", mates
+             * fast_run["total_reads"] / fast_run["timings"]["map_s"],
+             "skip", skip)):
+        log(f"[{tag}] {what}: {rate:.1f} reads/s over 10 x the {arm} arm "
+            f"({10 * base:.1f} reads/s) = {rate / (10 * base):.6f}; {where}")
+
+
+def baseline_phase(work: Path, batches, card: str, steps: dict, infos: dict,
+                   c1_raw) -> dict:
+    """``[baseline c1]``, ``[baseline c2]``: the compiled single-core CPU
+    baseline (``native/cpu_baseline``) on the card's host, its dense and
+    skip arms timed as ``bench.py`` times them, its dense arm's mapped and
+    distinct signatures held to the port's raw ``MapResult`` on the same
+    rows, and the port's reads/s over 10x its own. Config 1: every read of
+    c1.fq against the plain path on the CPU (``cpu_reference``), timed on
+    the first batch; config 2: the first pair batch's 2 B mate rows, each
+    a single-end read, against the port's dense ``Mapper`` on the card.
+    Returns that run's launches."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch import MapConfig
+    from seekmer_tpu_torch.io.fastq import ReadBatch
+    from seekmer_tpu_torch.map.driver import Mapper
+    from seekmer_tpu_torch.native.cpu_baseline import CpuBaselineMapper
+    from seekmer_tpu_torch.native.packer import stream_packed
+
+    t_phase = time.perf_counter()
+    where = f"host {host_line()}; card {card}"
+    max_ecs = MapConfig().max_ecs_per_read
+    rows = np.concatenate([c for c, _ in stream_packed(
+        str(work / "c1.fq"), READ_LEN, B)])
+    t0 = time.perf_counter()
+    with CpuBaselineMapper(load_index(work, "c1"),
+                           sig_bits=20) as base:
+        build_s = time.perf_counter() - t0
+        mapped = base.map(rows, max_ecs)
+        got = (rows.shape[0], mapped, base.distinct_signatures)
+        want = (c1_raw.total_reads, c1_raw.mapped, c1_raw.sigs.shape[0])
+        check(got == want and c1_raw.overflow == 0,
+              f"[baseline c1] reads, mapped, distinct signatures {got} != "
+              f"the plain path's raw MapResult on the CPU {want}")
+        log(f"[baseline c1] {where}; table built in {build_s:.3f} s; all "
+            f"{rows.shape[0]} reads of c1.fq: mapped {mapped}, "
+            f"{base.distinct_signatures} distinct signatures == the plain "
+            f"path's raw MapResult on the CPU")
+        dense, n_dense = baseline_arm("baseline c1", base, batches[0], False)
+        skip, n_skip = baseline_arm("baseline c1", base, batches[0], True)
+    check(abs(n_skip - n_dense) <= 1e-3 * batches[0].shape[0],
+          f"[baseline c1] skip arm mapped {n_skip}, dense {n_dense}")
+    log(f"[baseline c1] skip arm mapped minus dense arm mapped: "
+        f"{n_skip - n_dense} of {batches[0].shape[0]} reads")
+    baseline_ratios("baseline c1", where, 1, steps["c1"], steps["c1 fast"],
+                    infos["c1"], infos["c1 fast"], dense, skip)
+
+    c2_index = load_index(work, "c2")
+    mates = np.concatenate(batches[1])  # each mate a single-end read
+    ln = np.full(B, READ_LEN, np.int32)
+    ones = np.ones(B, np.int32)
+    t0 = time.perf_counter()
+    reset_launches()
+    port = Mapper(c2_index, MapConfig(batch_size=B, sig_table_bits=22),
+                  device=DEVICE).run([ReadBatch(m, ln, ones)
+                                      for m in batches[1]])
+    launches = read_launches("baseline c2")
+    torch.cuda.empty_cache()
+    port_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with CpuBaselineMapper(c2_index, sig_bits=22) as base:
+        build_s = time.perf_counter() - t0
+        log(f"[baseline c2] {where}; the port's Mapper (upload and 2 "
+            f"batches) {port_s:.3f} s, the baseline's table built in "
+            f"{build_s:.3f} s")
+        dense, n_dense = baseline_arm("baseline c2", base, mates, False)
+        got = (n_dense, base.distinct_signatures)
+        want = (port.mapped, port.sigs.shape[0])
+        check(got == want and port.overflow == 0
+              and port.total_reads == mates.shape[0],
+              f"[baseline c2] mapped, distinct signatures {got} != the "
+              f"port's dense Mapper on the card {want}")
+        log(f"[baseline c2] {mates.shape[0]} mate rows: mapped {n_dense}, "
+            f"{got[1]} distinct signatures == the port's single-end dense "
+            f"Mapper on the card (launches {launches})")
+        skip, n_skip = baseline_arm("baseline c2", base, mates, True)
+    check(abs(n_skip - n_dense) <= 1e-3 * mates.shape[0],
+          f"[baseline c2] skip arm mapped {n_skip}, dense {n_dense}")
+    log(f"[baseline c2] skip arm mapped minus dense arm mapped: "
+        f"{n_skip - n_dense} of {mates.shape[0]} mate rows")
+    baseline_ratios("baseline c2", where, 2, steps["c2"],
+                    steps["c2 fast"], infos["c2"], infos["c2 fast"], dense,
+                    skip)
+    log(f"[baseline] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ---- checkpoints, the pack cache, traces and reads in memory ------------
@@ -2366,11 +2573,10 @@ def checkpoint_map(work: Path, card: str):
     uninterrupted run's QuantResult and MapResult)."""
     import numpy as np
 
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.map.driver import Mapper
     from seekmer_tpu_torch.models.quantifier import Quantifier
 
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     files = ([str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
     ckpt = str(work / "c2_map.ckpt.npz")
     cfg = c2_pipeline()
@@ -2541,7 +2747,6 @@ def pack_cache_phase(work: Path, card: str, plain, plain_map):
     run."""
     import numpy as np
 
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.map.driver import Mapper
     from seekmer_tpu_torch.models.quantifier import Quantifier
 
@@ -2572,7 +2777,7 @@ def pack_cache_phase(work: Path, card: str, plain, plain_map):
         f"{tb['map_s']:.6f} s ({tb['reads_per_s']:.0f} pairs/s), hit "
         f"{th['map_s']:.6f} s ({th['reads_per_s']:.0f} pairs/s); {card}")
 
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     files = ([str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
     ckpt = str(work / "c2_cache.ckpt.npz")
     cfg = c2_pipeline()
@@ -2643,8 +2848,19 @@ def trace_phase(work: Path, card: str, tag: str, argv, unused) -> dict:
             ranges.setdefault(e["name"], []).append(e)
     kernels = [e for e in events if e.get("cat") == "kernel"]
     for k in ("pack_kernel", "lookup_kernel", "sig_kernel", "fold_kernel"):
-        check(any(k in e["name"] for e in kernels),
-              f"[trace {tag}] no {k} in the trace")
+        if not any(k in e["name"] for e in kernels):
+            # what the trace does hold, for the diagnosis of a missing kernel
+            infer = ranges.get("infer", [{"ts": 0}])[0]["ts"]
+            cats = {}
+            for e in events:
+                cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+            names = sorted({e["name"][:40] for e in kernels})[:8]
+            first = min((e["ts"] for e in kernels), default=None)
+            check(False, f"[trace {tag}] no {k} in the trace: "
+                  f"{len(kernels)} kernels, the first "
+                  f"{None if first is None else (first - infer) / 1e3} ms "
+                  f"after the infer range's start, names {names}; events "
+                  f"by category {cats}; launches {launches}")
     stages = ["map", "resolve", "em", "ingest", "upload"]
     if info["bootstrap_samples"]:
         stages.append("bootstrap")
@@ -2691,10 +2907,9 @@ def reads_in_memory(work: Path, card: str) -> dict:
     import numpy as np
 
     from seekmer_tpu_torch import EMConfig, MapConfig, PipelineConfig
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.models.quantifier import Quantifier
 
-    index = KMerIndex.load(str(work / "c1.npz"))
+    index = load_index(work, "c1")
     cfg = PipelineConfig().replace(map=MapConfig(batch_size=B),
                                    em=EMConfig(rel_tol=1e-6, max_iters=2000))
     lines = (work / "c1.fq").read_text().splitlines()
@@ -2721,14 +2936,12 @@ def reads_in_memory(work: Path, card: str) -> dict:
 def slice_phases(work: Path, card: str) -> dict:
     """Checkpoints, several ranks, the pack cache, traces and reads in
     memory; returns the sum of their runs' launches."""
-    from seekmer_tpu_torch.index.store import KMerIndex
 
     runs = []
     launches, plain, plain_map = checkpoint_map(work, card)
     runs.append(launches)
     runs.append(dp_phase(work, card, plain, plain_map))
-    runs.append(checkpoint_em(plain_map, KMerIndex.load(
-        str(work / "c2.npz")), card))
+    runs.append(checkpoint_em(plain_map, load_index(work, "c2"), card))
     runs.append(pack_cache_phase(work, card, plain, plain_map))
     runs.append(trace_phase(work, card, "c1", [
         str(work / "c1.fq"), "--bootstrap", "100", "--seed", "1"],
@@ -2918,10 +3131,9 @@ def one_card_c2_boot(work: Path):
     (the index loaded before), in this process."""
     import torch
 
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.models.quantifier import Quantifier
 
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     device = torch.device(DEVICE)
     wall, res = timed(lambda: Quantifier(
         index, c2_pipeline(bootstrap_samples=100), DEVICE).quantify_files(
@@ -3092,7 +3304,6 @@ def dp_cards(work: Path, card: str, ranks) -> None:
     each of n cards, for each n in ``ranks``."""
     import torch
 
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.map.driver import Mapper
     from seekmer_tpu_torch.models.quantifier import Quantifier
 
@@ -3105,7 +3316,7 @@ def dp_cards(work: Path, card: str, ranks) -> None:
               unused=("em", *STRIDED), name="c1_fast")
     run_infer(work, "c1", [str(work / "c1.fq"), "--probe-stride", "4"],
               unused=("em", "lookup", *FAST), name="c1_strided")
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     with Spy(Mapper, "finalize") as fin:
         plain = Quantifier(index, c2_pipeline(), DEVICE).quantify_files(
             [str(work / "c2_1.fq")], [str(work / "c2_2.fq")])
@@ -3221,14 +3432,13 @@ def ps_references(work: Path):
     import torch
 
     from seekmer_tpu_torch import MapConfig
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.io.fastq import (batch_read_pairs_native,
                                             batch_reads_native)
     from seekmer_tpu_torch.map.driver import Mapper
 
     dev = torch.device(DEVICE)
     out = {}
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     for name, s in (("c2", 0), ("fast", 16)):
         cfg = MapConfig(batch_size=B, sig_table_bits=22, paired_end=True,
                         probe_sample=s)
@@ -3237,7 +3447,7 @@ def ps_references(work: Path):
             [str(work / "c2_1.fq")], [str(work / "c2_2.fq")], cfg)), dev)
         del m
     del index
-    index1 = KMerIndex.load(str(work / "c1.npz"))
+    index1 = load_index(work, "c1")
     c1 = MapConfig(batch_size=B)
     m = Mapper(index1, c1, DEVICE)
     out["c1"] = timed(lambda: m.run(batch_reads_native(
@@ -3253,10 +3463,9 @@ def ps_est_counts(work: Path, fld):
     QuantResult)."""
     import torch
 
-    from seekmer_tpu_torch.index.store import KMerIndex
     from seekmer_tpu_torch.models.quantifier import Quantifier
 
-    index = KMerIndex.load(str(work / "c2.npz"))
+    index = load_index(work, "c2")
     cfg = c2_pipeline(mean_fragment_length=fld[0], fragment_length_sd=fld[1],
                       estimate_fld=False, bootstrap_samples=100)
     out = timed(lambda: Quantifier(index, cfg, DEVICE).quantify_files(
@@ -3480,14 +3689,16 @@ def main(argv=None) -> int:
         return 0
     try:
         *batches, injected = make_worlds(work)
-        timing = compare_kernels(work, batches, args.keep_inputs)
+        timing, steps = compare_kernels(work, batches, args.keep_inputs)
         timing["K4"] = compare_em_kernel(work)
-        launches = end_to_end(work)
+        launches, infos, c1_raw = end_to_end(work)
         fused = fuse_check(work, injected)
         launches = {k: launches[k] + fused[k] for k in launches}
         more = slice_phases(work, card)
         launches = {k: launches[k] + more[k] for k in launches}
         timing.update(profile_stages(work, args.keep_inputs))
+        more = baseline_phase(work, batches, card, steps, infos, c1_raw)
+        launches = {k: launches[k] + more[k] for k in launches}
         # the prefix-sharded index last: its launches are R1's and R2's
         more = ps_phase(work, card)
         launches = {k: launches[k] + more[k] for k in launches}

@@ -1,7 +1,7 @@
 """2-bit DNA encoding and canonical k-mer packing on the host (numpy): the
 port's copy of ``seekmer_tpu/encoding.py``, with the functions the port
 calls (``n_hi_lo``, ``seq_to_codes``, ``canonical_kmers``,
-``pack_codes_2bit``, ``split_key``).
+``pack_codes_2bit``, ``split_key``, ``join_key``).
 
 A canonical k-mer (2k bits, k <= 29) is carried as two int32 lanes:
 
@@ -124,3 +124,9 @@ def split_key(key64: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
     hi = (key64 >> np.uint64(2 * n_lo)).astype(np.int32)
     lo = (key64 & np.uint64((1 << (2 * n_lo)) - 1)).astype(np.int32)
     return hi, lo
+
+
+def join_key(hi: np.ndarray, lo: np.ndarray, k: int) -> np.ndarray:
+    """(hi, lo) int32 lanes -> uint64 key: the inverse of ``split_key``."""
+    _, n_lo = n_hi_lo(k)
+    return (hi.astype(np.uint64) << np.uint64(2 * n_lo)) | lo.astype(np.uint64)

@@ -6,60 +6,31 @@ cache writes, and the index build's radix sort. The port's copy of
 ``seekmer_tpu/native/packer.py``.
 
 The library is built from ``packer.c`` with the system C compiler at first
-use, into ``build/seekmer_tpu_torch/`` at the repository root (the
-directory the CUDA kernels are built into, ``ops/_build.py``), never
-beside the source. Its file name carries a hash of the source, so an
-edited source is never served by a stale build. There is no pure-Python
-fallback: without a C compiler and zlib the port's ingest and its index
-build above ``index.build._NATIVE_SORT_MIN`` pairs raise.
+use into ``build/seekmer_tpu_torch/`` (``native.build_c``). There is no
+pure-Python fallback: without a C compiler and zlib the port's ingest and
+its index build above ``index.build._NATIVE_SORT_MIN`` pairs raise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 
+from . import build_c
+
 _SRC = Path(__file__).resolve().parent / "packer.c"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "seekmer_tpu_torch"
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"libseekmer_packer_{digest}.so"
-
-
-def _build() -> Path:
-    out = library_path()
-    if out.exists():
-        return out
-    cc = next((c for c in ("cc", "gcc", "clang") if shutil.which(c)), None)
-    if cc is None:
-        raise RuntimeError("no C compiler: the native packer cannot be built")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-        so = os.path.join(tmp, "lib.so")
-        r = subprocess.run([cc, "-O3", "-shared", "-fPIC", "-pthread",
-                            str(_SRC), "-lz", "-o", so],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"building {_SRC.name} failed:\n{r.stderr}")
-        os.replace(so, out)  # atomic: a concurrent loader sees all or none
-    return out
 
 
 @functools.lru_cache(maxsize=None)
 def get_lib() -> ctypes.CDLL:
     """The loaded shared library, built first if needed."""
-    lib = ctypes.CDLL(str(_build()))
+    lib = ctypes.CDLL(str(build_c(_SRC, "libseekmer_packer", "-pthread",
+                                  "-lz")))
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
     lib.seekmer_open.restype = ctypes.c_void_p

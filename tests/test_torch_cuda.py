@@ -22,6 +22,7 @@ from seekmer_tpu_torch.map.driver import DeviceIndex, Mapper, merge_sig_rows
 from seekmer_tpu_torch.map.signature import (SIG_PAD, make_sig_table,
                                              table_to_host)
 from seekmer_tpu_torch.map.driver import map_step
+from seekmer_tpu_torch.native.cpu_baseline import CpuBaselineMapper
 from seekmer_tpu_torch.ops import (
     _build,
     accumulate_cuda,
@@ -441,6 +442,27 @@ def test_mapper_on_card_matches_cpu(dev, world, paired):
     np.testing.assert_array_equal(got.sig_counts, want.sig_counts)
     assert (got.mapped, got.overflow, got.collisions) == (
         want.mapped, want.overflow, want.collisions)
+
+
+def test_mapper_on_card_matches_cpu_baseline(dev, world):
+    """The port's dense Mapper on the card (K1-K3, A1) and the compiled
+    single-core CPU baseline on the same reads: equal raw mapped and
+    distinct-signature counts, as ``chip_smoke.py``'s ``[baseline c2]``
+    holds them at config 2."""
+    rng, seqs, idx = world
+    index = idx["stash"]
+    B, L = 1024, 100
+    c1, _ = simulate_packed_batches(rng, seqs, 3, B, read_len=L)
+    ln = np.full(B, L, np.int32)
+    w = np.ones(B, np.int32)
+    cfg = MapConfig(batch_size=B, sig_table_bits=14)
+    got = Mapper(index, cfg, device=dev).run(
+        [ReadBatch(c1[i], ln, w) for i in range(3)])
+    with CpuBaselineMapper(index, sig_bits=14) as base:
+        mapped = base.map(c1.reshape(-1, L), cfg.max_ecs_per_read)
+        assert (mapped, base.distinct_signatures) == (got.mapped,
+                                                      got.sigs.shape[0])
+    assert got.overflow == 0 and got.mapped > 0
 
 
 def test_wrappers_reject_what_kernels_do_not_take(dev):

@@ -1,6 +1,6 @@
 """The port owns its host code: no module of ``seekmer_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or ``seekmer_tpu``; the port runs its CLI with
-both blocked; and its copies of the JAX package's host modules (config,
+``chip_smoke.py`` imports JAX or ``seekmer_tpu``; the port runs its CLI and
+its compiled CPU baseline with both blocked; and its copies of the JAX package's host modules (config,
 encoding, hashes, index build and store, FASTQ ingest, writer, simulator)
 agree with the originals, which stay the reference here.
 
@@ -170,6 +170,48 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
             "out/abundance.tsv", "out_s4/abundance.tsv",
             "fuse_out/fusions.tsv")])
     assert outs[0] == outs[1]
+
+
+_BLOCKED_BASELINE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["seekmer_tpu"] = None
+import numpy as np
+from seekmer_tpu_torch.index.build import build_index_from_seqs
+from seekmer_tpu_torch.native.cpu_baseline import CpuBaselineMapper
+from seekmer_tpu_torch.utils.simulate import (random_transcriptome,
+                                              simulate_packed_batches)
+rng = np.random.default_rng(5)
+names, seqs = random_transcriptome(rng, num_transcripts=24, min_len=200,
+                                   max_len=500, shared_prefix_frac=0.5)
+codes, _ = simulate_packed_batches(rng, seqs, 1, 256, 80)
+with CpuBaselineMapper(build_index_from_seqs(names, seqs), sig_bits=10) as m:
+    dense = m.map(codes[0])
+    skip = m.map(codes[0], use_skip=True)
+    print("BASELINE", dense, skip, m.distinct_signatures, m.total_mapped)
+assert sys.modules["jax"] is None and sys.modules["seekmer_tpu"] is None
+"""
+
+
+def test_cpu_baseline_runs_with_jax_and_the_jax_package_blocked():
+    """The compiled CPU baseline builds and maps in a process where JAX and
+    ``seekmer_tpu`` cannot be imported, with the counts of the same run
+    with both importable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    outs = []
+    for code in (_BLOCKED_BASELINE, _BLOCKED_BASELINE.replace(
+            'sys.modules["jax"] = None', "import seekmer_tpu").replace(
+            'sys.modules["seekmer_tpu"] = None', "").replace(
+            'assert sys.modules["jax"] is None and '
+            'sys.modules["seekmer_tpu"] is None', "")):
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, env=env, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        line, = [x for x in r.stdout.splitlines()
+                 if x.startswith("BASELINE")]
+        outs.append(line)
+    dense, skip, distinct, total = map(int, outs[0].split()[1:])
+    assert outs[0] == outs[1] and 0 < dense and total == dense + skip
 
 
 # ---- the copies against the originals ---------------------------------------
