@@ -72,9 +72,6 @@
 // shared memory, over a quarter. One block an SM is set by the resident
 // layout's shared memory, not by registers. The work itself is far
 // smaller: M is sparse, and the dense products do every zero entry too.
-//
-// Compiling with -DSEEKMER_EM_PROFILE adds clock64() sums by section for
-// block 0 (seekmer_em_profile); ops/em_profile.py drives it.
 
 #include <cooperative_groups.h>
 
@@ -83,19 +80,6 @@
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
-
-#ifdef SEEKMER_EM_PROFILE
-__device__ unsigned long long em_prof[8];
-#define PROF_T(t) const long long t = clock64()
-#define PROF_ADD(i, t)                                \
-  do {                                                \
-    if (blockIdx.x == 0 && threadIdx.x == 0)          \
-      em_prof[i] += (unsigned long long)(clock64() - (t)); \
-  } while (0)
-#else
-#define PROF_T(t)
-#define PROF_ADD(i, t)
-#endif
 
 namespace {
 
@@ -363,10 +347,8 @@ __device__ void run_phase(const Params& p, const cg::cluster_group& cluster,
   const int per = (NT + P * rounds - 1) / (P * rounds);
   const int KW = WARPS / P, team = warp % P, kw = warp / P;
   if (!resident && nchunks == 1) {
-    PROF_T(t0);
     gather(cluster, opnd, S_in, 0, Dp, s.chunk, lda);
     __syncthreads();
-    PROF_ADD(0, t0);
   }
   for (int rd = 0; rd < rounds; ++rd) {
     const int nt0 = min((rd * P + team) * per, NT);
@@ -379,13 +361,10 @@ __device__ void run_phase(const Params& p, const cg::cluster_group& cluster,
     for (int ch = 0; ch < nchunks; ++ch) {
       const int c0 = ch * kc_max, kc = min(kc_max, Dp - c0);
       if (nchunks > 1) {
-        PROF_T(t0);
         __syncthreads();
         gather(cluster, opnd, S_in, c0, kc, s.chunk, lda);
         __syncthreads();
-        PROF_ADD(0, t0);
       }
-      PROF_T(t1);
       const int ksn = kc / 8;
       const int k_lo = ksn * kw / KW, k_hi = ksn * (kw + 1) / KW;
       const float* a_top = A + gid * lda + tig;
@@ -402,9 +381,7 @@ __device__ void run_phase(const Params& p, const cg::cluster_group& cluster,
         default:
           break;
       }
-      PROF_ADD(1, t1);
     }
-    PROF_T(t2);
     // the warps' partial tiles, summed in warp order
     float* red = s.red + warp * ROWS * RED_LD;
 #pragma unroll
@@ -418,8 +395,6 @@ __device__ void run_phase(const Params& p, const cg::cluster_group& cluster,
       }
     }
     __syncthreads();
-    PROF_ADD(7, t2);
-    PROF_T(t4);
     const int w4 = 2 * per, span = ROWS * w4;  // float4s of a row
     for (int i = tid; i < P * span; i += THREADS) {
       const int tm = i / span, row = (i % span) / w4, col = 4 * (i % w4);
@@ -471,16 +446,12 @@ __device__ void run_phase(const Params& p, const cg::cluster_group& cluster,
              make_float4(xv[0], xv[1], xv[2], xv[3]), CS, rank, resident);
       }
     }
-    PROF_ADD(2, t4);
-    PROF_T(t5);
     __syncthreads();
-    PROF_ADD(3, t5);
   }
 }
 
 __global__ void __launch_bounds__(THREADS, 1) em_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  PROF_T(t_all);
   cg::cluster_group cluster = cg::this_cluster();
   cg::grid_group grid = cg::this_grid();
   const int CS = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -505,7 +476,6 @@ __global__ void __launch_bounds__(THREADS, 1) em_kernel(Params p) {
   while (it < p.max_iters) {
     unsigned max_rel = 0u, any = 0u;
     for (int g = cid; g < p.groups; g += ncl) {
-      PROF_T(t0);
       // the group's n, alpha and x of this block's ECs and transcripts
       for (int i = tid; i < ROWS * p.SE; i += THREADS) {
         const int row = i / p.SE, e = rank * p.SE + i % p.SE;
@@ -530,19 +500,13 @@ __global__ void __launch_bounds__(THREADS, 1) em_kernel(Params p) {
              make_float4(xv[0], xv[1], xv[2], xv[3]), CS, rank, resident);
       }
       cluster.sync();
-      PROF_ADD(4, t0);
       for (int step = 0; step < p.C; ++step) {
         run_phase<1>(p, cluster, s, CS, rank, g, step, max_rel, any);
-        PROF_T(t1);
         cluster.sync();
-        PROF_ADD(3, t1);
         run_phase<2>(p, cluster, s, CS, rank, g, step, max_rel, any);
-        PROF_T(t2);
         cluster.sync();
-        PROF_ADD(3, t2);
       }
     }
-    PROF_T(t3);
     max_rel = __reduce_max_sync(FULL, max_rel);
     any = __reduce_or_sync(FULL, any);
     unsigned int* set = p.sync + 2 * (blk % 3);
@@ -557,11 +521,9 @@ __global__ void __launch_bounds__(THREADS, 1) em_kernel(Params p) {
     const bool converged = vs[1] != 0u && __uint_as_float(vs[0]) < p.rel_tol &&
                            it >= p.min_iters;
     ++blk;
-    PROF_ADD(5, t3);
     if (converged) break;
   }
   if (blockIdx.x == 0 && tid == 0) p.iters[0] = it;
-  PROF_ADD(6, t_all);
 }
 
 struct Plan {
@@ -649,19 +611,6 @@ extern "C" int seekmer_em_plan(void* out, int64_t device, int64_t E, int64_t T,
   o[5] = (int64_t)pl.smem;
   return 0;
 }
-
-#ifdef SEEKMER_EM_PROFILE
-// Block 0's clock64 sums by section since the last call, then zeroed: [0]
-// chunk gathers, [1] products (thread 0's warp), [2] epilogues, [3] syncs
-// after epilogues and phases, [4] group loads, [5] grid barrier and exit
-// test, [6] the whole kernel, [7] waits for the other warps' products.
-extern "C" int seekmer_em_profile(void* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, em_prof, sizeof(em_prof));
-  if (err != cudaSuccess) return (int)err;
-  unsigned long long zero[8] = {};
-  return (int)cudaMemcpyToSymbol(em_prof, zero, sizeof(zero));
-}
-#endif
 
 extern "C" int seekmer_em_fixed_point(
     const void* M, const void* n, const void* inv_eff, const void* alpha0,

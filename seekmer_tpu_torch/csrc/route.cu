@@ -57,7 +57,7 @@
 // (ld.global.cs): the slab is read once, so L2 keeps the lines of ecs
 // instead, whose 32-byte sectors take lanes of every owner at different
 // times in the launch: a third less time than plain loads at a config-2
-// half batch (utils/route_bench.py; PERF.md). A grid-stride loop in place
+// half batch (PERF.md). A grid-stride loop in place
 // of the blocks past the runs was no faster.
 //
 // What bounds them: the bytes they move, a few bytes a lane (R1 reads hi,

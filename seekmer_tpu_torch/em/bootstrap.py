@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import EMConfig
+from ..utils.metrics import Metrics
 from .em import (
     ECTable,
     accel_schedule,
@@ -135,10 +136,12 @@ def _batched_iter(counts_nnz, inv_eff_nnz, ec_ids, txp_ids,
 
 
 def run_bootstrap(ec: ECTable, lengths, cfg: EMConfig, alpha_init=None,
-                  it_init: int = 0, on_sync: Optional[Callable] = None):
+                  it_init: int = 0, on_sync: Optional[Callable] = None,
+                  metrics: Optional[Metrics] = None):
     """``cfg.bootstrap_samples`` replicates; returns (est_counts [B, T]
     float32, iterations). One resample, seeded by ``cfg.bootstrap_seed``
-    on the table's device, feeds either route. The dense route runs plain
+    on the table's device, feeds either route; it is the span
+    ``resample`` of ``metrics``. The dense route runs plain
     EM whatever ``cfg.accel`` says, as the JAX kernel does, and serves
     fresh runs only: ``alpha_init`` ((T, B), replicate-major) or
     ``it_init`` take the batched CSR route, which ``on_sync`` snapshots
@@ -150,7 +153,8 @@ def run_bootstrap(ec: ECTable, lengths, cfg: EMConfig, alpha_init=None,
     counts = ec.counts.to(torch.float32)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.bootstrap_seed)
-    cmat = resample_counts(counts, B, gen)  # [B, E]
+    with (metrics if metrics is not None else Metrics()).span("resample"):
+        cmat = resample_counts(counts, B, gen)  # [B, E]
     if alpha_init is None and it_init == 0 and use_dense(ec, cfg,
                                                         replicates=B):
         inv_eff = 1.0 / effective_lengths(lengths, cfg, torch.float32, device)

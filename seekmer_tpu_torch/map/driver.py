@@ -59,6 +59,7 @@ from ..io.fastq import ReadBatch, pack_batch_2bit
 from ..ops import (accumulate_cuda, fast_cuda, pack_cuda, probe_cuda,
                    sig_cuda, strided_cuda)
 from ..ops.probe import device_table_layout
+from ..utils.metrics import Metrics
 from .signature import SIG_PAD, SigTable, make_sig_table, table_to_host
 
 log = logging.getLogger(__name__)
@@ -106,12 +107,19 @@ class DeviceIndex:
     k: int
 
     @classmethod
-    def from_host(cls, index: KMerIndex, device) -> "DeviceIndex":
-        def put(t):
-            return torch.from_numpy(device_table_layout(t, index.bucket)).to(
-                device)
-
-        return cls(table=put(index.table), stash=put(index.stash),
+    def from_host(cls, index: KMerIndex, device,
+                  metrics: Optional[Metrics] = None) -> "DeviceIndex":
+        """The table and the stash laid out (span ``index_layout`` of
+        ``metrics``) and copied to ``device`` (``index_upload``; counter
+        ``index_upload_bytes``)."""
+        metrics = metrics if metrics is not None else Metrics()
+        with metrics.span("index_layout"):
+            host = [device_table_layout(t, index.bucket)
+                    for t in (index.table, index.stash)]
+        metrics.count("index_upload_bytes", sum(t.nbytes for t in host))
+        with metrics.span("index_upload"):
+            table, stash = (torch.from_numpy(t).to(device) for t in host)
+        return cls(table=table, stash=stash,
                    main_slots=index.main_slots,
                    stash_slots=index.stash_slots, bucket=index.bucket,
                    k=index.k)
@@ -226,14 +234,18 @@ def audit_this_batch(cfg: MapConfig, fed_batches: int) -> bool:
 
 
 class Mapper:
-    """Stateful single-device mapper: feed batches, then finalize."""
+    """Stateful single-device mapper: feed batches, then finalize. Its
+    spans and counters (the index's build, ``batches``, ``finalize``) go
+    into ``metrics``, the caller's run's when given."""
 
     def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
-                 device="cuda"):
+                 device="cuda", metrics: Optional[Metrics] = None):
         self.device = check_device(device)
         self.index = index
         self.cfg = cfg
-        self.device_index = DeviceIndex.from_host(index, self.device)
+        self.metrics = metrics if metrics is not None else Metrics()
+        self.device_index = DeviceIndex.from_host(index, self.device,
+                                                  self.metrics)
         # fusion rows hold a signature a mate side by side, which the
         # per-EC direct vector cannot count: the placeholder vector sends
         # every read through the fingerprint table, as in the JAX package
@@ -263,6 +275,7 @@ class Mapper:
             pad_len=batch.pad_len, audit=audit)
         self._fed_batches += 1
         self.total_reads += n_real
+        self.metrics.count("batches")
 
     def run(self, batches: Iterable[ReadBatch],
             checkpoint_path: Optional[str] = None,
@@ -314,10 +327,17 @@ class Mapper:
         return self.fld
 
     def finalize(self) -> MapResult:
-        sigs, counts = table_to_host(self.table)
-        return merge_sig_rows(sigs, counts, self.total_reads,
-                              int(self.table.overflow),
-                              collisions=int(self.table.collisions))
+        """The table read back (span ``readback``) and merged (``merge``),
+        inside the span ``finalize``."""
+        m = self.metrics
+        with m.span("finalize"):
+            with m.span("readback"):
+                sigs, counts = table_to_host(self.table, m)
+                overflow = int(self.table.overflow)
+                collisions = int(self.table.collisions)
+            with m.span("merge"):
+                return merge_sig_rows(sigs, counts, self.total_reads,
+                                      overflow, collisions=collisions)
 
 
 def _run_with_checkpoints(mapper: Mapper, batches: Iterable[ReadBatch],

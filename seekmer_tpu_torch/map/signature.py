@@ -31,6 +31,7 @@ from ..ops.hash import (
     sig_slot_hash,
     to_i32,
 )
+from ..utils.metrics import Metrics
 
 SIG_PAD = 0x7FFFFFFF  # sorts after every real EC id (int32 max)
 KB = 8  # slots per key bucket
@@ -258,14 +259,18 @@ def direct_rows(ec_count: np.ndarray, C: int):
     return rows, ec[nz].astype(np.int64)
 
 
-def table_to_host(table: SigTable):
+def table_to_host(table: SigTable, metrics: Metrics | None = None):
     """Occupied rows to the host: (sigs int32[U, C], counts int64[U]),
     including the direct per-EC counts as single-EC rows. Only occupied
-    rows cross to the host."""
+    rows cross to the host; their bytes, and the per-EC vector's, are
+    counted as ``readback_bytes`` of ``metrics`` when given."""
     occ = table.count > 0
-    sigs = table.sig[occ].cpu().numpy()
-    counts = table.count[occ].cpu().numpy().astype(np.int64)
-    ec = table.ec_count.cpu().numpy()
+    sigs, counts, ec = (t.cpu().numpy() for t in (
+        table.sig[occ], table.count[occ], table.ec_count))
+    if metrics is not None:
+        metrics.count("readback_bytes",
+                      sigs.nbytes + counts.nbytes + ec.nbytes)
+    counts = counts.astype(np.int64)
     if ec.shape[0] > 1:
         drows, dcounts = direct_rows(ec, sigs.shape[1])
         if drows.shape[0]:

@@ -11,10 +11,20 @@ cache, ``io/pack_cache``), ``quantify_reads`` (reads held in memory) and
 ``quantify_batches``. A resume restores the map checkpoint and seeks the
 inputs; an EM snapshot warm-starts EM, a converged one skips it, and a
 bootstrap snapshot warm-starts the bootstrap. A completed run deletes its
-stage snapshots. Stages are named ranges in a ``--trace-dir`` trace
-(``utils/profiling.annotate``): map, resolve, em and bootstrap here, the
-ones ``run_info.json``'s ``timings`` time, and ingest and upload on the
-prefetch thread.
+stage snapshots.
+
+A call's stages are spans (``utils/metrics.Metrics.span``): timers in
+``QuantResult.timings`` (``run_info.json``) and named ranges in a
+``--trace-dir`` trace, all inside the range ``quantify``, which encloses
+the call (one ``Quantifier`` runs one call at a time, so that range groups
+a sample's ranges, the prefetch thread's too). In order: ``mapper`` (the
+index laid out, ``index_layout``, and uploaded, ``index_upload``), ``map``
+(waits for the next batch, ``map_wait``; FLD sampling, ``fld``; the
+table's read-back and merge, ``finalize`` with ``readback`` and
+``merge``), ``resolve``, ``ec_table`` (the FLD estimate, the EC table,
+the snapshots' set-up), ``em``, ``bootstrap`` (its ``resample``) and
+``collect`` (the results to the host); ``ingest``, ``upload`` and its
+``pack`` on the prefetch thread. ``wall_s`` covers the whole call.
 
 Several ranks (``PipelineConfig.shard.data_axis`` != 1, one process a card
 in a ``torch.distributed`` group, ``parallel/comm.py``): every rank builds
@@ -72,6 +82,7 @@ from ..io.fastq import (
 )
 from ..map.driver import Mapper, MapResult, check_device, resolve_signatures
 from ..map.fld import estimate_from_hist
+from ..map.signature import SIG_PAD
 from ..parallel import comm
 from ..parallel.bootstrap_shard import run_bootstrap_sharded
 from ..parallel.data_parallel import DataParallelMapper, data_ranks
@@ -133,16 +144,21 @@ class Quantifier:
         else:
             self.ranks = 1 if shard.data_axis == 1 else data_ranks(shard)
 
-    def _make_mapper(self) -> Mapper:
-        if self.prefix:
-            return PrefixShardedMapper(self.index, self.cfg.map,
-                                       self.cfg.shard, device=self.device,
-                                       input_share=self.input_share)
-        if self.ranks > 1:
-            return DataParallelMapper(self.index, self.cfg.map,
-                                      self.cfg.shard, device=self.device,
-                                      input_share=self.input_share)
-        return Mapper(self.index, self.cfg.map, device=self.device)
+    def _make_mapper(self, metrics: Metrics) -> Mapper:
+        """A mapper of the index on the device, built in the span
+        ``mapper`` of ``metrics``."""
+        with metrics.span("mapper"):
+            if self.prefix:
+                return PrefixShardedMapper(
+                    self.index, self.cfg.map, self.cfg.shard,
+                    device=self.device, input_share=self.input_share)
+            if self.ranks > 1:
+                return DataParallelMapper(
+                    self.index, self.cfg.map, self.cfg.shard,
+                    device=self.device, input_share=self.input_share,
+                    metrics=metrics)
+            return Mapper(self.index, self.cfg.map, device=self.device,
+                          metrics=metrics)
 
     def _native_batches(self, fastq_paths, mate_paths):
         if mate_paths:
@@ -161,29 +177,31 @@ class Quantifier:
         checkpoint there, if any; ``pack_cache`` (a directory, or "auto"
         for ``<first fastq>.smpack``) feeds batches from the pack cache,
         building it first when it is absent or stale."""
-        mapper = self._make_mapper()
-        if pack_cache is not None and self.ranks > 1:
-            raise ValueError(
-                "--pack-cache takes the single-card mapper (no "
-                "--data-shards/--index-shards/--distributed): cached "
-                "batches are pre-packed for one card's stream")
-        if pack_cache is not None:
-            return self._quantify_pack_cache(
-                fastq_paths, mate_paths, checkpoint_path, checkpoint_every,
-                pack_cache, mapper)
-        if checkpoint_path:
-            source = CheckpointableBatchSource(fastq_paths, mate_paths,
-                                               self.cfg.map)
-            mapper = self._restore(mapper, checkpoint_path, source)
-            batches = iter(source)
-        else:
-            batches = self._native_batches(fastq_paths, mate_paths)
-        return self.quantify_batches(batches, mapper=mapper,
-                                     checkpoint_path=checkpoint_path,
-                                     checkpoint_every=checkpoint_every)
+        metrics = Metrics()
+        with annotate("quantify"):
+            mapper = self._make_mapper(metrics)
+            if pack_cache is not None and self.ranks > 1:
+                raise ValueError(
+                    "--pack-cache takes the single-card mapper (no "
+                    "--data-shards/--index-shards/--distributed): cached "
+                    "batches are pre-packed for one card's stream")
+            if pack_cache is not None:
+                return self._quantify_pack_cache(
+                    fastq_paths, mate_paths, checkpoint_path,
+                    checkpoint_every, pack_cache, mapper, metrics)
+            if checkpoint_path:
+                source = CheckpointableBatchSource(fastq_paths, mate_paths,
+                                                   self.cfg.map)
+                mapper = self._restore(mapper, checkpoint_path, source,
+                                       metrics)
+                batches = iter(source)
+            else:
+                batches = self._native_batches(fastq_paths, mate_paths)
+            return self._quantify(batches, mapper, metrics, checkpoint_path,
+                                  checkpoint_every)
 
     def _restore(self, mapper: Mapper, checkpoint_path: str,
-                 source) -> Mapper:
+                 source, metrics: Metrics) -> Mapper:
         """Restore the map checkpoint, if any, into ``mapper`` and
         ``source``. A file without a cursor cannot resume: its table is
         dropped and the run starts fresh. Restore errors raise; on several
@@ -199,7 +217,7 @@ class Quantifier:
         elif state is not None:
             log.warning("checkpoint %s has no stream cursor; starting fresh",
                         checkpoint_path)
-            mapper = self._make_mapper()
+            mapper = self._make_mapper(metrics)
         return mapper
 
     def _agree_restore(self, mapper, checkpoint_path: str):
@@ -233,8 +251,8 @@ class Quantifier:
         return state
 
     def _quantify_pack_cache(self, fastq_paths, mate_paths, checkpoint_path,
-                             checkpoint_every, pack_cache, mapper
-                             ) -> QuantResult:
+                             checkpoint_every, pack_cache, mapper,
+                             metrics: Metrics) -> QuantResult:
         """A --pack-cache run: a complete cache is memory-mapped and fed
         directly (no decode, parse or pack); otherwise this run builds it
         by teeing the ingest stream. Cached batches carry resume cursors,
@@ -254,7 +272,8 @@ class Quantifier:
                      cache_dir)
             source = PackCacheSource(cache_dir, map_cfg)
             if checkpoint_path:
-                mapper = self._restore(mapper, checkpoint_path, source)
+                mapper = self._restore(mapper, checkpoint_path, source,
+                                       metrics)
             batches = iter(source)
         else:
             if checkpoint_path:
@@ -267,9 +286,8 @@ class Quantifier:
             batches = write_through(
                 self._native_batches(fastq_paths, mate_paths), cache_dir,
                 map_cfg, fastq_paths, mate_paths)
-        return self.quantify_batches(batches, mapper=mapper,
-                                     checkpoint_path=checkpoint_path,
-                                     checkpoint_every=checkpoint_every)
+        return self._quantify(batches, mapper, metrics, checkpoint_path,
+                              checkpoint_every)
 
     def quantify_reads(self, reads: List[str],
                        mates: Optional[List[str]] = None) -> QuantResult:
@@ -287,21 +305,34 @@ class Quantifier:
                          mapper: Optional[Mapper] = None,
                          checkpoint_path: Optional[str] = None,
                          checkpoint_every: int = 50) -> QuantResult:
+        """Quantify ``batches``, with a mapper built here unless one is
+        given (whose spans then stay its own)."""
         metrics = Metrics()
-        if mapper is None:
-            mapper = self._make_mapper()
+        with annotate("quantify"):
+            if mapper is None:
+                mapper = self._make_mapper(metrics)
+            return self._quantify(batches, mapper, metrics, checkpoint_path,
+                                  checkpoint_every)
+
+    def _quantify(self, batches: Iterable[ReadBatch], mapper: Mapper,
+                  metrics: Metrics, checkpoint_path: Optional[str],
+                  checkpoint_every: int) -> QuantResult:
+        """The stages after the mapper's build, timed into the call's
+        ``metrics``."""
         if self.ranks > 1:
             batches = mapper.select(batches)
-        batches = prefetch(device_put_batches(batches, self.device), depth=4)
+        batches = prefetch(device_put_batches(batches, self.device, metrics),
+                           depth=4, metrics=metrics)
         self._fld_est = None
         if self.cfg.em.estimate_fld and self.index.fld_tid is not None:
             # a restored checkpoint's estimator goes on where it stopped
             self._fld_est = mapper.fld
-            batches = self._tee_fld(batches, mapper)
-        with metrics.timer("map"), annotate("map"):
+            batches = self._tee_fld(batches, mapper, metrics)
+        with metrics.span("map"):
             result = mapper.run(batches, checkpoint_path=checkpoint_path,
                                 checkpoint_every=checkpoint_every)
         metrics.count("reads", result.total_reads)
+        metrics.count("distinct_signatures", result.sigs.shape[0])
         if result.collisions:
             metrics.count("fingerprint_collisions", result.collisions)
         log.info("mapped %d/%d reads (%d distinct signatures, %d overflow, "
@@ -310,15 +341,18 @@ class Quantifier:
                  result.collisions)
         return self._infer(result, metrics, mapper, checkpoint_path)
 
-    def _tee_fld(self, batches: Iterable[ReadBatch], mapper: Mapper):
+    def _tee_fld(self, batches: Iterable[ReadBatch], mapper: Mapper,
+                 metrics: Metrics):
         """Pass batches through while sampling the first paired ones into a
         fragment-length estimator (map/fld.py) that shares the mapper's
-        device table; it goes inert after its sampling batches."""
+        device table; it goes inert after its sampling batches. Each
+        sampling is the span ``fld``."""
         for b in batches:
             if b.codes2 is not None and self._fld_est is None:
                 self._fld_est = mapper.make_fld_estimator()
             if self._fld_est is not None and self._fld_est.active:
-                self._fld_est.feed(b)
+                with metrics.span("fld"):
+                    self._fld_est.feed(b)
             yield b
 
     def _fld_cfg(self, em_cfg: EMConfig, mapper
@@ -397,20 +431,28 @@ class Quantifier:
 
     def _infer(self, result: MapResult, metrics: Metrics, mapper: Mapper,
                checkpoint_path: Optional[str] = None) -> QuantResult:
-        with metrics.timer("resolve"), annotate("resolve"):
+        with metrics.span("resolve"):
             member_lists, counts, dropped = resolve_signatures(result,
                                                                self.index)
 
-        em_cfg, fld_est = self._fld_cfg(self.cfg.em, mapper)
-        dtype = torch.float64 if em_cfg.use_x64 else torch.float32
-        T = self.index.num_transcripts
-        lengths = self.index.lengths
-        ec = build_ec_table(member_lists, counts, T, dtype=dtype,
-                            device=self.device)
-        em_snap, boot_snap, alpha_init, it_init, em_converged, on_sync = \
-            self._em_snapshots(checkpoint_path, T)
+        with metrics.span("ec_table"):
+            # the signatures resolve_signatures intersects one by one, of
+            # two or more ECs: a row's EC ids are sorted, SIG_PAD after them
+            sigs = result.sigs
+            metrics.count("multi_ec_signatures", int(
+                (sigs[:, 1] != SIG_PAD).sum()) if sigs.shape[1] > 1 else 0)
+            em_cfg, fld_est = self._fld_cfg(self.cfg.em, mapper)
+            dtype = torch.float64 if em_cfg.use_x64 else torch.float32
+            T = self.index.num_transcripts
+            lengths = self.index.lengths
+            ec = build_ec_table(member_lists, counts, T, dtype=dtype,
+                                device=self.device)
+            metrics.count("classes", ec.num_ecs)
+            metrics.count("nnz", ec.txp_ids.shape[0])
+            (em_snap, boot_snap, alpha_init, it_init, em_converged,
+             on_sync) = self._em_snapshots(checkpoint_path, T)
         em_skipped = alpha_init is not None and em_converged
-        with metrics.timer("em"), annotate("em"):
+        with metrics.span("em"):
             if em_skipped:
                 alpha = torch.as_tensor(alpha_init, dtype=dtype,
                                         device=self.device)
@@ -450,15 +492,15 @@ class Quantifier:
                                                            False, (T, B))
                 if comm.rank() == 0:
                     b_sync = self._throttled_sync(boot_snap)
-            with metrics.timer("bootstrap"), annotate("bootstrap"):
+            with metrics.span("bootstrap"):
                 if self.ranks > 1 and B % self.ranks == 0:
                     boot_alpha, boot_iters = run_bootstrap_sharded(
                         ec, lengths, em_cfg, alpha_init=b_init,
-                        it_init=b_it, on_sync=b_sync)
+                        it_init=b_it, on_sync=b_sync, metrics=metrics)
                 else:
                     boot_alpha, boot_iters = run_bootstrap(
                         ec, lengths, em_cfg, alpha_init=b_init,
-                        it_init=b_it, on_sync=b_sync)
+                        it_init=b_it, on_sync=b_sync, metrics=metrics)
                 boot = boot_alpha.cpu().numpy()
             metrics.count("bootstrap_iterations", boot_iters)
             log.info("bootstrap: %d replicates in %.2fs", B,
@@ -468,12 +510,15 @@ class Quantifier:
             # from these
             if p and comm.rank() == 0 and os.path.exists(p):
                 os.remove(p)
+        with metrics.span("collect"):
+            est_counts, tpm, eff = (t.cpu().numpy() for t in (alpha, tpm,
+                                                              eff))
         timings = metrics.snapshot()
         metrics.log_summary()
         return QuantResult(
-            est_counts=alpha.cpu().numpy(),
-            tpm=tpm.cpu().numpy(),
-            eff_length=eff.cpu().numpy(),
+            est_counts=est_counts,
+            tpm=tpm,
+            eff_length=eff,
             names=self.index.names,
             lengths=lengths,
             total_reads=result.total_reads,

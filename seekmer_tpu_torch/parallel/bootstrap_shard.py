@@ -32,6 +32,7 @@ from ..config import EMConfig
 from ..em import em as em_mod
 from ..em.bootstrap import batched_em, resample_counts
 from ..em.em import ECTable, convergence_check
+from ..utils.metrics import Metrics
 from . import comm
 
 
@@ -76,21 +77,24 @@ def rank_resample(ec: ECTable, cfg: EMConfig, rank: int,
 
 def run_bootstrap_sharded(ec: ECTable, lengths, cfg: EMConfig,
                           alpha_init=None, it_init: int = 0,
-                          on_sync: Optional[Callable] = None
+                          on_sync: Optional[Callable] = None,
+                          metrics: Optional[Metrics] = None
                           ) -> Tuple[torch.Tensor, int]:
     """Returns (est_counts float32 [B, T] on every rank, iterations).
 
     ``alpha_init`` ((T, B), replicate-major, the whole run's) and
     ``it_init`` warm-start from a bootstrap snapshot; ``on_sync(alpha_TB_np,
     it)``, given on rank 0, receives the gathered (T, B) iterate about
-    every ``em.SYNC_TARGET_S`` seconds (pass it on rank 0 only)."""
+    every ``em.SYNC_TARGET_S`` seconds (pass it on rank 0 only). The
+    rank's resample is the span ``resample`` of ``metrics``."""
     rank, ranks = comm.rank(), comm.world()
     B = cfg.bootstrap_samples
     if B % ranks:
         raise ValueError(f"bootstrap_samples {B} not divisible by {ranks} "
                          "ranks")
     local = B // ranks
-    cmat = rank_resample(ec, cfg, rank, ranks)
+    with (metrics if metrics is not None else Metrics()).span("resample"):
+        cmat = rank_resample(ec, cfg, rank, ranks)
     a_init = (None if alpha_init is None else
               np.asarray(alpha_init)[:, rank * local:(rank + 1) * local])
     exchange = Exchange(snapshots=on_sync is not None)

@@ -43,6 +43,7 @@ from ..io.fastq import ReadBatch, rank_batches
 from ..map.driver import MapResult, Mapper, merge_sig_rows
 from ..map.fld import SAMPLE_BATCHES, FLDEstimator
 from ..map.signature import table_to_host
+from ..utils.metrics import Metrics
 from . import comm
 
 
@@ -124,8 +125,9 @@ class DataParallelMapper(RankMapper, Mapper):
 
     def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
                  shard: ShardConfig = ShardConfig(), device="cuda",
-                 input_share: Optional[Tuple[int, int]] = None):
-        super().__init__(index, cfg, device=device)
+                 input_share: Optional[Tuple[int, int]] = None,
+                 metrics: Optional[Metrics] = None):
+        super().__init__(index, cfg, device=device, metrics=metrics)
         self.n_ranks = data_ranks(shard)
         self.rank = comm.rank()
         self.place, self.sharers = (input_share if input_share is not None

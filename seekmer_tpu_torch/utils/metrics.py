@@ -1,29 +1,38 @@
 """Named counters and accumulated stage timings, reported in ``run_info.json``
 (reads/s of the map stage, EM iterations/s): the port's copy of
-``seekmer_tpu/utils/metrics.py``."""
+``seekmer_tpu/utils/metrics.py``, plus ``span``, a timer that is also a
+named range in a trace (``utils/profiling.annotate``). The prefetch
+thread times its stages beside the main thread's, so every update takes
+a lock."""
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from typing import Dict
 
+from .profiling import annotate
+
 log = logging.getLogger(__name__)
 
 
 class Metrics:
-    """Process-wide named counters and accumulated stage timings."""
+    """Named counters and accumulated stage timings of one run; ``wall_s``
+    counts from its creation."""
 
     def __init__(self):
         self.counters: Dict[str, float] = defaultdict(float)
         self.timings: Dict[str, float] = defaultdict(float)
+        self._lock = threading.Lock()
         self._start = time.perf_counter()
 
     def count(self, name: str, n: float = 1) -> None:
-        self.counters[name] += n
+        with self._lock:
+            self.counters[name] += n
 
     @contextmanager
     def timer(self, name: str):
@@ -31,15 +40,24 @@ class Metrics:
         try:
             yield
         finally:
-            self.timings[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.timings[name] += dt
+
+    @contextmanager
+    def span(self, name: str):
+        """``timer(name)`` and a trace range ``name`` around the body."""
+        with self.timer(name), annotate(name):
+            yield
 
     def rate(self, counter: str, timer: str) -> float:
         dt = self.timings.get(timer, 0.0)
         return self.counters.get(counter, 0.0) / dt if dt > 0 else 0.0
 
     def snapshot(self) -> Dict[str, float]:
-        out = dict(self.counters)
-        out.update({f"{k}_s": v for k, v in self.timings.items()})
+        with self._lock:
+            out = dict(self.counters)
+            out.update({f"{k}_s": v for k, v in self.timings.items()})
         if "reads" in self.counters and "map" in self.timings:
             out["reads_per_s"] = self.rate("reads", "map")
         if "em_iterations" in self.counters and "em" in self.timings:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..io.fastq import pack_batch_2bit
-from .profiling import annotate
+from .metrics import Metrics
 
 T = TypeVar("T")
 
@@ -38,24 +38,27 @@ def _put(a, device: torch.device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def device_put_batches(batches, device):
+def device_put_batches(batches, device, metrics: Metrics | None = None):
     """2-bit pack each ReadBatch on the host (``io.fastq.pack_batch_2bit``)
     and upload its arrays to ``device``, so the feed loop never touches
     numpy. ``n_real`` is taken on the host first, so read accounting never
     syncs with the device. Run it on ``prefetch``'s producer thread to
-    overlap ingest and upload with the map steps. The trace ranges
-    ``ingest`` (taking the next batch from ``batches``) and ``upload``
-    name the two (``utils/profiling``)."""
+    overlap ingest and upload with the map steps. The spans of ``metrics``
+    (``Metrics.span``: timers and trace ranges) ``ingest`` (taking the
+    next batch from ``batches``) and ``upload`` name the two, and ``pack``
+    the 2-bit pack inside ``upload``."""
     device = torch.device(device)
+    metrics = metrics if metrics is not None else Metrics()
     it = iter(batches)
     while True:
-        with annotate("ingest"):
+        with metrics.span("ingest"):
             b = next(it, None)
         if b is None:
             return
-        with annotate("upload"):
+        with metrics.span("upload"):
             n_real = b.n_real
-            b = pack_batch_2bit(b)
+            with metrics.span("pack"):
+                b = pack_batch_2bit(b)
             out = dataclasses.replace(
                 b,
                 codes=_put(b.codes, device),
@@ -70,12 +73,15 @@ def device_put_batches(batches, device):
         yield out
 
 
-def prefetch(items: Iterable[T], depth: int = 4) -> Iterator[T]:
+def prefetch(items: Iterable[T], depth: int = 4,
+             metrics: Metrics | None = None) -> Iterator[T]:
     """Iterate ``items`` on a daemon thread, buffering up to ``depth``;
     an exception of the producer is raised in the consumer. A consumer
     that stops early (a crash, a checkpoint test's stop) stops the
     producer, which closes ``items`` (its readers release their files)
-    and ends; the consumer waits for it."""
+    and ends; the consumer waits for it. The span ``map_wait`` of
+    ``metrics`` times each wait of the consumer for the next item (the
+    end of ``items`` included)."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     error = []
     stop = threading.Event()
@@ -102,11 +108,13 @@ def prefetch(items: Iterable[T], depth: int = 4) -> Iterator[T]:
                 close()
             put(_SENTINEL)
 
+    metrics = metrics if metrics is not None else Metrics()
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     try:
         while True:
-            item = q.get()
+            with metrics.span("map_wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if error:
                     raise error[0]
