@@ -28,7 +28,10 @@ Phases; any failure exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card and time
    both with CUDA events, beside the least time the card could take for
    the same work (bytes over 3.35 TB/s, or FP32 operations over 67
-   TFLOP/s; for K4 the operations on M's nonzeros): K1 pack (one mate,
+   TFLOP/s; for K4 the operations on M's nonzeros): I1 layout at config
+   2's ~1 GB index table (``[I1 layout config 2]``: ``from_host``'s tables
+   equal to the host layout, the bare launch and the wrapper with its
+   read-back timed), K1 pack (one mate,
    and both mates into one output), K2 lookup, K3 signature and A1
    accumulate at the shapes of one paired config-2 batch, K2 also on one
    config-1 batch (a table that mostly sits in L2); R1 (route: owner,
@@ -476,6 +479,62 @@ def check_lookup(tag, index, di, hi, lo, valid):
         f"{rec['ms'] / own[0]:.3f}), {own[1]:.6f} ms at 64-byte accesses "
         f"(x{rec['ms'] / own[1]:.3f})")
     return rec, got
+
+
+def check_layout(index, di):
+    """I1 at config 2's index (GENCODE-scale, ~1 GB): the table and stash
+    that ``DeviceIndex.from_host`` laid out on the card equal to the host
+    layout, ``device_table_layout``; the kernel against its plain version
+    on the card, each launch on a fresh copy of the raw table (the copy
+    not timed); the wrapper's host wall, the kernel and its one read-back
+    of the largest EC id, as ``from_host`` pays it. Returns its record."""
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch.ops import _build, layout_cuda
+    from seekmer_tpu_torch.ops.probe import AUX_BITS, device_table_layout
+
+    G = index.bucket
+    for name, got, host in (("table", di.table, index.table),
+                            ("stash", di.stash, index.stash)):
+        check(np.array_equal(got.cpu().numpy(),
+                             device_table_layout(host, G)),
+              f"I1: from_host's {name} differs from device_table_layout")
+    raw = torch.from_numpy(np.array(index.table)).to(di.table.device)
+    buf = torch.empty_like(raw)
+    ec_max = torch.empty(1, dtype=torch.int32, device=raw.device)
+    fn = _build.function("seekmer_layout", 3, 4)
+
+    def fresh():
+        buf.copy_(raw)
+        ec_max.fill_(torch.iinfo(torch.int32).min)
+        return buf
+
+    def kernel(t):  # the bare launch, without the wrapper's read-back
+        _build.check(fn(t.data_ptr(), ec_max.data_ptr(), _build.stream_of(t),
+                        t.device.index, t.shape[0], G, AUX_BITS), "layout")
+
+    (got,) = layout_cuda.layout_table(fresh(), bucket=G)
+    err = max_abs_diff(got, layout_cuda.plain(raw.clone(), G))
+    walls = []
+    for _ in range(5):
+        fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layout_cuda.layout_table(buf, bucket=G)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rec = record(err, cuda_ms_each(fresh, kernel, 10),
+                 cuda_ms_each(fresh, lambda t: layout_cuda.plain(t, G), 3),
+                 2 * nbytes(raw) / HBM_BYTES_S, "bytes")
+    log(f"[I1 layout config 2] {raw.shape[0]} slots x 4 ({nbytes(raw)} "
+        f"bytes, bucket {G}) and the stash ({index.stash.shape[0]} slots): "
+        f"from_host's tables equal to device_table_layout; max_abs_err {err} "
+        f"against the plain version; kernel {rec['ms']:.6f} ms, plain "
+        f"{rec['plain_ms']:.6f} ms, bound {rec['bound_ms']:.6f} ms (share "
+        f"{rec['bound_ms'] / rec['ms']:.6f}); the wrapper, kernel + one "
+        f"read-back, {sorted(walls)[2]:.6f} ms host wall (median of 5: "
+        f"{', '.join(f'{w:.6f}' for w in walls)})")
+    return rec
 
 
 def log_heads(tag, ecs, valid) -> None:
@@ -1071,6 +1130,7 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
 
     index = load_index(work, "c2")
     di = DeviceIndex.from_host(index, dev)
+    out["I1"] = check_layout(index, di)
     k = index.k
     mates = [upload_mate(codes, L, dev) for codes in batches[1]]
     p, bd, ln = mates[0]
@@ -1868,9 +1928,9 @@ def check_ec_sum(ec, lengths, keep=None):
 
 def reset_launches():
     from seekmer_tpu_torch.ops import (accumulate_cuda, em_csr_cuda,
-                                       em_cuda, fast_cuda, pack_cuda,
-                                       probe_cuda, route_cuda, sig_cuda,
-                                       strided_cuda)
+                                       em_cuda, fast_cuda, layout_cuda,
+                                       pack_cuda, probe_cuda, route_cuda,
+                                       sig_cuda, strided_cuda)
 
     for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
                sig_cuda.read_signatures, accumulate_cuda.fold_batch,
@@ -1878,7 +1938,7 @@ def reset_launches():
                fast_cuda.merge_staging, em_csr_cuda.em_steps,
                strided_cuda.lookup_ecs_strided, em_csr_cuda.ec_sums,
                route_cuda.route_first, route_cuda.route_spill,
-               route_cuda.unroute):
+               route_cuda.unroute, layout_cuda.layout_table):
         fn.launches = 0
 
 
@@ -2109,7 +2169,8 @@ def fuse_check(work: Path, injected) -> dict:
     dense = cli.kernel_launches()
     check(rc == 0, f"fuse exit {rc}")
     for kernel, n in dense.items():
-        used = kernel in ("pack", "lookup", "signature", "accumulate")
+        used = kernel in ("pack", "lookup", "signature", "accumulate",
+                          "layout")
         check((n > 0) == used, f"fuse: kernel {kernel} launched {n} times")
     info = json.loads((out / "run_info.json").read_text())
     table = (out / "fusions.tsv").read_text().splitlines()
@@ -2888,8 +2949,10 @@ def trace_phase(work: Path, card: str, tag: str, argv, unused) -> dict:
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
     ingest = sum(e["dur"] for e in ranges["ingest"]) / 1e3
     upload = sum(e["dur"] for e in ranges["upload"]) / 1e3
-    log(f"[trace {tag}] {len(events)} events, {len(kernels)} kernels; "
-        f"ranges: {'; '.join(parts)}")
+    i1 = [e for e in kernels if "layout_kernel" in e["name"]]
+    log(f"[trace {tag}] {len(events)} events, {len(kernels)} kernels "
+        f"(I1: {len(i1)}, {sum(e['dur'] for e in i1) / 1e3:.6f} ms; "
+        f"{launches['layout']} launched); ranges: {'; '.join(parts)}")
     log(f"[trace {tag} map split] map range {m['dur'] / 1e3:.6f} ms: "
         f"prefetch thread ingest {ingest:.6f} ms + upload {upload:.6f} ms "
         f"= {(ingest + upload) / (m['dur'] / 1e3):.6f} of it; device busy "
@@ -3631,6 +3694,8 @@ KERNELS = [
      "seekmer_tpu/parallel/prefix_shard.py:205"),
     ("R2", "unroute", "seekmer_tpu_torch/csrc/route.cu",
      "seekmer_tpu/parallel/prefix_shard.py:247"),
+    ("I1", "layout", "seekmer_tpu_torch/csrc/layout.cu",
+     "none (seekmer_tpu/ops/probe.py:46 lays the table out on the host)"),
 ]
 
 

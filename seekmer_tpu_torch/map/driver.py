@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import warnings
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -56,8 +57,8 @@ import torch
 from ..config import MapConfig
 from ..index.store import KMerIndex
 from ..io.fastq import ReadBatch, pack_batch_2bit
-from ..ops import (accumulate_cuda, fast_cuda, pack_cuda, probe_cuda,
-                   sig_cuda, strided_cuda)
+from ..ops import (accumulate_cuda, fast_cuda, layout_cuda, pack_cuda,
+                   probe_cuda, sig_cuda, strided_cuda)
 from ..ops.probe import device_table_layout
 from ..utils.metrics import Metrics
 from .signature import SIG_PAD, SigTable, make_sig_table, table_to_host
@@ -95,6 +96,16 @@ def to_device(x, device: torch.device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _upload_raw(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host index table copied to ``device`` as it is: int32, contiguous,
+    with no host copy of a read-only array (the copy only reads it)."""
+    host = np.ascontiguousarray(table, dtype=np.int32)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is "
+                                "not writable")
+        return torch.from_numpy(host).to(device)
+
+
 @dataclasses.dataclass
 class DeviceIndex:
     """Index tables resident on one device, in the slab layout."""
@@ -109,16 +120,28 @@ class DeviceIndex:
     @classmethod
     def from_host(cls, index: KMerIndex, device,
                   metrics: Optional[Metrics] = None) -> "DeviceIndex":
-        """The table and the stash laid out (span ``index_layout`` of
-        ``metrics``) and copied to ``device`` (``index_upload``; counter
-        ``index_upload_bytes``)."""
+        """The table and the stash in the slab layout on ``device`` (spans
+        ``index_upload`` and ``index_layout`` of ``metrics``; counter
+        ``index_upload_bytes``). On a CUDA device the raw (S, 4) tables
+        are copied as they are, then laid out in place by I1
+        (``ops/layout_cuda.py``; counter ``index_layout_on_device``); on
+        the CPU ``device_table_layout`` lays them out on the host first."""
         metrics = metrics if metrics is not None else Metrics()
-        with metrics.span("index_layout"):
-            host = [device_table_layout(t, index.bucket)
-                    for t in (index.table, index.stash)]
-        metrics.count("index_upload_bytes", sum(t.nbytes for t in host))
-        with metrics.span("index_upload"):
-            table, stash = (torch.from_numpy(t).to(device) for t in host)
+        dev = torch.device(device)
+        raw = (index.table, index.stash)
+        metrics.count("index_upload_bytes", sum(t.nbytes for t in raw))
+        if dev.type == "cpu":
+            with metrics.span("index_layout"):
+                host = [device_table_layout(t, index.bucket) for t in raw]
+            with metrics.span("index_upload"):
+                table, stash = (torch.from_numpy(t) for t in host)
+        else:
+            with metrics.span("index_upload"):
+                table, stash = (_upload_raw(t, dev) for t in raw)
+            with metrics.span("index_layout"):
+                table, stash = layout_cuda.layout_table(table, stash,
+                                                        bucket=index.bucket)
+            metrics.count("index_layout_on_device")
         return cls(table=table, stash=stash,
                    main_slots=index.main_slots,
                    stash_slots=index.stash_slots, bucket=index.bucket,

@@ -17,8 +17,9 @@ A call's stages are spans (``utils/metrics.Metrics.span``): timers in
 ``QuantResult.timings`` (``run_info.json``) and named ranges in a
 ``--trace-dir`` trace, all inside the range ``quantify``, which encloses
 the call (one ``Quantifier`` runs one call at a time, so that range groups
-a sample's ranges, the prefetch thread's too). In order: ``mapper`` (the
-index laid out, ``index_layout``, and uploaded, ``index_upload``), ``map``
+a sample's ranges, the prefetch thread's too). In order: ``mapper`` (on a
+card the raw index uploaded, ``index_upload``, then laid out in place by
+I1, ``index_layout``; on the CPU laid out on the host first), ``map``
 (waits for the next batch, ``map_wait``; FLD sampling, ``fld``; the
 table's read-back and merge, ``finalize`` with ``readback`` and
 ``merge``), ``resolve``, ``ec_table`` (the FLD estimate, the EC table,

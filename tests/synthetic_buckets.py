@@ -8,6 +8,7 @@ the plain lookup on the card, where JAX is absent).
 import numpy as np
 
 from seekmer_tpu_torch.ops.hash import hash_kmer_np, hash_kmer_stash_np
+from seekmer_tpu_torch.ops.probe import MAX_EC_ID
 
 EMPTY_ROW = (-1, -1, -1, -1)
 
@@ -90,3 +91,43 @@ def check_expected(queries, ec, aux):
     for (name, _, _, _, want), e, a in zip(queries, ec, aux):
         if want is not None:
             assert (int(e), int(a)) == want, name
+
+
+def raw_layout_table(G: int, nb: int, kind: str, seed: int = 0):
+    """A raw host table (rows [hi, lo, ec, aux], ``G`` slots a bucket, ``nb``
+    buckets) for the layout (I1) tests:
+
+    - ``mixed``: buckets empty, full and part-filled, in turn from a seed;
+      aux from -3 to 300, so the clip to [0, AUX_MASK] bites both ways; EC
+      ids up to ``MAX_EC_ID``;
+    - ``empty``: every slot empty; ``full``: every slot occupied;
+    - ``over_limit``: ``mixed`` with one occupied slot's EC id at
+      ``MAX_EC_ID + 1``, which the layout must refuse.
+
+    Empty slots (hi = -1) carry random lo, ec and aux, EC ids past the
+    limit among them, which the layout keeps (lo) or ignores.
+    """
+    rng = np.random.default_rng(seed)
+    S = nb * G
+    t = np.empty((S, 4), np.int64)
+    t[:, 0] = rng.integers(0, 1 << 31, S)
+    t[:, 1] = rng.integers(-(1 << 31), 1 << 31, S)
+    t[:, 2] = rng.integers(0, MAX_EC_ID + 1, S)
+    t[:, 3] = rng.integers(-3, 301, S)
+    if kind == "empty":
+        fill = np.zeros(nb, np.int64)
+    elif kind == "full":
+        fill = np.full(nb, G)
+    else:
+        fill = rng.integers(0, G + 1, nb)
+        fill[:3] = [0, G, max(G // 2, 1)]  # nb >= 3
+    empty = np.arange(G)[None, :] >= fill[:, None]
+    rows = t.reshape(nb, G, 4)
+    rows[empty, 0] = -1
+    rows[empty, 2] = rng.integers(MAX_EC_ID, 1 << 31, int(empty.sum()))
+    occupied = np.flatnonzero(~empty.reshape(-1))
+    if occupied.size:  # the largest EC id that fits
+        t[occupied[0], 2] = MAX_EC_ID
+    if kind == "over_limit":
+        t[occupied[-1], 2] = MAX_EC_ID + 1
+    return t.astype(np.int32)

@@ -10,6 +10,10 @@ card's machine does not have). This file imports nothing of JAX nor of
 ``seekmer_tpu``: the reference on the card is the port's own plain version.
 """
 
+import dataclasses
+import re
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +34,7 @@ from seekmer_tpu_torch.ops import (
     em_cuda,
     em_dense,
     fast_cuda,
+    layout_cuda,
     pack_cuda,
     probe,
     probe_cuda,
@@ -44,8 +49,9 @@ from seekmer_tpu_torch.utils.simulate import (
     simulate_packed_batches,
     simulate_packed_pairs,
 )
+from seekmer_tpu_torch.utils.metrics import Metrics
 from tests.synthetic_buckets import (check_expected, hi_collision_tables,
-                                     query_lanes)
+                                     query_lanes, raw_layout_table)
 from tests.synthetic_signatures import adversarial_rows, seed_collision
 
 pytestmark = pytest.mark.cuda
@@ -181,6 +187,62 @@ def test_lookup_kernel_hi_collisions(dev, G):
     _eq(got[0], want[0])
     _eq(got[1], want[1])
     check_expected(queries, got[0].cpu().numpy(), got[1].cpu().numpy())
+
+
+# every bucket size I1 takes; bucket counts that leave a warp's last group
+# part-filled, and two tables large enough that each warp of the grid
+# walks several rounds of its stride
+@pytest.mark.parametrize("G,nb,kind", [
+    (4, 13, "mixed"), (4, 13, "empty"), (4, 13, "full"), (32, 7, "mixed"),
+    (32, 7, "empty"), (32, 7, "full"), (1, 9, "mixed"), (2, 11, "mixed"),
+    (8, 6, "mixed"), (16, 5, "mixed"), (32, (1 << 16) + 5, "mixed"),
+    (4, (1 << 18) + 3, "mixed")])
+def test_layout_kernel(dev, G, nb, kind):
+    """I1 in place, bit for bit ``device_table_layout``'s, one launch."""
+    raw = raw_layout_table(G, nb, kind, seed=G + nb)
+    t = torch.from_numpy(raw).to(dev)
+    before = layout_cuda.layout_table.launches
+    (got,) = layout_cuda.layout_table(t, bucket=G)
+    torch.cuda.synchronize()
+    assert layout_cuda.layout_table.launches == before + 1
+    assert got.data_ptr() == t.data_ptr()
+    _eq(got.cpu(), torch.from_numpy(device_table_layout(raw, G)))
+
+
+@pytest.mark.parametrize("G", [4, 32])
+def test_layout_kernel_refuses_an_ec_past_the_lane(dev, G):
+    """An occupied slot's EC id past ``MAX_EC_ID`` raises on the card with
+    the host layout's message; the empty slots' larger ids do not count."""
+    raw = raw_layout_table(G, 37, "over_limit", seed=G)
+    with pytest.raises(ValueError) as want:
+        device_table_layout(raw, G)
+    with pytest.raises(ValueError, match=re.escape(str(want.value))):
+        layout_cuda.layout_table(torch.from_numpy(raw).to(dev), bucket=G)
+
+
+@pytest.mark.parametrize("which", ["default", "stash"])
+def test_layout_from_host_on_card(dev, world, which):
+    """``DeviceIndex.from_host`` on the card: the raw tables uploaded and
+    laid out by I1 (two launches), equal to the host layout; read-only host
+    arrays are uploaded as they are and left unchanged."""
+    index = world[2][which]
+    ro = dataclasses.replace(index, table=index.table.copy(),
+                             stash=index.stash.copy())
+    for a in (ro.table, ro.stash):
+        a.flags.writeable = False
+    metrics = Metrics()
+    before = layout_cuda.layout_table.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        di = DeviceIndex.from_host(ro, dev, metrics)
+    assert layout_cuda.layout_table.launches == before + 2
+    for got, raw in ((di.table, index.table), (di.stash, index.stash)):
+        _eq(got.cpu(), torch.from_numpy(device_table_layout(raw,
+                                                            index.bucket)))
+    np.testing.assert_array_equal(ro.table, index.table)
+    t = metrics.snapshot()
+    assert t["index_layout_on_device"] == 1
+    assert t["index_upload_bytes"] == index.table.nbytes + index.stash.nbytes
 
 
 @pytest.mark.parametrize("B,P,C", [(4099, 208, 16), (1000, 976, 16),

@@ -106,7 +106,8 @@ def test_cli_index_and_infer(world):
     assert set(info["kernel_launches"]) == {"pack", "lookup", "signature",
                                             "accumulate", "em", "sample",
                                             "merge", "em_csr", "strided",
-                                            "ec_sum", "route", "unroute"}
+                                            "ec_sum", "route", "unroute",
+                                            "layout"}
     assert info["fld"] is None and info["bootstrap_samples"] == 0
     assert info["probe_sample"] == 0 and info["probe_stride"] == 1
     assert not os.path.exists(os.path.join(out, "bootstrap.npz"))
