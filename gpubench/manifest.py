@@ -1,7 +1,8 @@
 """``BENCHMARK.json`` and the files it names, found by name: a cell's
 configuration (``configs/<config>.json``), its traffic mix
 (``traffic/<mix>.json``) and each per-layer metric's reader
-(``metrics/<metric>.py``, a ``read(run)`` function).
+(``metrics/<metric>.py``, a ``read(run)`` function); a world's generator
+(``worlds/<generator>.py``, found by ``world.py``) is found the same way.
 
 A configuration's ``map`` and ``em`` groups are the program's
 ``MapConfig`` and ``EMConfig`` under their own field names; a mix may hold
@@ -14,6 +15,7 @@ import copy
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from typing import Callable, Dict, List
 
@@ -66,16 +68,25 @@ def settings(bench: dict, workload: str, root: Path = HERE):
     return cfg, mix
 
 
+def load_module(folder: str, kind: str, name: str, root: Path = HERE):
+    """The module ``<folder>/<name>.py`` under ``root``; ValueError where
+    ``name`` is no name or names no such file."""
+    path = root / folder / f"{_name(kind, name)}.py"
+    if not path.is_file():
+        raise ValueError(f"no {kind} named {name!r}: {folder}/{name}.py "
+                         "is missing")
+    spec = importlib.util.spec_from_file_location(
+        f"gpubench_{folder}_" + re.sub(r"[.-]", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    # registered as an import would be: a dataclass looks its module up
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str, root: Path = HERE) -> Callable:
     """The ``read`` function of ``metrics/<name>.py``."""
-    path = root / "metrics" / f"{_name('metric', name)}.py"
-    spec = importlib.util.spec_from_file_location(
-        "gpubench_metric_" + name.replace(".", "_"), path)
-    if spec is None or spec.loader is None:
-        raise FileNotFoundError(path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module("metrics", "metric", name, root).read
 
 
 def metrics_for(bench: dict, workload: str, trace: bool) -> List[Dict]:

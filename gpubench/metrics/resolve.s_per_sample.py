@@ -1,5 +1,7 @@
-"""resolve.s_per_sample: the ``resolve`` timer (the table's read-back,
-``merge_sig_rows`` and ``resolve_signatures``) a sample."""
+"""resolve.s_per_sample: the ``resolve`` timer (``resolve_signatures``,
+the signatures' intersection into classes) a sample. The table's
+read-back and ``merge_sig_rows`` run before it, in ``map``'s ``finalize``
+(``finalize.s_per_sample``)."""
 
 
 def read(run):

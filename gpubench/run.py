@@ -145,6 +145,13 @@ class Run:
         self.a3_bound_s = None  # A3's least seconds over the window
         self.baseline_fragments_per_s = None
 
+    def per_sample(self, key: str):
+        """The mean of timing ``key`` over the window's samples; None
+        where a sample lacks it."""
+        if not self.samples or any(key not in s for s in self.samples):
+            return None
+        return sum(s[key] for s in self.samples) / len(self.samples)
+
 
 def run_cell(bench: dict, workload: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", root: Path = HERE,
@@ -320,7 +327,6 @@ def _run_cell(bench, workload, seed, seconds, trace, device, root, cache,
         f"{sorted({o['fld'] for o in outs if o['fld']})}; "
         f"{time.perf_counter() - t0:.3f} s")
 
-    metrics = {}
     if trace:
         k = cfg["index"]["kmer_length"]
         run.k2_bound_s = k2_bound(table, lanes1, lanes2 if paired else None,
@@ -334,17 +340,9 @@ def _run_cell(bench, workload, seed, seconds, trace, device, root, cache,
             + bounds.a3_seconds(E, T, nnz, B,
                                 int(t.get("bootstrap_iterations", 0)), C)
             for t in run.samples)
-    for m in manifest.metrics_for(bench, workload, trace):
-        if m["name"] == "fragments_per_s":
-            v = rate
-        elif m["name"] == "setup_s":
-            v = setup_s
-        else:
-            v = manifest.metric_reader(m["name"], root)(run)
-        if v is None or not math.isfinite(v):
-            raise RuntimeError(f"metric {m['name']} found nothing to read "
-                               f"in {workload}")
-        metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    metrics = read_metrics(bench, workload, trace, run,
+                           {"fragments_per_s": rate, "setup_s": setup_s},
+                           root, log)
 
     result = {"correct": failed == 0 and unset is None and len(outs) > 0,
               "attempted": len(outs), "failed": failed, "metrics": metrics,
@@ -361,6 +359,30 @@ def _run_cell(bench, workload, seed, seconds, trace, device, root, cache,
         log(f"[check] no limit set for {unset}")
     result["checks"] = check.check_lines(worst, limits)
     return result
+
+
+def read_metrics(bench: dict, workload: str, trace: bool, run: Run,
+                 end_to_end: dict, root: Path, log) -> dict:
+    """The line's metrics: untraced the cell's end-to-end ones, the
+    values ``end_to_end`` gives by name; traced its per-layer ones, each
+    from its reader over ``run``. A reader that finds nothing to read
+    (None, or a value that is not finite) is logged and its metric left
+    out, so a reader of a span that the program under test lacks reads
+    nothing there rather than failing the run."""
+    from . import manifest
+
+    metrics = {}
+    for m in manifest.metrics_for(bench, workload, trace):
+        if not trace:
+            v = end_to_end[m["name"]]
+        else:
+            v = manifest.metric_reader(m["name"], root)(run)
+            if v is None or not math.isfinite(v):
+                log(f"[metric] {m['name']} found nothing to read in "
+                    f"{workload} ({v}): left out")
+                continue
+        metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    return metrics
 
 
 def k2_bound(table, lanes1, lanes2, k: int, batch: int, geometry,

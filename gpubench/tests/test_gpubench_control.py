@@ -37,7 +37,7 @@ def one_run(root, cache, tmp_path, workload="pe"):
                         log=lambda m: None)
 
 
-@pytest.mark.parametrize("workload", ["pe", "se", "pec"])
+@pytest.mark.parametrize("workload", ["pe", "se", "pec", "fam"])
 def test_sound_run_is_correct(root, cache, tmp_path, workload):
     res = one_run(root, cache, tmp_path, workload)
     assert res["correct"], res["checks"]
@@ -46,7 +46,7 @@ def test_sound_run_is_correct(root, cache, tmp_path, workload):
     assert set(res["metrics"]) == {"fragments_per_s", "setup_s"}
 
 
-@pytest.mark.parametrize("workload", ["pe", "se"])
+@pytest.mark.parametrize("workload", ["pe", "se", "fam"])
 def test_control_is_not_correct(root, cache, workload):
     bench = manifest.load_benchmark(root / "BENCHMARK.json")
     cfg = manifest.load_config(manifest.cell(bench, workload)["config"],

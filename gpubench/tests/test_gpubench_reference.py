@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from gpubench import world as gpu_world
 from gpubench.reference import em as ref_em
 from gpubench.reference import kmers
+from gpubench.tests import tiny
 
 K = 5
 COMP = str.maketrans("ACGTN", "TGCAN")
@@ -42,6 +44,22 @@ def encode_rows(rows):
     return torch.from_numpy(out)
 
 
+def brute_world(seqs, k):
+    """(seqs, the reference's table, canonical k-mer -> set of
+    transcripts, k-mer -> occurrences) by brute force."""
+    lens = torch.tensor([len(s) for s in seqs])
+    concat = torch.from_numpy(LUT[np.frombuffer("".join(seqs).encode(),
+                                                np.uint8)])
+    tab = kmers.build_table(concat, lens, k, chunk=37)
+    where, occ = {}, {}
+    for t, s in enumerate(seqs):
+        for p in range(len(s) - k + 1):
+            c = canon(s[p:p + k])
+            where.setdefault(c, set()).add(t)
+            occ.setdefault(c, []).append((t, p))
+    return seqs, tab, where, occ
+
+
 @pytest.fixture(scope="module")
 def world():
     rng = np.random.default_rng(7)
@@ -49,26 +67,30 @@ def world():
     seqs = [base[0] + base[1], base[0] + base[2], base[1] + base[2],
             base[2][:20] + base[0][:25], "".join(rng.choice(list("ACGT"),
                                                             size=60))]
-    lens = torch.tensor([len(s) for s in seqs])
-    concat = torch.from_numpy(LUT[np.frombuffer("".join(seqs).encode(),
-                                                np.uint8)])
-    tab = kmers.build_table(concat, lens, K, chunk=37)
-    # brute force: canonical k-mer -> set of transcripts, and occurrences
-    where, occ = {}, {}
-    for t, s in enumerate(seqs):
-        for p in range(len(s) - K + 1):
-            c = canon(s[p:p + K])
-            where.setdefault(c, set()).add(t)
-            occ.setdefault(c, []).append((t, p))
-    return seqs, tab, where, occ
+    return brute_world(seqs, K)
 
 
-def brute_ec(reads, where, max_ecs):
+FAMILIES_K = 11
+
+
+@pytest.fixture(scope="module")
+def families():
+    """A world of gene families and pseudogenes (``worlds/
+    gencode_families``), small enough for brute force, with each
+    transcript's gene."""
+    p = dict(tiny.FAMILIES, num_genes=10, mean_isoforms=3, mean_exons=4,
+             mean_exon_len=40)
+    make, _ = gpu_world.generator("gencode_families")
+    _, seqs, genes = make(np.random.default_rng(2), p)
+    return brute_world(seqs, FAMILIES_K) + (genes,)
+
+
+def brute_ec(reads, where, max_ecs, k=K):
     """Per fragment (a tuple of mates): the intersection, or None."""
     sets = []
     for mate in reads:
-        for p in range(len(mate) - K + 1):
-            w = mate[p:p + K]
+        for p in range(len(mate) - k + 1):
+            w = mate[p:p + k]
             if "N" in w:
                 continue
             c = canon(w)
@@ -108,6 +130,7 @@ def test_table(world):
 
 
 def reads_for(seqs, rng, n, L, paired):
+    seqs = [s for s in seqs if len(s) >= L]
     frags = []
     for _ in range(n):
         t = int(rng.integers(len(seqs)))
@@ -128,18 +151,21 @@ def reads_for(seqs, rng, n, L, paired):
 
 @pytest.mark.parametrize("paired", [False, True])
 @pytest.mark.parametrize("max_ecs", [16, 2])
-def test_map_and_resolve_against_sets(world, paired, max_ecs):
-    seqs, tab, where, _ = world
+@pytest.mark.parametrize("kind,k,L", [("world", K, 20),
+                                      ("families", FAMILIES_K, 40)])
+def test_map_and_resolve_against_sets(request, kind, k, L, paired,
+                                      max_ecs):
+    seqs, tab, where = request.getfixturevalue(kind)[:3]
     rng = np.random.default_rng(3 + paired)
-    frags = reads_for(seqs, rng, 300, 20, paired)
+    frags = reads_for(seqs, rng, 300, L, paired)
     want = {}
     for f in frags:
-        ec = brute_ec(f, where, max_ecs)
+        ec = brute_ec(f, where, max_ecs, k)
         if ec is not None:
             want[ec] = want.get(ec, 0) + 1
     l1 = [encode_rows([f[0] for f in frags])]
     l2 = [encode_rows([f[1] for f in frags])] if paired else None
-    m = kmers.map_reads(tab, l1, l2, K, max_ecs, block=64)
+    m = kmers.map_reads(tab, l1, l2, k, max_ecs, block=64)
     assert m["total"] == len(frags)
     off, tids, cnt, dropped = kmers.resolve(tab, m["sigs"], m["sig_counts"],
                                             len(seqs))
@@ -147,6 +173,14 @@ def test_map_and_resolve_against_sets(world, paired, max_ecs):
            for i in range(off.numel() - 1)}
     assert got == want
     assert sum(want.values()) + dropped <= len(frags)
+    if kind == "families":
+        # classes whose transcripts span genes; fragments over the cap of 2
+        genes = request.getfixturevalue(kind)[4]
+        if max_ecs > 2:
+            assert any(len({genes[t] for t in e}) > 1 for e in want)
+        else:
+            assert sum(want.values()) < sum(
+                brute_ec(f, where, 16, k) is not None for f in frags)
 
 
 def test_fld_histogram_against_loop(world):

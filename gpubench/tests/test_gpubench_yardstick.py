@@ -50,6 +50,29 @@ def test_reduce_events():
         pytest.approx(140 / 1e6), 3)
 
 
+def test_idle_charged_to_innermost_span():
+    """A gap is charged to the shortest range that holds it, whichever
+    thread's: the feed loop's wait inside ``map``, the producer's pack
+    inside its upload; a span's name mirrored on the device is no work."""
+    events = [
+        ev("map", 0, 1000, False, True),
+        ev("map_wait", 100, 300, False, True),
+        ev("upload", 500, 900, False, True),
+        ev("pack", 550, 850, False, True),
+        ev("map_wait", 100, 300, True),  # mirrored, without its flag
+        ev("kernel_a", 0, 100, True),
+        ev("kernel_a", 300, 500, True),
+        ev("kernel_a", 900, 1000, True),
+    ]
+    red = trace.reduce_events(events)
+    assert red["busy_s"] == pytest.approx(400 / 1e6)
+    assert red["idle"] == pytest.approx({"map_wait": 200 / 1e6,
+                                         "pack": 400 / 1e6})
+    assert set(trace.RANGES) >= {"mapper", "index_upload", "index_layout",
+                                 "map_wait", "fld", "finalize", "pack",
+                                 "ec_table", "resample", "collect"}
+
+
 def test_k2_bytes():
     # 100 bp reads pad to 128: P = 104 windows a mate at k 25
     b = bounds.k2_bytes(10, 2, 100, 25, 0, 0, 1 << 20, 32)
@@ -105,9 +128,15 @@ def test_readers_on_a_run():
     r = run.Run()
     r.fragments = 1000
     r.samples = [{"map_s": 0.5, "resolve_s": 2.0, "em_s": 0.1,
-                  "em_iterations": 100.0, "bootstrap_s": 1.0},
+                  "em_iterations": 100.0, "bootstrap_s": 1.0,
+                  "mapper_s": 0.25, "map_wait_s": 0.25, "finalize_s": 0.05,
+                  "resample_s": 0.02, "ec_table_s": 0.1, "collect_s": 0.05,
+                  "wall_s": 4.2},
                  {"map_s": 1.5, "resolve_s": 4.0, "em_s": 0.3,
-                  "em_iterations": 300.0, "bootstrap_s": 3.0}]
+                  "em_iterations": 300.0, "bootstrap_s": 3.0,
+                  "mapper_s": 0.75, "map_wait_s": 0.75, "finalize_s": 0.15,
+                  "resample_s": 0.04, "ec_table_s": 0.3, "collect_s": 0.05,
+                  "wall_s": 10.0}]
     r.index_load_s = 7.0
     r.baseline_fragments_per_s = 10.0
     r.k2_bound_s = 0.001
@@ -122,4 +151,33 @@ def test_readers_on_a_run():
         "vs_baseline": 10.0, "k2.roofline_pct": 50.0,
         "resolve.s_per_sample": 3.0, "em.iters_per_s": 1000.0,
         "bootstrap.s_per_sample": 2.0, "a3.roofline_pct": 2.0,
-        "device.idle_pct": 75.0})
+        "device.idle_pct": 75.0, "mapper.s_per_sample": 0.5,
+        "finalize.s_per_sample": 0.1, "map_stage.wait_pct": 50.0,
+        "resample.s_per_sample": 0.03,
+        # 14.2 s of wall time, 13.9 s of it in top-level spans
+        "quantifier.unstaged_pct": 100.0 * 0.3 / 14.2})
+    # a sample without a span (a program that lacks it) reads nothing
+    r.samples[1] = {k: v for k, v in r.samples[1].items()
+                    if k not in ("mapper_s", "map_wait_s", "collect_s")}
+    for name in ("mapper.s_per_sample", "map_stage.wait_pct",
+                 "quantifier.unstaged_pct"):
+        assert manifest.metric_reader(name)(r) is None, name
+
+
+def test_reader_that_finds_nothing_is_left_out(tmp_path):
+    """A per-layer metric whose reader returns None or a value that is not
+    finite is left out of the line, and the others stay in it."""
+    (tmp_path / "metrics").mkdir()
+    for name, value in (("a", "None"), ("b", "float('nan')"), ("c", "2")):
+        (tmp_path / "metrics" / f"{name}.py").write_text(
+            f"def read(run):\n    return {value}\n")
+    bench = {"per_layer": [{"name": n, "unit": "s"} for n in "abc"],
+             "end_to_end": [{"name": "setup_s", "unit": "s"}]}
+    said = []
+    got = run.read_metrics(bench, "w", True, run.Run(), {}, tmp_path,
+                           said.append)
+    assert got == {"c": {"value": 2.0, "unit": "s"}}
+    assert len(said) == 2 and "a found nothing" in said[0]
+    assert run.read_metrics(bench, "w", False, run.Run(), {"setup_s": 3},
+                            tmp_path, said.append) == {
+        "setup_s": {"value": 3.0, "unit": "s"}}

@@ -10,9 +10,11 @@ import bisect
 import contextlib
 from typing import Dict, List, Tuple
 
-# host ranges an idle gap is charged to: the program's stage ranges
-# (``utils/profiling.annotate``) and the benchmark's own
-RANGES = ("map", "resolve", "em", "bootstrap", "ingest", "upload",
+# host ranges an idle gap is charged to, the innermost that holds it: the
+# program's spans (``utils/metrics.Metrics.span``) and the benchmark's own
+RANGES = ("mapper", "index_upload", "index_layout", "map", "map_wait",
+          "fld", "finalize", "resolve", "ec_table", "em", "bootstrap",
+          "resample", "collect", "ingest", "upload", "pack",
           "gpubench.sample", "gpubench.write")
 
 

@@ -1,15 +1,22 @@
 """A deployment's fixed world, made once a checkout and kept in the cache
 directory (``gpubench/.cache``), each part under a key of what made it:
 
-- ``worlds/<w>``: the transcriptome from the configuration's own seed
-  (FASTA, GTF, and the codes, lengths and expression profile the samples
-  are drawn from); w hashes the world's parameters and ``simulate.py``;
+- ``worlds/<generator>-<w>``: the transcriptome from the configuration's
+  own seed (FASTA, GTF, and the codes, lengths and expression profile the
+  samples are drawn from); w hashes the world's parameters and
+  ``simulate.py``, and the generator's own file where it has one;
 - ``index/<w>-<p>``: the program's index, built by its ``index`` command
   with the configuration's ``index`` settings as its options, as a user
   builds one; p hashes those settings and the program's sources that
   shape the index file;
 - ``reftab/<w>-<r>``: the reference's k-mer table, made from the
   transcript sequences by ``reference/kmers.py`` (r hashes it).
+
+The world group's ``generator`` names the transcriptome's maker:
+``isoform_transcriptome`` is ``simulate.py``'s; any other name is the
+file ``worlds/<generator>.py``, whose ``make(rng, params)`` returns
+(names, seqs, gene ids) from the world's generator and its parameters, so
+a deployment brings its world as a new file.
 
 Each part is made in a directory of its own and renamed into place when
 whole, so a run that is cut leaves no half-made part behind.
@@ -24,11 +31,11 @@ import os
 import shutil
 import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from . import simulate
+from . import manifest, simulate
 
 HERE = Path(__file__).resolve().parent
 # the program's sources that decide the bytes of its index file
@@ -86,19 +93,34 @@ def _make(target: Path, fn: Callable[[Path], None]) -> bool:
     return True
 
 
-def ensure(cfg: dict, cache: Path, device, log: Callable[[str], None]
-           ) -> World:
-    wp = cfg["world"]
+def _isoform_transcriptome(rng: np.random.Generator, wp: dict):
+    return simulate.isoform_transcriptome(
+        rng, wp["num_genes"], wp["mean_isoforms"], wp["mean_exons"],
+        wp["mean_exon_len"])
+
+
+def generator(name: str):
+    """(make, the bytes its worlds are keyed by beside ``simulate.py``) of
+    the world generator ``name``; ValueError where there is none."""
+    if name == "isoform_transcriptome":
+        return _isoform_transcriptome, ()
+    mod = manifest.load_module("worlds", "world generator", name, HERE)
+    return mod.make, (Path(mod.__file__).read_bytes(),)
+
+
+def ensure_world(wp: dict, cache: Path, log: Callable[[str], None]
+                 ) -> Tuple[Path, float]:
+    """The directory of the world of parameters ``wp`` (a configuration's
+    ``world`` group), made unless it is there, and the seconds spent
+    making it."""
+    make, keyed = generator(wp["generator"])
     wkey = _digest(json.dumps(wp, sort_keys=True),
-                   (HERE / "simulate.py").read_bytes())
-    wdir = cache / "worlds" / f"{cfg['world']['generator']}-{wkey}"
-    made_s = 0.0
+                   (HERE / "simulate.py").read_bytes(), *keyed)
+    wdir = cache / "worlds" / f"{wp['generator']}-{wkey}"
 
     def make_world(d: Path):
         rng = np.random.default_rng(wp["seed"])
-        names, seqs, genes = simulate.isoform_transcriptome(
-            rng, wp["num_genes"], wp["mean_isoforms"], wp["mean_exons"],
-            wp["mean_exon_len"])
+        names, seqs, genes = make(rng, wp)
         ex = wp.get("expression")
         expr = (np.ones(len(seqs)) / len(seqs) if ex is None else
                 simulate.power_law_expression(rng, len(seqs), ex["k"],
@@ -117,9 +139,16 @@ def ensure(cfg: dict, cache: Path, device, log: Callable[[str], None]
                  expression=expr)
 
     t0 = time.perf_counter()
+    made_s = 0.0
     if _make(wdir, make_world):
-        made_s += time.perf_counter() - t0
-        log(f"[world] made {wdir.name} in {time.perf_counter() - t0:.3f} s")
+        made_s = time.perf_counter() - t0
+        log(f"[world] made {wdir.name} in {made_s:.3f} s")
+    return wdir, made_s
+
+
+def ensure(cfg: dict, cache: Path, device, log: Callable[[str], None]
+           ) -> World:
+    wdir, made_s = ensure_world(cfg["world"], cache, log)
     with np.load(wdir / "world.npz") as z:
         concat, lens, expr = z["concat"], z["lengths"], z["expression"]
 
