@@ -10,8 +10,11 @@ strided mode with ``--probe-stride N`` (N > 1). ``--checkpoint F``
 saves a map checkpoint every ``--checkpoint-every`` batches and EM and
 bootstrap snapshots beside it, and resumes from them; ``--pack-cache
 [DIR]`` feeds the pre-packed batch cache, building it on the first run;
-``--trace-dir D`` writes a ``torch.profiler`` trace of the run into D. It
-parses every ``infer`` flag of the JAX CLI:
+``--trace-dir D`` writes a ``torch.profiler`` trace of the run into D. Its
+``run_info.json`` splits ``unmapped`` into ``no_hit``, ``complex`` and
+``empty_intersection`` (``no_hit`` and ``complex`` null where the mode
+counts no complex reads: fast mode, the prefix-sharded index). It parses
+every ``infer`` flag of the JAX CLI:
 
 - ``--sample-fallback`` (validated, then ignored: the port re-probes every
   fallback unit in one pass) and ``--io-workers`` go into ``MapConfig``;
@@ -368,12 +371,21 @@ def _run_infer(args, device, ranks: int, input_share=None) -> int:
         write_gene_abundance(
             os.path.join(args.output_dir, "abundance.genes.tsv"),
             index.genes, result.est_counts, result.tpm)
+    t = result.timings
+    empty = int(t["empty_intersection_fragments"])
+    cx = (int(t["complex_fragments"]) if "complex_fragments" in t
+          else None)
     write_run_info(
         os.path.join(args.output_dir, "run_info.json"),
         {
             "total_reads": result.total_reads,
             "mapped": result.mapped,
             "unmapped": result.unmapped,
+            # unmapped split: no k-mer hit, past the class cap (None where
+            # the mode does not count it), an empty intersection
+            "no_hit": None if cx is None else result.unmapped - cx - empty,
+            "complex": cx,
+            "empty_intersection": empty,
             "p_mapped": result.mapped / max(result.total_reads, 1),
             "em_iterations": result.em_iterations,
             "log_likelihood": result.log_likelihood,

@@ -46,6 +46,16 @@
 // may be two segments of P windows, a pair's mates, whose signatures go
 // side by side into a row of 2 C ids, mapped the AND of the two. The warp
 // runs the steps above once a segment, each with its own run-head pass.
+//
+// Complex reads: given a counter, the kernel adds to it the reads with more
+// than C distinct ids in some segment: lane 0 of the read's warp adds 1,
+// only for such a read. A block-wide sum (a barrier at the block's end, one
+// atomic a block) cost ~10% of the kernel's time on a paired config-2-shaped
+// batch on an H100 (0.0416-0.0423 against 0.0376-0.0386 ms), its registers
+// at W = 208 growing from 32 to 45 a thread. Complex reads are rare (4-10 in
+// a sample of 1,048,576 pairs of the gencode_paralog_pe100 world), so their
+// atomics cost nothing measurable. Without a counter the kernel is the one
+// that counts nothing (COUNT = false).
 
 #include "common.cuh"
 
@@ -107,11 +117,11 @@ __device__ __forceinline__ int32_t masked(int32_t e, uint32_t ok) {
 }
 
 // The signature of one segment of P windows (erow, vrow) into srow (C
-// ids), through the warp's 32-int stage s; returns whether it is mapped.
+// ids), through the warp's 32-int stage s; returns its distinct ids.
 // NV windows a lane; G = 4: 16-byte groups (P % 4 == 0, aligned rows),
 // G = 1: one window a load.
 template <int NV, int G>
-__device__ __forceinline__ bool segment_signature(
+__device__ __forceinline__ int segment_signature(
     const int32_t* __restrict__ erow, const uint8_t* __restrict__ vrow,
     int32_t* __restrict__ srow, int32_t* s, int P, int C, int lane) {
   int32_t v[NV];
@@ -206,7 +216,7 @@ __device__ __forceinline__ bool segment_signature(
     }
   }
   __syncwarp();  // every lane has read s before the next segment writes it
-  return n >= 1 && n <= C;
+  return n;
 }
 
 // A warp a read of SEGS segments of P windows (a row of SEGS P): segment
@@ -216,49 +226,70 @@ __device__ __forceinline__ bool segment_signature(
 // of mates, what the JAX package computes with one signature call a mate.
 // SEGS is a template parameter: with a runtime count the dense call took
 // 0.0807 ms on a paired config-2 batch on an H100, against 0.0354 so.
-template <int NV, int G, int SEGS>
+// COUNT: n_complex gains each read with a segment of more than C ids.
+template <int NV, int G, int SEGS, bool COUNT>
 __global__ void __launch_bounds__(WARPS * 32)
     sig_kernel(const int32_t* __restrict__ ecs,
                const uint8_t* __restrict__ valid, int32_t* __restrict__ sig,
-               uint8_t* __restrict__ mapped, int64_t B, int P, int C) {
+               uint8_t* __restrict__ mapped, int32_t* __restrict__ n_complex,
+               int64_t B, int P, int C) {
   __shared__ int32_t stage[WARPS][32];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t b = (int64_t)blockIdx.x * WARPS + warp;
   if (b >= B) return;  // uniform across the warp
-  bool all = true;
+  bool all = true, over = false;
 #pragma unroll
   for (int g = 0; g < SEGS; ++g) {
     const int64_t seg = b * SEGS + g;
-    all &= segment_signature<NV, G>(ecs + seg * P, valid + seg * P,
-                                    sig + seg * C, stage[warp], P, C, lane);
+    const int n = segment_signature<NV, G>(ecs + seg * P, valid + seg * P,
+                                           sig + seg * C, stage[warp], P, C,
+                                           lane);
+    all &= n >= 1 && n <= C;
+    if constexpr (COUNT) over |= n > C;
   }
-  if (lane == 0) mapped[b] = all;
+  if (lane == 0) {
+    mapped[b] = all;
+    if constexpr (COUNT) {
+      if (over) atomicAdd(n_complex, 1);
+    }
+  }
 }
 
-template <int NV, int SEGS>
+template <int NV, int SEGS, bool COUNT>
 void launch(const void* ecs, const void* valid, void* sig, void* mapped,
-            cudaStream_t stream, int64_t B, int P, int C, bool vec) {
+            void* n_complex, cudaStream_t stream, int64_t B, int P, int C,
+            bool vec) {
   const unsigned grid = seekmer::grid_for(B, WARPS);
   if (vec) {
-    sig_kernel<NV, 4, SEGS><<<grid, WARPS * 32, 0, stream>>>(
+    sig_kernel<NV, 4, SEGS, COUNT><<<grid, WARPS * 32, 0, stream>>>(
         (const int32_t*)ecs, (const uint8_t*)valid, (int32_t*)sig,
-        (uint8_t*)mapped, B, P, C);
+        (uint8_t*)mapped, (int32_t*)n_complex, B, P, C);
   } else {
-    sig_kernel<NV, 1, SEGS><<<grid, WARPS * 32, 0, stream>>>(
+    sig_kernel<NV, 1, SEGS, COUNT><<<grid, WARPS * 32, 0, stream>>>(
         (const int32_t*)ecs, (const uint8_t*)valid, (int32_t*)sig,
-        (uint8_t*)mapped, B, P, C);
+        (uint8_t*)mapped, (int32_t*)n_complex, B, P, C);
   }
 }
 
 template <int NV>
 void launch_segs(const void* ecs, const void* valid, void* sig, void* mapped,
-                 cudaStream_t stream, int64_t B, int P, int C, int segs,
-                 bool vec) {
-  if (segs == 1) {
-    launch<NV, 1>(ecs, valid, sig, mapped, stream, B, P, C, vec);
+                 void* n_complex, cudaStream_t stream, int64_t B, int P,
+                 int C, int segs, bool vec) {
+  if (n_complex == nullptr) {
+    if (segs == 1) {
+      launch<NV, 1, false>(ecs, valid, sig, mapped, n_complex, stream, B, P,
+                           C, vec);
+    } else {
+      launch<NV, 2, false>(ecs, valid, sig, mapped, n_complex, stream, B, P,
+                           C, vec);
+    }
+  } else if (segs == 1) {
+    launch<NV, 1, true>(ecs, valid, sig, mapped, n_complex, stream, B, P, C,
+                        vec);
   } else {
-    launch<NV, 2>(ecs, valid, sig, mapped, stream, B, P, C, vec);
+    launch<NV, 2, true>(ecs, valid, sig, mapped, n_complex, stream, B, P, C,
+                        vec);
   }
 }
 
@@ -268,9 +299,11 @@ void launch_segs(const void* ecs, const void* valid, void* sig, void* mapped,
 // windows, a signature row of segs C ids); NV = max(4, next power of two >=
 // ceil(P / 32)) windows a lane, P <= 1024. The 16-byte path needs P % 4
 // == 0, which also puts every segment after the first on a 16-byte (ecs)
-// and 4-byte (valid) boundary.
+// and 4-byte (valid) boundary. n_complex: an int32 counter of complex
+// reads to add to, or null.
 extern "C" int seekmer_read_signatures(const void* ecs, const void* valid,
-                                       void* sig, void* mapped, void* stream,
+                                       void* sig, void* mapped,
+                                       void* n_complex, void* stream,
                                        int64_t device, int64_t B, int64_t P,
                                        int64_t C, int64_t segs) {
   cudaSetDevice((int)device);
@@ -284,13 +317,13 @@ extern "C" int seekmer_read_signatures(const void* ecs, const void* valid,
   const int p = (int)P, c = (int)C, g = (int)segs;
   const int64_t per_lane = (P + 31) / 32;
   if (per_lane <= 4) {
-    launch_segs<4>(ecs, valid, sig, mapped, s, B, p, c, g, vec);
+    launch_segs<4>(ecs, valid, sig, mapped, n_complex, s, B, p, c, g, vec);
   } else if (per_lane <= 8) {
-    launch_segs<8>(ecs, valid, sig, mapped, s, B, p, c, g, vec);
+    launch_segs<8>(ecs, valid, sig, mapped, n_complex, s, B, p, c, g, vec);
   } else if (per_lane <= 16) {
-    launch_segs<16>(ecs, valid, sig, mapped, s, B, p, c, g, vec);
+    launch_segs<16>(ecs, valid, sig, mapped, n_complex, s, B, p, c, g, vec);
   } else {
-    launch_segs<32>(ecs, valid, sig, mapped, s, B, p, c, g, vec);
+    launch_segs<32>(ecs, valid, sig, mapped, n_complex, s, B, p, c, g, vec);
   }
   return (int)cudaGetLastError();
 }

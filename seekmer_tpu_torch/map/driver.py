@@ -156,7 +156,9 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
     padded length). Dense and strided mode pack paired reads' windows side
     by side into one (B, 2P) lookup; dense mode takes the union of their EC
     hits in one signature, fusion mode one signature a mate. Fast mode
-    (``probe_sample`` >= 2) resolves each mate as a segment of its own."""
+    (``probe_sample`` >= 2) resolves each mate as a segment of its own.
+    Every mode but fast mode counts its complex reads into
+    ``table.complex`` (``Mapper.counts_complex``)."""
     if pad_len is None:
         raise ValueError("map_step takes 2-bit packed reads (pad_len set)")
     if audit is None:
@@ -194,13 +196,14 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
         ecs = probe_cuda.lookup_ecs(hi, lo, valid, *geo)
     sig, mapped = sig_cuda.read_signatures(
         ecs, valid, cfg.max_ecs_per_read,
-        segments=2 if cfg.fusion_pairs else 1)
+        segments=2 if cfg.fusion_pairs else 1, n_complex=table.complex)
     return accumulate_cuda.fold_batch(table, sig, mapped, weights=weights,
                                       sig_probe=cfg.sig_probe, audit=audit)
 
 
 def merge_sig_rows(sig: np.ndarray, count: np.ndarray, total_reads: int,
-                   overflow: int, collisions: int = 0) -> "MapResult":
+                   overflow: int, collisions: int = 0,
+                   complex_reads: Optional[int] = None) -> "MapResult":
     """Merge raw signature-table rows into a MapResult: one lexsort over
     the occupied rows plus a reduceat.
     Copied from ``seekmer_tpu.map.driver``, which imports JAX."""
@@ -228,7 +231,7 @@ def merge_sig_rows(sig: np.ndarray, count: np.ndarray, total_reads: int,
             "counts merged into a different signature's row)", collisions)
     return MapResult(sigs=sigs, sig_counts=counts, total_reads=total_reads,
                      mapped=int(counts.sum()), overflow=overflow,
-                     collisions=collisions)
+                     collisions=collisions, complex_reads=complex_reads)
 
 
 @dataclasses.dataclass
@@ -242,6 +245,9 @@ class MapResult:
     mapped: int
     overflow: int  # mapped reads lost to signature-table overflow
     collisions: int = 0  # reads merged by a 64-bit fingerprint collision
+    # unmapped reads past the class cap; None where not counted (fast mode,
+    # the prefix-sharded mapper)
+    complex_reads: Optional[int] = None
 
     @property
     def unmapped(self) -> int:
@@ -279,6 +285,9 @@ class Mapper:
             device=self.device)
         self.total_reads = 0
         self._fed_batches = 0
+        # K3 counts complex reads in every mode but fast mode, where K5
+        # resolves most reads without K3
+        self.counts_complex = cfg.probe_sample < 2
         # the FLD estimator sharing this table (make_fld_estimator, or
         # restore_checkpoint), whose state a checkpoint carries
         self.fld = None
@@ -350,17 +359,20 @@ class Mapper:
         return self.fld
 
     def finalize(self) -> MapResult:
-        """The table read back (span ``readback``) and merged (``merge``),
-        inside the span ``finalize``."""
+        """The table read back (span ``readback``; its three counters in
+        one copy) and merged (``merge``), inside the span ``finalize``."""
         m = self.metrics
+        t = self.table
         with m.span("finalize"):
             with m.span("readback"):
-                sigs, counts = table_to_host(self.table, m)
-                overflow = int(self.table.overflow)
-                collisions = int(self.table.collisions)
+                sigs, counts = table_to_host(t, m)
+                overflow, collisions, complex_reads = torch.stack(
+                    [t.overflow, t.collisions, t.complex]).tolist()
             with m.span("merge"):
-                return merge_sig_rows(sigs, counts, self.total_reads,
-                                      overflow, collisions=collisions)
+                return merge_sig_rows(
+                    sigs, counts, self.total_reads, overflow,
+                    collisions=collisions, complex_reads=(
+                        complex_reads if self.counts_complex else None))
 
 
 def _run_with_checkpoints(mapper: Mapper, batches: Iterable[ReadBatch],
@@ -490,9 +502,12 @@ def resolve_signatures(
     Returns (member_lists, counts, dropped); dropped = reads whose EC
     intersection is empty. Single-EC signatures take a vectorized path
     (unique + bincount, one CSR gather); multi-EC ones intersect per
-    distinct signature. Copied from ``seekmer_tpu.map.driver``, which
-    imports JAX.
+    distinct signature, in the span ``intersect`` of the current metrics
+    (``Metrics.active``), which counts as ``intersect_members`` the sizes
+    of the member lists that loop reaches. Copied from
+    ``seekmer_tpu.map.driver``, which imports JAX.
     """
+    metrics = Metrics.current() or Metrics()
     pad = np.int32(SIG_PAD)
     sigs, cnts = result.sigs, result.sig_counts
     if sigs.size == 0:
@@ -514,22 +529,26 @@ def resolve_signatures(
     s_flat = tr[gather].astype(np.int64)
 
     dropped = 0
+    reached = 0  # members of the lists the loop reaches
     extra_members: List[np.ndarray] = []
     extra_counts: List[float] = []
-    for row, n in zip(sigs[~single], cnts[~single]):
-        ecs = row[row != pad]
-        members = index.ec_members(int(ecs[0]))
-        for ec in ecs[1:]:
-            members = np.intersect1d(
-                members, index.ec_members(int(ec)), assume_unique=True
-            )
+    with metrics.span("intersect"):
+        for row, n in zip(sigs[~single], cnts[~single]):
+            ecs = row[row != pad]
+            members = index.ec_members(int(ecs[0]))
+            reached += members.size
+            for ec in ecs[1:]:
+                other = index.ec_members(int(ec))
+                reached += other.size
+                members = np.intersect1d(members, other, assume_unique=True)
+                if members.size == 0:
+                    break
             if members.size == 0:
-                break
-        if members.size == 0:
-            dropped += int(n)
-            continue
-        extra_members.append(members.astype(np.int64))
-        extra_counts.append(float(n))
+                dropped += int(n)
+                continue
+            extra_members.append(members.astype(np.int64))
+            extra_counts.append(float(n))
+    metrics.count("intersect_members", reached)
 
     if extra_members:
         flat = np.concatenate([s_flat] + extra_members)

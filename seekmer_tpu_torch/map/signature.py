@@ -46,6 +46,7 @@ class SigTable(NamedTuple):
     overflow: torch.Tensor  # int32[] reads lost to probe overflow
     collisions: torch.Tensor  # int32[] reads merged by a fingerprint collision
     ec_count: torch.Tensor  # int32[E+1] direct single-EC counts; (1,) = off
+    complex: torch.Tensor  # int32[] reads past the class cap, where counted
 
 
 def make_sig_table(bits: int, max_ecs: int, num_ecs: int = 0,
@@ -67,42 +68,54 @@ def make_sig_table(bits: int, max_ecs: int, num_ecs: int = 0,
         overflow=zeros(),
         collisions=zeros(),
         ec_count=zeros(num_ecs + 1 if num_ecs > 0 else 1),
+        complex=zeros(),
     )
 
 
 def sig_table_from_numpy(fields: Mapping[str, np.ndarray],
                          device) -> SigTable:
     """A table from numpy arrays by field name, e.g. a JAX ``SigTable``'s
-    fields, carried onto ``device``."""
+    fields, carried onto ``device``; ``complex``, which the JAX table
+    lacks, is zeros of ``overflow``'s shape where absent."""
+    fields = {"complex": np.zeros_like(fields["overflow"]), **fields}
     return SigTable(**{
         f: torch.from_numpy(np.array(fields[f], dtype=np.int32)).to(device)
         for f in SigTable._fields})
 
 
 def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int,
-                    segments: int = 1):
+                    segments: int = 1, n_complex: torch.Tensor | None = None):
     """Per-read sorted distinct EC ids, capped.
 
     ecs int32[B, P] (-1 = miss), valid bool[B, P]. Returns (sig int32[B, C]
     padded with SIG_PAD, mapped bool[B]); mapped is False for zero hits or
-    more than C distinct ids ("complex").
+    more than C distinct ids ("complex"). ``n_complex``, an int32 scalar
+    tensor, gains the number of complex reads when given.
 
     ``segments`` > 1 splits each row into that many equal segments (fusion
     mode's mates: 2) and returns their signatures side by side, sig
     int32[B, segments x C], with mapped the AND of the segments', as the
     JAX package's fusion branch does with one call a mate
-    (``seekmer_tpu/map/driver.py:301-306``).
+    (``seekmer_tpu/map/driver.py:301-306``); a read is complex when one of
+    its segments is.
     """
-    if segments > 1:
-        B, W = ecs.shape
-        if W % segments:
-            raise ValueError(f"window axis {W} is not {segments} equal "
-                             "segments")
-        sig, mapped = read_signatures(ecs.reshape(B * segments, -1),
-                                      valid.reshape(B * segments, -1),
-                                      max_ecs)
-        return (sig.reshape(B, segments * max_ecs),
-                mapped.reshape(B, segments).all(dim=1))
+    B, W = ecs.shape
+    if W % segments:
+        raise ValueError(f"window axis {W} is not {segments} equal "
+                         "segments")
+    P = W // segments
+    sig, n_distinct = _signatures(ecs.reshape(B * segments, P),
+                                  valid.reshape(B * segments, P), max_ecs)
+    n_distinct = n_distinct.reshape(B, segments)
+    mapped = ((n_distinct > 0) & (n_distinct <= max_ecs)).all(dim=1)
+    if n_complex is not None:
+        n_complex.add_((n_distinct > max_ecs).any(dim=1).sum().to(
+            n_complex.dtype))
+    return sig.reshape(B, segments * max_ecs), mapped
+
+
+def _signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int):
+    """(sig int32[B, C], the distinct ids of each row int64[B])."""
     x = torch.where(valid & (ecs >= 0), ecs, SIG_PAD).to(torch.int32)
     s = torch.sort(x, dim=1).values
     prev = torch.cat([torch.full_like(s[:, :1], -1), s[:, :-1]], dim=1)
@@ -113,8 +126,7 @@ def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int,
     if sig.shape[1] < max_ecs:  # fewer windows than C
         sig = torch.nn.functional.pad(sig, (0, max_ecs - sig.shape[1]),
                                       value=SIG_PAD)
-    mapped = (n_distinct > 0) & (n_distinct <= max_ecs)
-    return sig.contiguous(), mapped
+    return sig.contiguous(), n_distinct
 
 
 def fingerprint(sig: torch.Tensor):

@@ -22,10 +22,18 @@ card the raw index uploaded, ``index_upload``, then laid out in place by
 I1, ``index_layout``; on the CPU laid out on the host first), ``map``
 (waits for the next batch, ``map_wait``; FLD sampling, ``fld``; the
 table's read-back and merge, ``finalize`` with ``readback`` and
-``merge``), ``resolve``, ``ec_table`` (the FLD estimate, the EC table,
-the snapshots' set-up), ``em``, ``bootstrap`` (its ``resample``) and
+``merge``), ``resolve`` (its loop over multi-EC signatures,
+``intersect``), ``ec_table`` (the FLD estimate, the EC table, the
+snapshots' set-up), ``em``, ``bootstrap`` (its ``resample``) and
 ``collect`` (the results to the host); ``ingest``, ``upload`` and its
 ``pack`` on the prefetch thread. ``wall_s`` covers the whole call.
+Counters split the unmapped fragments: ``complex_fragments`` (past
+``max_ecs_per_read`` classes; counted where K3 runs with a counter, so
+not in fast mode nor under the prefix-sharded index, which report none),
+``empty_intersection_fragments`` (their classes' members intersect to
+nothing) and the rest, no hit; ``intersect_members`` (the member lists
+``intersect`` reaches) and ``multi_gene_classes`` (classes across genes)
+weigh the cross-gene work.
 
 Several ranks (``PipelineConfig.shard.data_axis`` != 1, one process a card
 in a ``torch.distributed`` group, ``parallel/comm.py``): every rank builds
@@ -96,6 +104,21 @@ from ..utils.profiling import annotate
 log = logging.getLogger(__name__)
 
 
+def multi_gene_classes(member_lists: List[np.ndarray],
+                       gene_of: Optional[np.ndarray]) -> int:
+    """The classes whose members lie in more than one gene; ``gene_of``
+    holds each transcript's gene as an int (0 classes without it)."""
+    if gene_of is None or not member_lists:
+        return 0
+    lens = np.fromiter((m.size for m in member_lists), np.int64,
+                       len(member_lists))
+    starts = np.zeros(lens.size, np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    g = gene_of[np.concatenate(member_lists)]
+    return int((np.minimum.reduceat(g, starts)
+                != np.maximum.reduceat(g, starts)).sum())
+
+
 @dataclasses.dataclass
 class QuantResult:
     est_counts: np.ndarray
@@ -144,6 +167,9 @@ class Quantifier:
             self.ranks = prefix_ranks(shard)
         else:
             self.ranks = 1 if shard.data_axis == 1 else data_ranks(shard)
+        # each transcript's gene as an int, for ``multi_gene_classes``
+        self._gene_of = (None if index.genes is None else
+                         np.unique(index.genes, return_inverse=True)[1])
 
     def _make_mapper(self, metrics: Metrics) -> Mapper:
         """A mapper of the index on the device, built in the span
@@ -334,6 +360,8 @@ class Quantifier:
                                 checkpoint_every=checkpoint_every)
         metrics.count("reads", result.total_reads)
         metrics.count("distinct_signatures", result.sigs.shape[0])
+        if result.complex_reads is not None:
+            metrics.count("complex_fragments", result.complex_reads)
         if result.collisions:
             metrics.count("fingerprint_collisions", result.collisions)
         log.info("mapped %d/%d reads (%d distinct signatures, %d overflow, "
@@ -432,9 +460,10 @@ class Quantifier:
 
     def _infer(self, result: MapResult, metrics: Metrics, mapper: Mapper,
                checkpoint_path: Optional[str] = None) -> QuantResult:
-        with metrics.span("resolve"):
+        with metrics.span("resolve"), metrics.active():
             member_lists, counts, dropped = resolve_signatures(result,
                                                                self.index)
+        metrics.count("empty_intersection_fragments", dropped)
 
         with metrics.span("ec_table"):
             # the signatures resolve_signatures intersects one by one, of
@@ -450,6 +479,8 @@ class Quantifier:
                                 device=self.device)
             metrics.count("classes", ec.num_ecs)
             metrics.count("nnz", ec.txp_ids.shape[0])
+            metrics.count("multi_gene_classes",
+                          multi_gene_classes(member_lists, self._gene_of))
             (em_snap, boot_snap, alpha_init, it_init, em_converged,
              on_sync) = self._em_snapshots(checkpoint_path, T)
         em_skipped = alpha_init is not None and em_converged

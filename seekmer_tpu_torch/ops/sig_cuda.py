@@ -9,6 +9,8 @@ one to a lane, with a shuffle network), and sorts the whole row in
 registers on the rare read with more. It is bounded by the bytes of its
 inputs. With ``segments`` = 2 (fusion mode) the warp does the same for
 each half of the row in turn and writes the two signatures side by side.
+Given a counter, the warp of each complex read (more than C distinct ids
+in a segment) adds 1 to it; without one the kernel counts nothing.
 """
 
 from __future__ import annotations
@@ -25,18 +27,20 @@ MAX_W = 1024
 
 
 def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int,
-                    segments: int = 1):
+                    segments: int = 1, n_complex: torch.Tensor | None = None):
     """Per-read sorted distinct EC ids, capped, one signature a segment.
 
     ecs int32[B, W] (-1 = miss), valid bool[B, W], W = segments x P;
     returns (sig int32[B, segments x C] padded with SIG_PAD, segment g's
     signature in columns [g C, g C + C), and mapped bool[B], the AND over
     the segments of 1 <= n_distinct <= C). ``segments`` = 2 is fusion
-    mode's pair of mates. CPU tensors take the plain version; CUDA tensors
-    the kernel.
+    mode's pair of mates. ``n_complex``, an int32 scalar on the same
+    device, gains the reads with more than C distinct ids in a segment
+    when given. CPU tensors take the plain version; CUDA tensors the
+    kernel.
     """
     if ecs.device.type == "cpu":
-        return plain(ecs, valid, max_ecs, segments)
+        return plain(ecs, valid, max_ecs, segments, n_complex)
     B, W = ecs.shape
     C = max_ecs
     if segments not in (1, 2) or W % segments:
@@ -51,13 +55,19 @@ def read_signatures(ecs: torch.Tensor, valid: torch.Tensor, max_ecs: int,
         raise ValueError("ecs must be int32")
     if valid.dtype != torch.bool:
         valid = valid.to(torch.bool)
-    _build.require_cuda("read_signatures", ecs, valid)
+    counter = () if n_complex is None else (n_complex,)
+    if n_complex is not None and (n_complex.dtype != torch.int32
+                                  or n_complex.numel() != 1):
+        raise ValueError("n_complex must be one int32 element")
+    _build.require_cuda("read_signatures", ecs, valid, *counter)
     sig = torch.empty((B, segments * C), dtype=torch.int32,
                       device=ecs.device)
     mapped = torch.empty(B, dtype=torch.bool, device=ecs.device)
-    fn = _build.function("seekmer_read_signatures", 5, 5)
+    fn = _build.function("seekmer_read_signatures", 6, 5)
     _build.check(fn(ecs.data_ptr(), valid.data_ptr(), sig.data_ptr(),
-                    mapped.data_ptr(), _build.stream_of(ecs),
+                    mapped.data_ptr(),
+                    None if n_complex is None else n_complex.data_ptr(),
+                    _build.stream_of(ecs),
                     ecs.device.index, B, P, C, segments),
                  "read_signatures")
     read_signatures.launches += 1

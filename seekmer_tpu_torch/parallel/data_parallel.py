@@ -36,6 +36,7 @@ from __future__ import annotations
 from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import MapConfig, ShardConfig
 from ..index.store import KMerIndex
@@ -63,8 +64,9 @@ class RankMapper:
     the collective feed loop with checkpoints, the multi-process checkpoint
     (``ckpt_mp.py``), the FLD histograms summed, and ``finalize``'s merge
     of every rank's table. A subclass sets ``table``, ``total_reads``,
-    ``fld``, ``n_ranks``, ``restored_cursor`` (None) and ``_ckpt_step``
-    (0), and makes its estimator in ``make_fld_estimator(state)``."""
+    ``fld``, ``n_ranks``, ``counts_complex`` (whether its table counts
+    complex reads), ``restored_cursor`` (None) and ``_ckpt_step`` (0), and
+    makes its estimator in ``make_fld_estimator(state)``."""
 
     def supports_checkpoint(self) -> bool:
         return True
@@ -112,11 +114,15 @@ class RankMapper:
         sigs, counts = table_to_host(self.table)
         sigs = np.concatenate(comm.allgather_rows(sigs))
         counts = np.concatenate(comm.allgather_rows(counts))
-        total, overflow, collisions = (int(v) for v in comm.allreduce(
-            np.asarray([self.total_reads, int(self.table.overflow),
-                        int(self.table.collisions)], np.int64)))
-        return merge_sig_rows(sigs, counts, total, overflow,
-                              collisions=collisions)
+        t = self.table
+        total, overflow, collisions, complex_reads = (
+            int(v) for v in comm.allreduce(np.asarray(
+                [self.total_reads] + torch.stack(
+                    [t.overflow, t.collisions, t.complex]).tolist(),
+                np.int64)))
+        return merge_sig_rows(
+            sigs, counts, total, overflow, collisions=collisions,
+            complex_reads=complex_reads if self.counts_complex else None)
 
 
 class DataParallelMapper(RankMapper, Mapper):

@@ -374,6 +374,7 @@ class PrefixShardedMapper(RankMapper):
             device=self.device)
         self.total_reads = 0
         self._fed_batches = 0
+        self.counts_complex = False  # K3 runs without a counter here
         self._rounds_max = 0
         self.extra_routing_rounds = 0  # over every rank, set by finalize
         self.fld = None

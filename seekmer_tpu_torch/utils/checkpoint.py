@@ -11,13 +11,14 @@
 
 The files are the JAX package's: the same npz keys, ``FORMAT`` 3 and
 ``np.savez_compressed``, so a checkpoint written by either package loads in
-the other. Three additions, which the JAX package ignores: a pack-cache
+the other. Four additions, which the JAX package ignores: a pack-cache
 cursor's build id (``"build"``) and a file cursor's count of batches
 made (``"batch"``, by which ``io/fastq.rank_batches`` deals batches to
-ranks) in the cursor's metadata, and the fragment-length estimator's
+ranks) in the cursor's metadata, the fragment-length estimator's
 state (``fld_hist`` and the metadata's ``fld_fed``), so that a resumed
 paired run estimates the FLD from the batches the uninterrupted run
-sampled.
+sampled, and the table's count of complex reads (``complex``; zeros in a
+file without it).
 
 Multi-process checkpoints (``parallel/ckpt_mp.py``) add a sidecar a rank,
 ``<path>.host<i>.npz`` (``save_host_cursor``, ``load_host_cursor``): the
@@ -109,6 +110,7 @@ def save_map_checkpoint(path: str, table, total_reads: int,
             overflow=_host(table.overflow),
             collisions=_host(table.collisions),
             ec_count=_host(table.ec_count),
+            complex=_host(table.complex),
             **arrays,
         )
     os.replace(tmp, path)
@@ -144,6 +146,8 @@ def load_map_checkpoint(path: str, device="cuda", with_step=False,
                                 else np.zeros_like(z["overflow"]))
         fields["ec_count"] = (z["ec_count"] if "ec_count" in z.files
                               else np.zeros(1, np.int32))
+        if "complex" in z.files:  # else zeros (sig_table_from_numpy)
+            fields["complex"] = z["complex"]
         cursor = _cursor_from_npz(z, meta["cursor"])
         fld = ((z["fld_hist"], meta["fld_fed"]) if "fld_hist" in z.files
                else None)

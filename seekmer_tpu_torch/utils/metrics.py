@@ -3,7 +3,8 @@
 ``seekmer_tpu/utils/metrics.py``, plus ``span``, a timer that is also a
 named range in a trace (``utils/profiling.annotate``). The prefetch
 thread times its stages beside the main thread's, so every update takes
-a lock."""
+a lock. ``Metrics.active`` makes a run's metrics the current ones of its
+thread for code that is not handed them (``Metrics.current``)."""
 
 from __future__ import annotations
 
@@ -13,11 +14,15 @@ import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Dict
+from contextvars import ContextVar
+from typing import Dict, Optional
 
 from .profiling import annotate
 
 log = logging.getLogger(__name__)
+
+_CURRENT: ContextVar[Optional["Metrics"]] = ContextVar("metrics",
+                                                       default=None)
 
 
 class Metrics:
@@ -49,6 +54,20 @@ class Metrics:
         """``timer(name)`` and a trace range ``name`` around the body."""
         with self.timer(name), annotate(name):
             yield
+
+    @contextmanager
+    def active(self):
+        """These metrics as ``Metrics.current()`` inside the body."""
+        token = _CURRENT.set(self)
+        try:
+            yield
+        finally:
+            _CURRENT.reset(token)
+
+    @staticmethod
+    def current() -> Optional["Metrics"]:
+        """The metrics of the innermost ``active`` body, or None."""
+        return _CURRENT.get()
 
     def rate(self, counter: str, timer: str) -> float:
         dt = self.timings.get(timer, 0.0)

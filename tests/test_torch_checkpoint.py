@@ -182,6 +182,7 @@ def test_offset_resume_never_rereads(tmp_path, world, kind):
         assert (res.total_reads, res.mapped, res.overflow,
                 res.collisions) == (other.total_reads, other.mapped,
                                     other.overflow, other.collisions)
+    assert res.complex_reads == full.complex_reads
 
 
 def test_jax_checkpoint_restores_in_port(tmp_path, world):
@@ -248,6 +249,26 @@ def test_old_format_and_multiprocess_checkpoints_rejected(tmp_path):
     with pytest.raises(ValueError, match="multi-process"):
         tckpt.load_map_checkpoint(path, "cpu")
     assert tckpt.load_map_checkpoint(str(tmp_path / "nope"), "cpu") is None
+
+
+def test_complex_count_round_trip(tmp_path):
+    """The table's count of complex reads is saved and restored; a file
+    without it (the JAX package's, or an older port's) restores 0."""
+    from seekmer_tpu_torch.map.signature import SigTable, make_sig_table
+
+    path = str(tmp_path / "c.ckpt.npz")
+    table = make_sig_table(4, 4, device="cpu")
+    table.complex.fill_(7)
+    table.overflow.fill_(2)
+    tckpt.save_map_checkpoint(path, table, 11, None)
+    got, total, _, _ = tckpt.load_map_checkpoint(path, "cpu")
+    assert total == 11 and int(got.complex) == 7 and int(got.overflow) == 2
+    with np.load(path) as z:
+        kept = {k: z[k] for k in z.files if k != "complex"}
+    np.savez_compressed(path, **kept)
+    got = tckpt.load_map_checkpoint(path, "cpu")[0]
+    assert int(got.complex) == 0 and int(got.overflow) == 2
+    assert set(got._fields) == set(SigTable._fields)
 
 
 def test_adapt_ec_count(world):

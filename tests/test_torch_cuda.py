@@ -262,6 +262,34 @@ def test_signature_kernel(dev, B, P, C):
     assert bool(got[1].any()) and not bool(got[1].all())
 
 
+@pytest.mark.parametrize("B,P,C,segs", [(4099, 208, 16, 1), (1000, 976, 16, 1),
+                                        (777, 30, 5, 1), (2050, 104, 7, 2),
+                                        (64, 3, 1, 1)])
+def test_signature_kernel_counts_complex_reads(dev, B, P, C, segs):
+    """K3's count of reads past the cap (more than C distinct ids in a
+    segment) against the plain version's, added to what the counter held;
+    the signatures and mapped are the same with and without the counter.
+    Rows of many distinct ids take both of the kernel's paths (a block of
+    rows past 32 run heads at P 208 and 976)."""
+    r = np.random.default_rng(P + segs)
+    ecs = r.integers(-1, 4 * C, size=(B, segs * P)).astype(np.int32)
+    ecs[: B // 2] = r.integers(-1, max(C - 1, 1), size=(B // 2, segs * P))
+    ecs[B // 2: B // 2 + 5] = -1  # no hits
+    valid = torch.from_numpy(r.random((B, segs * P)) < 0.9).to(dev)
+    e = torch.from_numpy(ecs).to(dev)
+    want_n = torch.zeros((), dtype=torch.int32)
+    want = sig_cuda.plain(e.cpu(), valid.cpu(), C, segs, want_n)
+    n = torch.full((), 5, dtype=torch.int32, device=dev)
+    got = sig_cuda.read_signatures(e, valid, C, segments=segs, n_complex=n)
+    bare = sig_cuda.read_signatures(e, valid, C, segments=segs)
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (bare, want)):
+        _eq(a[0].cpu(), b[0])
+        _eq(a[1].cpu(), b[1])
+    assert 0 < int(want_n) < B
+    assert int(n) == 5 + int(want_n)
+
+
 def _merged(table, total):
     s, c = table_to_host(table)
     return merge_sig_rows(s, c, total, int(table.overflow),

@@ -103,3 +103,24 @@ def test_mapper_cuda_without_card_raises(world):
     index, _, _ = world
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Mapper(port_index(index), TMapConfig(), device="cuda")
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_complex_reads_counted(world, paired):
+    """Dense mode counts the reads past the class cap: at a cap of 1 they
+    and the mapped reads are the reads a cap of 64 maps (every read with a
+    hit). Fast mode runs K3 without a counter and reports none."""
+    index, r1, r2 = world
+    mates = r2 if paired else None
+    tindex = port_index(index)
+
+    def run(**kw):
+        cfg = TMapConfig(batch_size=64, sig_table_bits=10, paired_end=paired,
+                         **kw)
+        return Mapper(tindex, cfg, device="cpu").run(_batches(
+            r1, mates, MapConfig(batch_size=64, paired_end=paired), False))
+
+    capped, wide = run(max_ecs_per_read=1), run(max_ecs_per_read=64)
+    assert capped.complex_reads > 0 and wide.complex_reads == 0
+    assert capped.mapped + capped.complex_reads == wide.mapped
+    assert run(probe_sample=16).complex_reads is None

@@ -102,6 +102,8 @@ def test_cli_index_and_infer(world):
     info = json.load(open(os.path.join(out, "run_info.json")))
     assert info["total_reads"] == len(sim.reads1)
     assert info["unmapped"] == o["unmapped"]
+    assert info["no_hit"] + info["complex"] + info["empty_intersection"] == (
+        info["unmapped"])
     assert info["device"] == "cpu"
     assert set(info["kernel_launches"]) == {"pack", "lookup", "signature",
                                             "accumulate", "em", "sample",
