@@ -31,7 +31,10 @@ Phases; any failure exits non-zero:
    TFLOP/s; for K4 the operations on M's nonzeros): I1 layout at config
    2's ~1 GB index table (``[I1 layout config 2]``: ``from_host``'s tables
    equal to the host layout, the bare launch and the wrapper with its
-   read-back timed), K1 pack (one mate,
+   read-back timed), I2 intersect at a paralog sample's shape (``[I2
+   intersect paralog shape]``: 69,700 synthetic multi-EC signatures, the
+   bare launch timed, then ``resolve_signatures``' ``intersect`` span,
+   upload and read-backs included, against the CPU path), K1 pack (one mate,
    and both mates into one output), K2 lookup, K3 signature and A1
    accumulate at the shapes of one paired config-2 batch, K2 also on one
    config-1 batch (a table that mostly sits in L2); R1 (route: owner,
@@ -534,6 +537,106 @@ def check_layout(index, di):
         f"{rec['bound_ms'] / rec['ms']:.6f}); the wrapper, kernel + one "
         f"read-back, {sorted(walls)[2]:.6f} ms host wall (median of 5: "
         f"{', '.join(f'{w:.6f}' for w in walls)})")
+    return rec
+
+
+def check_intersect():
+    """I2 at a paralog sample's shape (``tests/synthetic_intersect.py``:
+    69,700 multi-EC signatures of ~1.5M list members): against its plain
+    version on the card, the bare launch timed by ``kernel_ab.device_ms``
+    beside its bytes bound and the plain version's time; then
+    ``resolve_signatures`` on a MapResult of those rows among single-EC
+    ones, with the CSR on the card: one I2 launch a call, the ``intersect``
+    span's host wall (the rows' upload, the wrapper's two read-backs, the
+    kernel) against the CPU path's, and the same member lists, counts and
+    dropped fragments. Returns its record."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from seekmer_tpu_torch.map.driver import MapResult, resolve_signatures
+    from seekmer_tpu_torch.ops import _build, intersect_cuda
+    from seekmer_tpu_torch.utils import kernel_ab
+    from seekmer_tpu_torch.utils.metrics import Metrics
+    from tests.synthetic_intersect import SIG_PAD, paralog_like
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    rows, off, tr = paralog_like(rng, 69_700)
+    host = [torch.from_numpy(a) for a in (rows, off, tr)]
+    r, o, t = (x.to(dev) for x in host)
+    got = intersect_cuda.intersect(r, o, t)
+    want = intersect_cuda.plain(*host)
+    lens, starts = want.lens.numpy(), want.starts.numpy()
+    values = got.values.cpu().numpy()
+    keep = np.arange(values.size) < np.repeat(
+        starts + lens, np.diff(starts, append=values.size))
+    err = max(max_abs_diff(got.lens, want.lens.to(dev)),
+              max_abs_diff(got.starts, want.starts.to(dev)),
+              int(np.abs(values[keep].astype(np.int64)
+                         - want.values.numpy()[keep]).max(initial=0)),
+              abs(got.members - want.members))
+    check(err == 0, f"I2 differs from its plain version: {err}")
+    M, C = rows.shape
+    fn = _build.function("seekmer_intersect", 7, 3)
+
+    def kernel():
+        _build.check(fn(r.data_ptr(), o.data_ptr(), t.data_ptr(),
+                        got.starts.data_ptr(), got.values.data_ptr(),
+                        got.lens.data_ptr(), _build.stream_of(r),
+                        r.device.index, M, C), "intersect")
+
+    real = int((rows != SIG_PAD).sum())
+    survivors = int(lens.sum())
+    # each row, its (start, end) pairs, its lists' members and its slot
+    # start read once; each survivor and each length written once
+    moved = (nbytes(r) + 8 * real + 4 * want.members + 8 * M + 4 * M
+             + 4 * survivors)
+    rec = record(err, kernel_ab.device_ms(kernel, 20),
+                 cuda_ms(lambda: intersect_cuda.plain(r, o, t), 3),
+                 moved / HBM_BYTES_S, "bytes")
+
+    n_single = 20_000
+    singles = np.full((n_single, C), SIG_PAD, np.int32)
+    singles[:, 0] = rng.choice(off.size - 1, n_single, replace=False)
+    sigs = np.concatenate([rows, singles])
+    sigs = sigs[np.lexsort(sigs.T[::-1])]
+    counts = rng.integers(1, 60, size=sigs.shape[0]).astype(np.int64)
+    index = types.SimpleNamespace(ec_offsets=off, ec_transcripts=tr)
+    res = MapResult(sigs=sigs, sig_counts=counts, total_reads=0,
+                    mapped=int(counts.sum()), overflow=0, ec_csr=(o, t))
+    walls, outs = [], []
+    for _ in range(6):
+        metrics = Metrics()
+        before = intersect_cuda.intersect.launches
+        with metrics.active():
+            outs.append(resolve_signatures(res, index))
+        check(intersect_cuda.intersect.launches == before + 1
+              and metrics.counters["intersect_on_device"] == 1,
+              "resolve_signatures did not intersect through I2")
+        walls.append(metrics.timings["intersect"] * 1e3)
+    cpu = Metrics()
+    with cpu.active():
+        want_out = resolve_signatures(
+            dataclasses.replace(res, ec_csr=None), index)
+    (m_g, c_g, d_g), (m_w, c_w, d_w) = outs[-1], want_out
+    check(d_g == d_w and np.array_equal(c_g, c_w) and len(m_g) == len(m_w)
+          and all(np.array_equal(a, b) for a, b in zip(m_g, m_w)),
+          "resolve_signatures on the card differs from the CPU path")
+    span = sorted(walls[1:])[2]
+    log(f"[I2 intersect paralog shape] {M} signatures x {C}, {real} ECs, "
+        f"{want.members} list members, {survivors} survivors, "
+        f"{int((lens == 0).sum())} empty: max_abs_err {err} against the "
+        f"plain version; kernel {rec['ms']:.6f} ms (device), plain "
+        f"{rec['plain_ms']:.6f} ms on the card, bound {rec['bound_ms']:.6f} "
+        f"ms, {moved} bytes (share {rec['bound_ms'] / rec['ms']:.6f}); "
+        f"resolve_signatures with {n_single} single-EC rows beside them: "
+        f"the intersect span {span:.6f} ms host wall (median of 5 after one "
+        f"warm-up: {', '.join(f'{w:.6f}' for w in walls[1:])}; "
+        f"{1e6 * span / want.members:.3f} ns a member), one I2 launch a "
+        f"call; the CPU path {cpu.timings['intersect'] * 1e3:.3f} ms; member"
+        f" lists, counts and dropped ({d_g}) equal")
     return rec
 
 
@@ -1131,6 +1234,7 @@ def compare_kernels(work: Path, batches, keep_inputs=None):
     index = load_index(work, "c2")
     di = DeviceIndex.from_host(index, dev)
     out["I1"] = check_layout(index, di)
+    out["I2"] = check_intersect()
     k = index.k
     mates = [upload_mate(codes, L, dev) for codes in batches[1]]
     p, bd, ln = mates[0]
@@ -1928,9 +2032,9 @@ def check_ec_sum(ec, lengths, keep=None):
 
 def reset_launches():
     from seekmer_tpu_torch.ops import (accumulate_cuda, em_csr_cuda,
-                                       em_cuda, fast_cuda, layout_cuda,
-                                       pack_cuda, probe_cuda, route_cuda,
-                                       sig_cuda, strided_cuda)
+                                       em_cuda, fast_cuda, intersect_cuda,
+                                       layout_cuda, pack_cuda, probe_cuda,
+                                       route_cuda, sig_cuda, strided_cuda)
 
     for fn in (pack_cuda.pack_canonical_2bit, probe_cuda.lookup_ecs_aux,
                sig_cuda.read_signatures, accumulate_cuda.fold_batch,
@@ -1938,7 +2042,8 @@ def reset_launches():
                fast_cuda.merge_staging, em_csr_cuda.em_steps,
                strided_cuda.lookup_ecs_strided, em_csr_cuda.ec_sums,
                route_cuda.route_first, route_cuda.route_spill,
-               route_cuda.unroute, layout_cuda.layout_table):
+               route_cuda.unroute, layout_cuda.layout_table,
+               intersect_cuda.intersect):
         fn.launches = 0
 
 
@@ -3696,6 +3801,8 @@ KERNELS = [
      "seekmer_tpu/parallel/prefix_shard.py:247"),
     ("I1", "layout", "seekmer_tpu_torch/csrc/layout.cu",
      "none (seekmer_tpu/ops/probe.py:46 lays the table out on the host)"),
+    ("I2", "intersect", "seekmer_tpu_torch/csrc/intersect.cu",
+     "none (seekmer_tpu/map/driver.py:638 intersects on the host)"),
 ]
 
 

@@ -199,8 +199,8 @@ def build_parser() -> argparse.ArgumentParser:
 def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers in this process."""
     from .ops import (accumulate_cuda, em_csr_cuda, em_cuda, fast_cuda,
-                      layout_cuda, pack_cuda, probe_cuda, route_cuda,
-                      sig_cuda, strided_cuda)
+                      intersect_cuda, layout_cuda, pack_cuda, probe_cuda,
+                      route_cuda, sig_cuda, strided_cuda)
 
     return {"pack": pack_cuda.pack_canonical_2bit.launches,
             "lookup": probe_cuda.lookup_ecs_aux.launches,
@@ -216,7 +216,8 @@ def kernel_launches() -> dict:
             "route": (route_cuda.route_first.launches
                       + route_cuda.route_spill.launches),
             "unroute": route_cuda.unroute.launches,
-            "layout": layout_cuda.layout_table.launches}
+            "layout": layout_cuda.layout_table.launches,
+            "intersect": intersect_cuda.intersect.launches}
 
 
 def cmd_infer(args) -> int:

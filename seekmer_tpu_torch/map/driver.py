@@ -39,9 +39,15 @@ lookup kernel never materialises the gathered bucket rows they bounded.
 mapper's ranks save together (``_run_with_checkpoints_multiprocess``). The
 table is read back to the host only when a save is due.
 
-``merge_sig_rows``, ``MapResult``, ``audit_this_batch``,
-``resolve_signatures`` and ``_group_member_lists`` are pure numpy copies
-from ``seekmer_tpu/map/driver.py``, whose module imports JAX at the top.
+``merge_sig_rows``, ``MapResult``, ``audit_this_batch`` and
+``_group_member_lists`` are numpy copies from ``seekmer_tpu/map/driver.py``,
+whose module imports JAX at the top; ``MapResult`` also carries the
+mapper's EC CSR (``ec_csr``), which every mapper uploads with its index.
+``resolve_signatures`` keeps the JAX package's single-EC path and
+grouping, and intersects the multi-EC signatures in one call of
+``ops/intersect_cuda.intersect`` instead of its Python loop of
+``np.intersect1d``: I2 where the result's CSR is on a card, the plain
+version where it is on the CPU or absent.
 """
 
 from __future__ import annotations
@@ -57,8 +63,8 @@ import torch
 from ..config import MapConfig
 from ..index.store import KMerIndex
 from ..io.fastq import ReadBatch, pack_batch_2bit
-from ..ops import (accumulate_cuda, fast_cuda, layout_cuda, pack_cuda,
-                   probe_cuda, sig_cuda, strided_cuda)
+from ..ops import (accumulate_cuda, fast_cuda, intersect_cuda, layout_cuda,
+                   pack_cuda, probe_cuda, sig_cuda, strided_cuda)
 from ..ops.probe import device_table_layout
 from ..utils.metrics import Metrics
 from .signature import SIG_PAD, SigTable, make_sig_table, table_to_host
@@ -106,9 +112,19 @@ def _upload_raw(table: np.ndarray, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(host).to(device)
 
 
+def upload_ec_csr(index: KMerIndex, device) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The index's EC CSR (``ec_offsets``, ``ec_transcripts``) as int32
+    tensors on ``device``, for ``resolve_signatures``' intersections."""
+    dev = torch.device(device)
+    return (_upload_raw(index.ec_offsets, dev),
+            _upload_raw(index.ec_transcripts, dev))
+
+
 @dataclasses.dataclass
 class DeviceIndex:
-    """Index tables resident on one device, in the slab layout."""
+    """Index tables resident on one device, in the slab layout, and the EC
+    CSR."""
 
     table: torch.Tensor  # int32[n_buckets, 4*bucket]
     stash: torch.Tensor
@@ -116,28 +132,33 @@ class DeviceIndex:
     stash_slots: int
     bucket: int
     k: int
+    ec_csr: Tuple[torch.Tensor, torch.Tensor]  # int32 offsets, transcripts
 
     @classmethod
     def from_host(cls, index: KMerIndex, device,
                   metrics: Optional[Metrics] = None) -> "DeviceIndex":
-        """The table and the stash in the slab layout on ``device`` (spans
-        ``index_upload`` and ``index_layout`` of ``metrics``; counter
-        ``index_upload_bytes``). On a CUDA device the raw (S, 4) tables
-        are copied as they are, then laid out in place by I1
-        (``ops/layout_cuda.py``; counter ``index_layout_on_device``); on
-        the CPU ``device_table_layout`` lays them out on the host first."""
+        """The table and the stash in the slab layout on ``device``, and
+        the EC CSR (spans ``index_upload`` and ``index_layout`` of
+        ``metrics``; counter ``index_upload_bytes``, the CSR's bytes
+        included). On a CUDA device the raw (S, 4) tables are copied as
+        they are, then laid out in place by I1 (``ops/layout_cuda.py``;
+        counter ``index_layout_on_device``); on the CPU
+        ``device_table_layout`` lays them out on the host first."""
         metrics = metrics if metrics is not None else Metrics()
         dev = torch.device(device)
         raw = (index.table, index.stash)
-        metrics.count("index_upload_bytes", sum(t.nbytes for t in raw))
+        metrics.count("index_upload_bytes", sum(
+            t.nbytes for t in (*raw, index.ec_offsets, index.ec_transcripts)))
         if dev.type == "cpu":
             with metrics.span("index_layout"):
                 host = [device_table_layout(t, index.bucket) for t in raw]
             with metrics.span("index_upload"):
                 table, stash = (torch.from_numpy(t) for t in host)
+                ec_csr = upload_ec_csr(index, dev)
         else:
             with metrics.span("index_upload"):
                 table, stash = (_upload_raw(t, dev) for t in raw)
+                ec_csr = upload_ec_csr(index, dev)
             with metrics.span("index_layout"):
                 table, stash = layout_cuda.layout_table(table, stash,
                                                         bucket=index.bucket)
@@ -145,7 +166,7 @@ class DeviceIndex:
         return cls(table=table, stash=stash,
                    main_slots=index.main_slots,
                    stash_slots=index.stash_slots, bucket=index.bucket,
-                   k=index.k)
+                   k=index.k, ec_csr=ec_csr)
 
 
 def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
@@ -203,9 +224,10 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
 
 def merge_sig_rows(sig: np.ndarray, count: np.ndarray, total_reads: int,
                    overflow: int, collisions: int = 0,
-                   complex_reads: Optional[int] = None) -> "MapResult":
+                   complex_reads: Optional[int] = None,
+                   ec_csr=None) -> "MapResult":
     """Merge raw signature-table rows into a MapResult: one lexsort over
-    the occupied rows plus a reduceat.
+    the occupied rows plus a reduceat; ``ec_csr`` is handed on.
     Copied from ``seekmer_tpu.map.driver``, which imports JAX."""
     occ = count > 0
     rows = np.ascontiguousarray(sig[occ])
@@ -231,7 +253,8 @@ def merge_sig_rows(sig: np.ndarray, count: np.ndarray, total_reads: int,
             "counts merged into a different signature's row)", collisions)
     return MapResult(sigs=sigs, sig_counts=counts, total_reads=total_reads,
                      mapped=int(counts.sum()), overflow=overflow,
-                     collisions=collisions, complex_reads=complex_reads)
+                     collisions=collisions, complex_reads=complex_reads,
+                     ec_csr=ec_csr)
 
 
 @dataclasses.dataclass
@@ -248,6 +271,10 @@ class MapResult:
     # unmapped reads past the class cap; None where not counted (fast mode,
     # the prefix-sharded mapper)
     complex_reads: Optional[int] = None
+    # the mapper's EC CSR (int32 offsets, transcripts) on its device, where
+    # resolve_signatures intersects; None for a result built on the host
+    ec_csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def unmapped(self) -> int:
@@ -308,6 +335,10 @@ class Mapper:
         self._fed_batches += 1
         self.total_reads += n_real
         self.metrics.count("batches")
+
+    @property
+    def ec_csr(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.device_index.ec_csr
 
     def run(self, batches: Iterable[ReadBatch],
             checkpoint_path: Optional[str] = None,
@@ -372,7 +403,8 @@ class Mapper:
                 return merge_sig_rows(
                     sigs, counts, self.total_reads, overflow,
                     collisions=collisions, complex_reads=(
-                        complex_reads if self.counts_complex else None))
+                        complex_reads if self.counts_complex else None),
+                    ec_csr=self.ec_csr)
 
 
 def _run_with_checkpoints(mapper: Mapper, batches: Iterable[ReadBatch],
@@ -501,11 +533,17 @@ def resolve_signatures(
 
     Returns (member_lists, counts, dropped); dropped = reads whose EC
     intersection is empty. Single-EC signatures take a vectorized path
-    (unique + bincount, one CSR gather); multi-EC ones intersect per
-    distinct signature, in the span ``intersect`` of the current metrics
-    (``Metrics.active``), which counts as ``intersect_members`` the sizes
-    of the member lists that loop reaches. Copied from
-    ``seekmer_tpu.map.driver``, which imports JAX.
+    (unique + bincount, one CSR gather). The multi-EC ones are intersected
+    in one ``intersect_cuda.intersect`` call on the device of
+    ``result.ec_csr`` (I2 on a card; the plain version on the CPU, with
+    the index's CSR where the result carries none), in the span
+    ``intersect`` of the current metrics (``Metrics.active``): their rows'
+    upload, the call and one read-back of its results, the span's last
+    sync. Counters: ``intersect_members`` (the summed sizes of every EC
+    list of every multi-EC signature) and ``intersect_on_device`` (1 where
+    I2 ran). The flat lists, lengths and counts grouped into classes are
+    those of the JAX package's loop (``seekmer_tpu.map.driver``), in its
+    order.
     """
     metrics = Metrics.current() or Metrics()
     pad = np.int32(SIG_PAD)
@@ -528,35 +566,32 @@ def resolve_signatures(
         np.arange(int(o[-1]), dtype=np.int64) - o[:-1].repeat(s_len))
     s_flat = tr[gather].astype(np.int64)
 
-    dropped = 0
-    reached = 0  # members of the lists the loop reaches
-    extra_members: List[np.ndarray] = []
-    extra_counts: List[float] = []
+    multi, m_cnts = sigs[~single], cnts[~single]
+    M = multi.shape[0]
+    csr = result.ec_csr
+    if csr is None:
+        csr = upload_ec_csr(index, "cpu")
     with metrics.span("intersect"):
-        for row, n in zip(sigs[~single], cnts[~single]):
-            ecs = row[row != pad]
-            members = index.ec_members(int(ecs[0]))
-            reached += members.size
-            for ec in ecs[1:]:
-                other = index.ec_members(int(ec))
-                reached += other.size
-                members = np.intersect1d(members, other, assume_unique=True)
-                if members.size == 0:
-                    break
-            if members.size == 0:
-                dropped += int(n)
-                continue
-            extra_members.append(members.astype(np.int64))
-            extra_counts.append(float(n))
-    metrics.count("intersect_members", reached)
+        launches = intersect_cuda.intersect.launches
+        got = intersect_cuda.intersect(
+            torch.from_numpy(np.ascontiguousarray(multi, np.int32)).to(
+                csr[0].device),
+            *csr)
+        host = torch.cat([got.lens.to(torch.int64), got.starts,
+                          got.values.to(torch.int64)]).cpu().numpy()
+    metrics.count("intersect_members", got.members)
+    metrics.count("intersect_on_device",
+                  intersect_cuda.intersect.launches - launches)
+    lens, starts, values = host[:M], host[M:2 * M], host[2 * M:]
+    # each slot's survivors are its first lens entries
+    slot = np.diff(starts, append=values.size)
+    m_flat = values[np.arange(values.size)
+                    < np.repeat(starts + lens, slot)]
+    kept = lens > 0
+    dropped = int(m_cnts[~kept].sum())
 
-    if extra_members:
-        flat = np.concatenate([s_flat] + extra_members)
-        lens = np.concatenate(
-            [s_len, np.fromiter((m.size for m in extra_members), np.int64,
-                                len(extra_members))])
-        counts = np.concatenate([ec_counts, np.asarray(extra_counts)])
-    else:
-        flat, lens, counts = s_flat, s_len, ec_counts
+    flat = np.concatenate([s_flat, m_flat])
+    lens = np.concatenate([s_len, lens[kept]])
+    counts = np.concatenate([ec_counts, m_cnts[kept].astype(np.float64)])
     member_lists, gcounts = _group_member_lists(flat, lens, counts)
     return member_lists, gcounts, dropped

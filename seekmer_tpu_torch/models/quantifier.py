@@ -22,8 +22,8 @@ card the raw index uploaded, ``index_upload``, then laid out in place by
 I1, ``index_layout``; on the CPU laid out on the host first), ``map``
 (waits for the next batch, ``map_wait``; FLD sampling, ``fld``; the
 table's read-back and merge, ``finalize`` with ``readback`` and
-``merge``), ``resolve`` (its loop over multi-EC signatures,
-``intersect``), ``ec_table`` (the FLD estimate, the EC table, the
+``merge``), ``resolve`` (its intersections of the multi-EC signatures,
+I2 on a card, ``intersect``), ``ec_table`` (the FLD estimate, the EC table, the
 snapshots' set-up), ``em``, ``bootstrap`` (its ``resample``) and
 ``collect`` (the results to the host); ``ingest``, ``upload`` and its
 ``pack`` on the prefetch thread. ``wall_s`` covers the whole call.
@@ -31,9 +31,10 @@ Counters split the unmapped fragments: ``complex_fragments`` (past
 ``max_ecs_per_read`` classes; counted where K3 runs with a counter, so
 not in fast mode nor under the prefix-sharded index, which report none),
 ``empty_intersection_fragments`` (their classes' members intersect to
-nothing) and the rest, no hit; ``intersect_members`` (the member lists
-``intersect`` reaches) and ``multi_gene_classes`` (classes across genes)
-weigh the cross-gene work.
+nothing) and the rest, no hit; ``intersect_members`` (the summed sizes
+of every EC list of every multi-EC signature, the work ``intersect`` is
+given) and ``multi_gene_classes`` (classes across genes) weigh the
+cross-gene work; ``intersect_on_device`` is 1 where ``intersect`` ran I2.
 
 Several ranks (``PipelineConfig.shard.data_axis`` != 1, one process a card
 in a ``torch.distributed`` group, ``parallel/comm.py``): every rank builds
@@ -466,8 +467,8 @@ class Quantifier:
         metrics.count("empty_intersection_fragments", dropped)
 
         with metrics.span("ec_table"):
-            # the signatures resolve_signatures intersects one by one, of
-            # two or more ECs: a row's EC ids are sorted, SIG_PAD after them
+            # the signatures resolve_signatures intersects, of two or more
+            # ECs: a row's EC ids are sorted, SIG_PAD after them
             sigs = result.sigs
             metrics.count("multi_ec_signatures", int(
                 (sigs[:, 1] != SIG_PAD).sum()) if sigs.shape[1] > 1 else 0)

@@ -65,7 +65,8 @@ class RankMapper:
     (``ckpt_mp.py``), the FLD histograms summed, and ``finalize``'s merge
     of every rank's table. A subclass sets ``table``, ``total_reads``,
     ``fld``, ``n_ranks``, ``counts_complex`` (whether its table counts
-    complex reads), ``restored_cursor`` (None) and ``_ckpt_step`` (0), and
+    complex reads), ``ec_csr`` (the EC CSR on its card, which the merged
+    result carries), ``restored_cursor`` (None) and ``_ckpt_step`` (0), and
     makes its estimator in ``make_fld_estimator(state)``."""
 
     def supports_checkpoint(self) -> bool:
@@ -122,7 +123,8 @@ class RankMapper:
                 np.int64)))
         return merge_sig_rows(
             sigs, counts, total, overflow, collisions=collisions,
-            complex_reads=complex_reads if self.counts_complex else None)
+            complex_reads=complex_reads if self.counts_complex else None,
+            ec_csr=self.ec_csr)
 
 
 class DataParallelMapper(RankMapper, Mapper):

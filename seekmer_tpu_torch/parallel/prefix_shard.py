@@ -86,7 +86,8 @@ from ..config import MapConfig, ShardConfig
 from ..index.build import _next_pow2, build_bucket_table
 from ..index.store import EMPTY, KMerIndex
 from ..io.fastq import ReadBatch, pack_batch_2bit
-from ..map.driver import audit_this_batch, check_device, to_device
+from ..map.driver import (audit_this_batch, check_device, to_device,
+                          upload_ec_csr)
 from ..map.fld import SAMPLE_BATCHES, FLDEstimator
 from ..map.signature import make_sig_table
 from ..ops import (accumulate_cuda, fast_cuda, pack_cuda, probe_cuda,
@@ -368,6 +369,7 @@ class PrefixShardedMapper(RankMapper):
         self.sdi = ShardedDeviceIndex.from_shards(shards, self.column,
                                                   self.device)
         del shards, built
+        self.ec_csr = upload_ec_csr(index, self.device)
         self.table = make_sig_table(
             cfg.sig_table_bits, cfg.max_ecs_per_read,
             num_ecs=0 if cfg.fusion_pairs else index.num_ecs,

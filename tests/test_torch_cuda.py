@@ -34,6 +34,7 @@ from seekmer_tpu_torch.ops import (
     em_cuda,
     em_dense,
     fast_cuda,
+    intersect_cuda,
     layout_cuda,
     pack_cuda,
     probe,
@@ -52,6 +53,8 @@ from seekmer_tpu_torch.utils.simulate import (
 from seekmer_tpu_torch.utils.metrics import Metrics
 from tests.synthetic_buckets import (check_expected, hi_collision_tables,
                                      query_lanes, raw_layout_table)
+from tests.synthetic_intersect import cases as intersect_cases
+from tests.synthetic_intersect import paralog_like
 from tests.synthetic_signatures import adversarial_rows, seed_collision
 
 pytestmark = pytest.mark.cuda
@@ -223,8 +226,9 @@ def test_layout_kernel_refuses_an_ec_past_the_lane(dev, G):
 @pytest.mark.parametrize("which", ["default", "stash"])
 def test_layout_from_host_on_card(dev, world, which):
     """``DeviceIndex.from_host`` on the card: the raw tables uploaded and
-    laid out by I1 (two launches), equal to the host layout; read-only host
-    arrays are uploaded as they are and left unchanged."""
+    laid out by I1 (two launches), equal to the host layout, and the EC CSR
+    uploaded beside them; read-only host arrays are uploaded as they are
+    and left unchanged."""
     index = world[2][which]
     ro = dataclasses.replace(index, table=index.table.copy(),
                              stash=index.stash.copy())
@@ -242,7 +246,12 @@ def test_layout_from_host_on_card(dev, world, which):
     np.testing.assert_array_equal(ro.table, index.table)
     t = metrics.snapshot()
     assert t["index_layout_on_device"] == 1
-    assert t["index_upload_bytes"] == index.table.nbytes + index.stash.nbytes
+    for got, raw in zip(di.ec_csr, (index.ec_offsets, index.ec_transcripts)):
+        assert got.is_cuda
+        _eq(got.cpu(), torch.from_numpy(raw))
+    assert t["index_upload_bytes"] == sum(
+        a.nbytes for a in (index.table, index.stash, index.ec_offsets,
+                           index.ec_transcripts))
 
 
 @pytest.mark.parametrize("B,P,C", [(4099, 208, 16), (1000, 976, 16),
@@ -586,6 +595,113 @@ def test_quantifier_on_card_matches_cpu(dev, world, tmp_path):
     # float64 EM; only the atomics' summation order differs
     np.testing.assert_allclose(got.est_counts, want.est_counts, rtol=1e-9,
                                atol=1e-9)
+
+
+def _same_intersections(got, want):
+    """Two ``intersect_cuda.Intersections`` hold the same slots, lengths,
+    work and, in each slot, the same survivors."""
+    assert got.members == want.members
+    _eq(got.starts.cpu(), want.starts)
+    _eq(got.lens.cpu(), want.lens)
+    lens, starts = want.lens.numpy(), want.starts.numpy()
+    values = got.values.cpu().numpy()
+    keep = np.arange(values.size) < np.repeat(
+        starts + lens, np.diff(starts, append=values.size))
+    np.testing.assert_array_equal(values[keep], want.values.numpy()[keep])
+
+
+@pytest.mark.parametrize("name", ["no_rows", "one_row", "two_ecs",
+                                  "sixteen_ecs", "empty", "over_32",
+                                  "over_1024", "paralog"])
+def test_intersect_kernel(dev, name):
+    """I2 against its plain version: the fixed cases and a paralog-shaped
+    sample, ~69,700 rows of ~1.5M list members; one launch a call with
+    rows."""
+    rows, off, tr = (paralog_like(np.random.default_rng(11), 69_700)
+                     if name == "paralog" else intersect_cases()[name])
+    host = [torch.from_numpy(a) for a in (rows, off, tr)]
+    before = intersect_cuda.intersect.launches
+    got = intersect_cuda.intersect(*(t.to(dev) for t in host))
+    torch.cuda.synchronize()
+    assert intersect_cuda.intersect.launches == before + (rows.shape[0] > 0)
+    _same_intersections(got, intersect_cuda.plain(*host))
+
+
+def test_intersect_wrapper_refuses_mixed_devices(dev):
+    rows, off, tr = intersect_cases()["two_ecs"]
+    with pytest.raises(ValueError, match="CUDA"):
+        intersect_cuda.intersect(torch.from_numpy(rows).to(dev),
+                                 torch.from_numpy(off),
+                                 torch.from_numpy(tr).to(dev))
+
+
+def test_resolve_on_card_matches_cpu(dev, world):
+    """A Mapper's result on the card carries its EC CSR there, and
+    ``resolve_signatures`` intersects through I2, one launch a call, to
+    the CPU path's member lists, counts and dropped."""
+    from seekmer_tpu_torch.map.driver import resolve_signatures
+
+    rng, seqs, idx = world
+    index = idx["default"]
+    B, L = 1024, 100
+    c1, c2, _ = simulate_packed_pairs(rng, seqs, 2, B, read_len=L)
+    ln = np.full(B, L, np.int32)
+    w = np.ones(B, np.int32)
+    batches = [ReadBatch(c1[i], ln, w, codes2=c2[i], lengths2=ln)
+               for i in range(2)]
+    cfg = MapConfig(batch_size=B, sig_table_bits=14, paired_end=True)
+    result = Mapper(index, cfg, device=dev).run(batches)
+    assert result.ec_csr[0].is_cuda and result.ec_csr[1].is_cuda
+    assert (result.sigs[:, 1] != SIG_PAD).any()  # some multi-EC rows
+    before = intersect_cuda.intersect.launches
+    m_g, c_g, d_g = resolve_signatures(result, index)
+    assert intersect_cuda.intersect.launches == before + 1
+    m_w, c_w, d_w = resolve_signatures(
+        dataclasses.replace(result, ec_csr=None), index)
+    assert d_g == d_w
+    np.testing.assert_array_equal(c_g, c_w)
+    assert len(m_g) == len(m_w)
+    for a, b in zip(m_g, m_w):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_quantifier_intersects_on_card(dev, world, tmp_path, monkeypatch):
+    """``Quantifier`` on the card resolves through I2
+    (``intersect_on_device`` 1) to the CPU run's member lists, counts and
+    dropped fragments."""
+    from seekmer_tpu_torch.config import PipelineConfig
+    from seekmer_tpu_torch.models import quantifier
+    from seekmer_tpu_torch.utils.simulate import simulate_reads, write_fastq
+
+    rng, seqs, idx = world
+    sim = simulate_reads(rng, seqs, num_reads=3000, read_len=100,
+                         paired=True, error_rate=0.005)
+    fq1, fq2 = str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")
+    write_fastq(fq1, sim.reads1)
+    write_fastq(fq2, sim.reads2)
+    resolved = []
+    real = quantifier.resolve_signatures
+
+    def spy(result, index):
+        resolved.append(real(result, index))
+        return resolved[-1]
+
+    monkeypatch.setattr(quantifier, "resolve_signatures", spy)
+    cfg = PipelineConfig().replace(
+        map=MapConfig(batch_size=1024, sig_table_bits=14, paired_end=True),
+        em=EMConfig(rel_tol=1e-6, max_iters=200, use_x64=True))
+    runs = [quantifier.Quantifier(idx["default"], cfg, device=d)
+            .quantify_files([fq1], mate_paths=[fq2]) for d in ("cuda", "cpu")]
+    assert runs[0].timings["intersect_on_device"] == 1
+    assert runs[1].timings["intersect_on_device"] == 0
+    assert (runs[0].timings["intersect_members"]
+            == runs[1].timings["intersect_members"] > 0)
+    (m_g, c_g, d_g), (m_w, c_w, d_w) = resolved
+    assert d_g == d_w
+    np.testing.assert_array_equal(c_g, c_w)
+    assert len(m_g) == len(m_w)
+    for a, b in zip(m_g, m_w):
+        np.testing.assert_array_equal(a, b)
 
 
 def _em_system(dev, T, E, R, seed):

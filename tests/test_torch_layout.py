@@ -102,8 +102,8 @@ def test_layout_table_refuses(bucket, shape):
 
 def test_from_host_on_the_cpu_lays_out_on_the_host(indexes):
     """The CPU path is the host layout: equal tables, the host index left
-    as it was, the same upload bytes, both spans, and no
-    ``index_layout_on_device``."""
+    as it was, the EC CSR beside them, the same upload bytes, both spans,
+    and no ``index_layout_on_device``."""
     index = indexes["stash"]
     before = index.table.copy()
     metrics = Metrics()
@@ -114,6 +114,10 @@ def test_from_host_on_the_cpu_lays_out_on_the_host(indexes):
         di.stash.numpy(), device_table_layout(index.stash, index.bucket))
     np.testing.assert_array_equal(index.table, before)
     t = metrics.snapshot()
-    assert t["index_upload_bytes"] == index.table.nbytes + index.stash.nbytes
+    for got, raw in zip(di.ec_csr, (index.ec_offsets, index.ec_transcripts)):
+        np.testing.assert_array_equal(got.numpy(), raw)
+    assert t["index_upload_bytes"] == sum(
+        a.nbytes for a in (index.table, index.stash, index.ec_offsets,
+                           index.ec_transcripts))
     assert "index_layout_s" in t and "index_upload_s" in t
     assert "index_layout_on_device" not in t

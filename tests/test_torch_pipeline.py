@@ -109,7 +109,7 @@ def test_cli_index_and_infer(world):
                                             "accumulate", "em", "sample",
                                             "merge", "em_csr", "strided",
                                             "ec_sum", "route", "unroute",
-                                            "layout"}
+                                            "layout", "intersect"}
     assert info["fld"] is None and info["bootstrap_samples"] == 0
     assert info["probe_sample"] == 0 and info["probe_stride"] == 1
     assert not os.path.exists(os.path.join(out, "bootstrap.npz"))

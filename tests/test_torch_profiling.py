@@ -174,7 +174,8 @@ def test_timings_carry_every_span_and_counter(world, pairs, monkeypatch,
     assert t["distinct_signatures"] == result.sigs.shape[0]
     assert t["index_upload_bytes"] == sum(
         device_table_layout(a, index.bucket).nbytes
-        for a in (index.table, index.stash))
+        for a in (index.table, index.stash)) + (
+            index.ec_offsets.nbytes + index.ec_transcripts.nbytes)
     assert t["readback_bytes"] > 0
     assert 0 <= t["multi_ec_signatures"] <= t["distinct_signatures"]
     assert t["classes"] > 0 and t["nnz"] >= t["classes"]
