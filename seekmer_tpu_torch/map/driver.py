@@ -35,9 +35,9 @@ port always ships reads 2-bit packed, so ``h2d_pack_2bit`` is ignored too.
 lookup kernel never materialises the gathered bucket rows they bounded.
 
 ``Mapper.run`` checkpoints the table and the stream's resume cursor every
-``checkpoint_every`` batches (``_run_with_checkpoints``); the data-parallel
-mapper's ranks save together (``_run_with_checkpoints_multiprocess``). The
-table is read back to the host only when a save is due.
+``checkpoint_every`` batches; ranks save together
+(``parallel/data_parallel.RankMapper.run``). The table is read
+back to the host only when a save is due.
 
 ``merge_sig_rows``, ``MapResult``, ``audit_this_batch`` and
 ``_group_member_lists`` are numpy copies from ``seekmer_tpu/map/driver.py``,
@@ -66,7 +66,10 @@ from ..io.fastq import ReadBatch, pack_batch_2bit
 from ..ops import (accumulate_cuda, fast_cuda, intersect_cuda, layout_cuda,
                    pack_cuda, probe_cuda, sig_cuda, strided_cuda)
 from ..ops.probe import device_table_layout
+from ..utils.checkpoint import (adapt_ec_count, load_map_checkpoint,
+                                save_map_checkpoint)
 from ..utils.metrics import Metrics
+from .fld import SAMPLE_BATCHES, FLDEstimator
 from .signature import SIG_PAD, SigTable, make_sig_table, table_to_host
 
 log = logging.getLogger(__name__)
@@ -184,10 +187,10 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
         raise ValueError("map_step takes 2-bit packed reads (pad_len set)")
     if audit is None:
         audit = cfg.collision_audit
+    mates = [(codes, bad, lengths)]
+    if codes2 is not None:
+        mates.append((codes2, bad2, lengths2))
     if cfg.probe_sample >= 2:  # MapConfig rules out stride and fusion here
-        mates = [(codes, bad, lengths)]
-        if codes2 is not None:
-            mates.append((codes2, bad2, lengths2))
         sig, mapped = fast_cuda.two_phase_signatures(
             mates, pad_len, di.k, cfg.probe_sample, cfg.max_ecs_per_read,
             di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
@@ -197,17 +200,7 @@ def map_step(di: DeviceIndex, cfg: MapConfig, table: SigTable, codes,
     if cfg.fusion_pairs and codes2 is None:
         raise ValueError("fusion_pairs needs paired-end reads: a fusion "
                          "signature is one per mate (MapConfig.fusion_pairs)")
-    out, P = None, max(pad_len - di.k + 1, 0)
-    if codes2 is not None:
-        shape = (codes.shape[0], 2 * P)
-        out = (torch.empty(shape, dtype=torch.int32, device=codes.device),
-               torch.empty(shape, dtype=torch.int32, device=codes.device),
-               torch.empty(shape, dtype=torch.bool, device=codes.device))
-    hi, lo, valid = pack_cuda.pack_canonical_2bit(codes, bad, lengths,
-                                                  pad_len, di.k, out=out)
-    if codes2 is not None:
-        pack_cuda.pack_canonical_2bit(codes2, bad2, lengths2, pad_len, di.k,
-                                      out=out, offset=P)
+    hi, lo, valid = pack_cuda.pack_mates(mates, pad_len, di.k)
     geo = (di.table, di.main_slots, di.stash, di.stash_slots, di.bucket)
     if cfg.probe_stride > 1:
         ecs = strided_cuda.lookup_ecs_strided(
@@ -291,39 +284,91 @@ def audit_this_batch(cfg: MapConfig, fed_batches: int) -> bool:
 
 class Mapper:
     """Stateful single-device mapper: feed batches, then finalize. Its
-    spans and counters (the index's build, ``batches``, ``finalize``) go
-    into ``metrics``, the caller's run's when given."""
+    spans and counters (the index's build, ``fld``, ``batches``,
+    ``finalize``) go into ``metrics``, the caller's run's when given.
+
+    The Quantifier's one interface, the same on several ranks
+    (``parallel/data_parallel.RankMapper``): ``select``, ``run``,
+    ``restore``, ``fld_estimate`` and ``finalize``, and for the stage
+    snapshots and the bootstrap ``rank``, ``n_ranks`` and ``from_rank0``.
+    A mapper that holds its index otherwise overrides ``_upload_index``
+    (returning the EC CSR), ``_new_table`` and ``_fold``."""
+
+    rank, n_ranks = 0, 1
+    fld_batches = SAMPLE_BATCHES  # the paired batches the FLD samples
 
     def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
-                 device="cuda", metrics: Optional[Metrics] = None):
+                 device="cuda", metrics: Optional[Metrics] = None,
+                 estimate_fld: bool = False):
+        """``estimate_fld`` (``EMConfig.estimate_fld``): ``feed`` samples
+        the first paired batches' fragment lengths, where the index
+        carries the FLD payload."""
         self.device = check_device(device)
         self.index = index
         self.cfg = cfg
         self.metrics = metrics if metrics is not None else Metrics()
-        self.device_index = DeviceIndex.from_host(index, self.device,
+        self.estimate_fld = estimate_fld and index.fld_tid is not None
+        self.ec_csr = self._upload_index()
+        self._reset()
+
+    @property
+    def counts_complex(self) -> bool:
+        # K3 counts complex reads in every mode but fast mode, where K5
+        # resolves most reads without K3
+        return self.cfg.probe_sample < 2
+
+    def _upload_index(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.device_index = DeviceIndex.from_host(self.index, self.device,
                                                   self.metrics)
+        return self.device_index.ec_csr
+
+    def _new_table(self) -> SigTable:
         # fusion rows hold a signature a mate side by side, which the
         # per-EC direct vector cannot count: the placeholder vector sends
         # every read through the fingerprint table, as in the JAX package
-        self.table = make_sig_table(
+        cfg = self.cfg
+        return make_sig_table(
             cfg.sig_table_bits,
             cfg.max_ecs_per_read * (2 if cfg.fusion_pairs else 1),
-            num_ecs=0 if cfg.fusion_pairs else index.num_ecs,
+            num_ecs=0 if cfg.fusion_pairs else self.index.num_ecs,
             device=self.device)
+
+    def _reset(self) -> None:
+        """A fresh run: an empty table, nothing fed, no FLD estimator
+        (made in ``feed``, or restored with a checkpoint's state)."""
+        self.table = self._new_table()
         self.total_reads = 0
         self._fed_batches = 0
-        # K3 counts complex reads in every mode but fast mode, where K5
-        # resolves most reads without K3
-        self.counts_complex = cfg.probe_sample < 2
-        # the FLD estimator sharing this table (make_fld_estimator, or
-        # restore_checkpoint), whose state a checkpoint carries
         self.fld = None
 
+    def select(self, batches: Iterable[ReadBatch]) -> Iterable[ReadBatch]:
+        """The batches this mapper maps: on one card, all of them."""
+        return batches
+
+    @staticmethod
+    def from_rank0(x: np.ndarray) -> np.ndarray:
+        """Rank 0's ``x`` on every rank: on one card, ``x``."""
+        return x
+
     def feed(self, batch: ReadBatch) -> None:
+        """Sample the batch's fragment lengths (span ``fld``) while the
+        estimator is active, then map it."""
+        if self.estimate_fld:
+            if self.fld is None and batch.codes2 is not None:
+                self.make_fld_estimator()
+            if self.fld is not None and self.fld.active:
+                with self.metrics.span("fld"):
+                    self.fld.feed(batch)
         n_real = batch.n_real
         if batch.pad_len is None:  # unpacked rows: pack on the host first
             batch = pack_batch_2bit(batch)
+        self._fold(batch)
+        self._fed_batches += 1
+        self.total_reads += n_real
+        self.metrics.count("batches")
 
+    def _fold(self, batch: ReadBatch) -> None:
+        """Map a 2-bit packed batch into the table."""
         def u(x):
             return to_device(x, self.device)
         audit = audit_this_batch(self.cfg, self._fed_batches)
@@ -332,33 +377,45 @@ class Mapper:
             u(batch.lengths), u(batch.weights), codes2=u(batch.codes2),
             lengths2=u(batch.lengths2), bad=u(batch.bad), bad2=u(batch.bad2),
             pad_len=batch.pad_len, audit=audit)
-        self._fed_batches += 1
-        self.total_reads += n_real
-        self.metrics.count("batches")
-
-    @property
-    def ec_csr(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.device_index.ec_csr
 
     def run(self, batches: Iterable[ReadBatch],
             checkpoint_path: Optional[str] = None,
             checkpoint_every: int = 50) -> "MapResult":
         """Feed every batch, then finalize. With ``checkpoint_path``, save
         the table and the resume cursor every ``checkpoint_every`` batches,
-        at the next batch that carries a cursor, and once at the end."""
-        return _run_with_checkpoints(self, batches, checkpoint_path,
-                                     checkpoint_every)
+        at the next batch that carries a cursor, and once at the end; the
+        cursor saved is that of the batch just fed, not the reader's
+        position (a prefetch thread may be batches ahead)."""
+        n = 0
+        due = warned = False
+        last_cursor = None
+        for batch in batches:
+            self.feed(batch)
+            n += 1
+            cur = batch.cursor
+            if cur is not None:
+                last_cursor = cur
+            if checkpoint_path:
+                due = due or (n % checkpoint_every == 0)
+                if due and cur is not None:
+                    self.save_checkpoint(checkpoint_path, stream_state=cur)
+                    due = False
+                elif due and last_cursor is None and not warned:
+                    log.warning(
+                        "checkpointing requested but these batches carry no "
+                        "resume cursors (not from CheckpointableBatchSource); "
+                        "periodic checkpoints are disabled, and a final "
+                        "table snapshot that cannot resume is written")
+                    warned = True
+        if checkpoint_path:
+            self.save_checkpoint(checkpoint_path, stream_state=last_cursor)
+        return self.finalize()
 
     def save_checkpoint(self, path: str,
                         stream_state: Optional[dict] = None) -> None:
-        from ..utils.checkpoint import save_map_checkpoint
-
         save_map_checkpoint(path, self.table, self.total_reads,
                             stream_state, fld=None if self.fld is None
                             else self.fld.state())
-
-    def supports_checkpoint(self) -> bool:
-        return True
 
     def restore_checkpoint(self, path: str) -> Optional[dict]:
         """Restore the table, the read count and the FLD estimator's state
@@ -367,128 +424,71 @@ class Mapper:
         file carries no cursor (the table is restored but the stream
         position is unknown: not safely resumable), or None when there is
         no file."""
-        from ..utils.checkpoint import adapt_ec_count, load_map_checkpoint
-        from .fld import FLDEstimator
-
         loaded = load_map_checkpoint(path, self.device)
         if loaded is None:
             return None
         table, self.total_reads, stream_state, fld = loaded
         self.table = adapt_ec_count(table, self.table.ec_count.shape)
         if fld is not None:
-            self.fld = FLDEstimator(self.index, self.device_index, fld)
+            self.make_fld_estimator(fld)
         return stream_state if stream_state is not None else {}
 
-    def make_fld_estimator(self):
+    def restore(self, checkpoint_path: str, source) -> None:
+        """Restore the map checkpoint, if any, into this mapper and
+        ``source``. A file without a cursor cannot resume: the table is
+        dropped and the run starts fresh. Restore errors raise; on several
+        ranks only once every rank has tried (``restore_checkpoint``)."""
+        state = self.restore_checkpoint(checkpoint_path)
+        if state:
+            source.restore(state)
+            log.info("resuming from checkpoint: %d reads already mapped",
+                     self.total_reads)
+        elif state is not None:
+            log.warning("checkpoint %s has no stream cursor; starting fresh",
+                        checkpoint_path)
+            self._reset()
+
+    def make_fld_estimator(self, state=None):
         """Fragment-length estimator sharing this mapper's device table
-        (``map/fld.py``), or None when the index lacks the FLD payload."""
+        (``map/fld.py``), from a checkpoint's ``state`` or afresh, or None
+        when the index lacks the FLD payload."""
         if self.index.fld_tid is None:
             return None
-        from .fld import FLDEstimator
-
-        self.fld = FLDEstimator(self.index, self.device_index)
+        self.fld = FLDEstimator(self.index, self.device_index, state,
+                                sample_batches=self.fld_batches)
         return self.fld
+
+    def fld_estimate(self) -> Optional[Tuple[float, float, int]]:
+        """(mean, sd, n) of the sampled fragment lengths, or None when
+        they are not estimated or too few pairs were sampled."""
+        if not self.estimate_fld or self.fld is None:
+            return None
+        return self.fld.estimate()
+
+    def _gather(self, sigs: np.ndarray, counts: np.ndarray,
+                counters: List[int]):
+        """Every rank's rows, the counters summed: on one card, its own."""
+        return sigs, counts, counters
 
     def finalize(self) -> MapResult:
         """The table read back (span ``readback``; its three counters in
-        one copy) and merged (``merge``), inside the span ``finalize``."""
+        one copy), gathered over the ranks (``_gather``) and merged
+        (``merge``), inside the span ``finalize``."""
         m = self.metrics
         t = self.table
         with m.span("finalize"):
             with m.span("readback"):
                 sigs, counts = table_to_host(t, m)
-                overflow, collisions, complex_reads = torch.stack(
+                counters = [self.total_reads] + torch.stack(
                     [t.overflow, t.collisions, t.complex]).tolist()
+            sigs, counts, counters = self._gather(sigs, counts, counters)
+            total, overflow, collisions, complex_reads = counters
             with m.span("merge"):
                 return merge_sig_rows(
-                    sigs, counts, self.total_reads, overflow,
-                    collisions=collisions, complex_reads=(
-                        complex_reads if self.counts_complex else None),
+                    sigs, counts, total, overflow, collisions=collisions,
+                    complex_reads=(complex_reads if self.counts_complex
+                                   else None),
                     ec_csr=self.ec_csr)
-
-
-def _run_with_checkpoints(mapper: Mapper, batches: Iterable[ReadBatch],
-                          checkpoint_path: Optional[str],
-                          checkpoint_every: int) -> MapResult:
-    """The feed loop with cursor-aware checkpoints. A save falls due every
-    ``checkpoint_every`` batches and happens at the next batch carrying a
-    resume cursor; the cursor saved is that of the batch just fed, not the
-    reader's position (a prefetch thread may be batches ahead)."""
-    n = 0
-    due = False
-    warned = False
-    last_cursor = None
-    for batch in batches:
-        mapper.feed(batch)
-        n += 1
-        cur = batch.cursor
-        if cur is not None:
-            last_cursor = cur
-        if checkpoint_path:
-            due = due or (n % checkpoint_every == 0)
-            if due and cur is not None:
-                mapper.save_checkpoint(checkpoint_path, stream_state=cur)
-                due = False
-            elif due and last_cursor is None and not warned:
-                log.warning(
-                    "checkpointing requested but these batches carry no "
-                    "resume cursors (not from CheckpointableBatchSource); "
-                    "periodic checkpoints are disabled, and a final "
-                    "table snapshot that cannot resume is written")
-                warned = True
-    if checkpoint_path:
-        mapper.save_checkpoint(checkpoint_path, stream_state=last_cursor)
-    return mapper.finalize()
-
-
-def _run_with_checkpoints_multiprocess(mapper, batches: Iterable[ReadBatch],
-                                       checkpoint_path: str,
-                                       checkpoint_every: int) -> MapResult:
-    """The checkpointed feed loop of several ranks (the JAX package's,
-    over ``parallel/comm``). A save is collective, and ranks may hold
-    different numbers of batches, so the loop itself is collective: every
-    rank joins one all-gather a round (one of its batches a round while it
-    has any) with (done, has a cursor). Saves fall due on the round count
-    and happen only when every rank offers a cursor (a rank that is done
-    offers its last one, or the one it resumed from); every rank leaves
-    in the same round."""
-    from ..parallel import comm
-
-    it = iter(batches)
-    rounds = 0
-    due = done = warned = False
-    last_cursor = mapper.restored_cursor
-    while True:
-        batch = None if done else next(it, None)
-        if batch is None:
-            done = True
-            cur = last_cursor
-        else:
-            mapper.feed(batch)
-            cur = batch.cursor
-            if cur is not None:
-                last_cursor = cur
-        rounds += 1
-        # a rank that never saw a cursor offers none: saving it as "start
-        # fresh" on top of a table that holds its reads would count them
-        # twice
-        flags = comm.allgather(np.asarray([done, cur is not None],
-                                          np.int64))
-        if flags[:, 0].all():
-            break
-        due = due or rounds % checkpoint_every == 0
-        if due and flags[:, 1].all():
-            mapper.save_checkpoint(checkpoint_path, stream_state=cur)
-            due = False
-        elif due and not warned:
-            log.warning(
-                "periodic checkpoint is blocked: rank(s) %s offered no "
-                "resume cursor this round; saves happen when every rank "
-                "has one, and a final table snapshot is written",
-                np.flatnonzero(flags[:, 1] == 0).tolist())
-            warned = True
-    mapper.save_checkpoint(checkpoint_path, stream_state=last_cursor)
-    return mapper.finalize()
 
 
 def _group_member_lists(flat: np.ndarray, lens: np.ndarray,
@@ -572,7 +572,6 @@ def resolve_signatures(
     if csr is None:
         csr = upload_ec_csr(index, "cpu")
     with metrics.span("intersect"):
-        launches = intersect_cuda.intersect.launches
         got = intersect_cuda.intersect(
             torch.from_numpy(np.ascontiguousarray(multi, np.int32)).to(
                 csr[0].device),
@@ -580,8 +579,7 @@ def resolve_signatures(
         host = torch.cat([got.lens.to(torch.int64), got.starts,
                           got.values.to(torch.int64)]).cpu().numpy()
     metrics.count("intersect_members", got.members)
-    metrics.count("intersect_on_device",
-                  intersect_cuda.intersect.launches - launches)
+    metrics.count("intersect_on_device", int(got.on_device))
     lens, starts, values = host[:M], host[M:2 * M], host[2 * M:]
     # each slot's survivors are its first lens entries
     slot = np.diff(starts, append=values.size)

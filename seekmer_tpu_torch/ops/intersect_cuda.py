@@ -35,12 +35,14 @@ MAX_WIDTH = 768  # ECs a row: the kernel keeps C (start, length) pairs a
 class Intersections(NamedTuple):
     """Row i's intersection, sorted ascending, is ``values[starts[i] :
     starts[i] + lens[i]]``; ``lens[i]`` 0 is an empty one. ``members`` is
-    the summed length of every EC list of every row, the work given."""
+    the summed length of every EC list of every row, the work given;
+    ``on_device``, whether this call launched I2."""
 
     values: torch.Tensor  # int32[sum of the slots]
     starts: torch.Tensor  # int64[M]
     lens: torch.Tensor  # int32[M]
     members: int
+    on_device: bool = False
 
 
 def _check(rows, ec_offsets, ec_transcripts) -> None:
@@ -142,7 +144,7 @@ def intersect(rows: torch.Tensor, ec_offsets: torch.Tensor,
                     values.data_ptr(), lens.data_ptr(), _build.stream_of(rows),
                     dev.index, M, C), "intersect")
     intersect.launches += 1
-    return Intersections(values, starts, lens, members)
+    return Intersections(values, starts, lens, members, True)
 
 
 intersect.launches = 0

@@ -12,7 +12,7 @@ source note.
 
 Paired batches pass ``out`` and ``offset``: each mate writes its windows
 into columns ``[offset, offset + P)`` of one ``(B, W)`` output, so the map
-step joins the mates without a concatenation.
+step joins the mates without a concatenation (``pack_mates``).
 """
 
 from __future__ import annotations
@@ -95,3 +95,18 @@ def pack_canonical_2bit(packed: torch.Tensor, bad: torch.Tensor,
 
 
 pack_canonical_2bit.launches = 0
+
+
+def pack_mates(mates, L: int, k: int):
+    """K1 on each mate's (packed, bad, lengths), side by side in one
+    (B, len(mates) P) output; a single mate gets its own."""
+    if len(mates) == 1:
+        return pack_canonical_2bit(*mates[0], L, k)
+    dev, B, P = mates[0][0].device, mates[0][0].shape[0], max(L - k + 1, 0)
+    shape = (B, len(mates) * P)
+    out = (torch.empty(shape, dtype=torch.int32, device=dev),
+           torch.empty(shape, dtype=torch.int32, device=dev),
+           torch.empty(shape, dtype=torch.bool, device=dev))
+    for g, m in enumerate(mates):
+        pack_canonical_2bit(*m, L, k, out=out, offset=g * P)
+    return out

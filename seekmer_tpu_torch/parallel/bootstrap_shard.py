@@ -1,8 +1,9 @@
 """Bootstrap replicates sharded over ranks; counterpart of
 ``seekmer_tpu/parallel/bootstrap_shard.py``.
 
-``bootstrap_samples`` must divide by the ranks (the quantifier runs the
-one-card bootstrap on every rank otherwise, as the JAX package does). Rank
+``bootstrap_on_ranks`` is the quantifier's one entry: it shards the
+replicates where the ranks divide ``bootstrap_samples`` and runs the
+one-card bootstrap on every rank otherwise, as the JAX package does. Rank
 r draws its B / N replicates with a ``torch.Generator`` on its device
 seeded ``rank_seed(bootstrap_seed, r)``, so results are reproducible for
 a fixed number of ranks and a resumed run draws the same matrix. (The JAX
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import EMConfig
+from ..em import bootstrap as one_card
 from ..em import em as em_mod
 from ..em.bootstrap import batched_em, resample_counts
 from ..em.em import ECTable, convergence_check
@@ -119,3 +121,18 @@ def run_bootstrap_sharded(ec: ECTable, lengths, cfg: EMConfig,
                            ec.num_transcripts, cfg, alpha_init=a_init,
                            it_init=it_init, on_sync=hook, check=check)
     return whole(alpha.t()).t(), it
+
+
+def bootstrap_on_ranks(ec: ECTable, lengths, cfg: EMConfig, ranks: int,
+                       alpha_init=None, it_init: int = 0,
+                       on_sync: Optional[Callable] = None,
+                       metrics: Optional[Metrics] = None
+                       ) -> Tuple[torch.Tensor, int]:
+    """The bootstrap of a run on ``ranks`` ranks: ``run_bootstrap_sharded``
+    where they divide ``bootstrap_samples``, else the one-card
+    ``em/bootstrap.run_bootstrap`` on every rank in full."""
+    if ranks > 1 and cfg.bootstrap_samples % ranks == 0:
+        return run_bootstrap_sharded(ec, lengths, cfg, alpha_init, it_init,
+                                     on_sync, metrics)
+    return one_card.run_bootstrap(ec, lengths, cfg, alpha_init, it_init,
+                                  on_sync, metrics)

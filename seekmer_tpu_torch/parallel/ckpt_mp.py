@@ -17,7 +17,7 @@ Write order: the table (gathered to rank 0, which writes it), a barrier,
 every rank's sidecar, a barrier. A crash before the table's rename leaves
 the previous save whole; one after it shows in the steps. Every rank
 calls ``save_mapper_checkpoint`` at the same round
-(``map/driver._run_with_checkpoints_multiprocess``). The JAX package's
+(``data_parallel.RankMapper.run``). The JAX package's
 ``place_global`` and ``allgather_host`` (placing a host copy under a
 ``NamedSharding``) have no counterpart: a rank keeps its own table on its
 card and slices its own part out of the file.
@@ -76,7 +76,7 @@ def restore_mapper_checkpoint(mapper, path: str) -> Optional[dict]:
     checkpoint into ``mapper``; returns its cursor ({} without one), or
     None when there is no table file. Raises on a missing or mismatched
     sidecar and on a table of another shape: the caller agrees with the
-    other ranks before it raises (``Quantifier``)."""
+    other ranks before it raises (``RankMapper.restore_checkpoint``)."""
     loaded = load_map_checkpoint(path, "cpu", with_step=True,
                                  multiprocess=True)
     if loaded is None:

@@ -19,33 +19,35 @@ every map mode), and which batches are its own is decided before upload:
   package's per-host shard (``torchrun``'s ``LOCAL_RANK`` and
   ``LOCAL_WORLD_SIZE``); hosts read different files.
 
-``finalize`` gathers every rank's occupied rows (``table_to_host``: the
-fingerprint rows and the per-EC direct counts as single-EC rows) by an
-all-gather of their sizes and then of the padded rows, sums the read,
-overflow and collision counters by an all-reduce, and merges the rows on
-every rank (``merge_sig_rows``): the tables themselves stay on their
-cards. The FLD estimator samples this rank's share of the batches one card
-samples, and the ranks' histograms are summed before the estimate
-(``map/fld.py``, fault 5). Checkpoints are the multi-process protocol of
-``parallel/ckpt_mp.py``; their feed loop is
-``map/driver._run_with_checkpoints_multiprocess``.
+``finalize`` is the one-card ``Mapper``'s, whose gather step here
+all-gathers every rank's occupied rows (``table_to_host``: the
+fingerprint rows and the per-EC direct counts as single-EC rows), their
+sizes first, and sums the read, overflow and collision counters by an
+all-reduce; every rank merges the rows (``merge_sig_rows``): the tables
+themselves stay on their cards. The FLD estimator samples this rank's
+share of the batches one card samples, and the ranks' histograms are
+summed before the estimate (``map/fld.py``, fault 5). Checkpoints are the
+multi-process protocol of ``parallel/ckpt_mp.py``, saved from
+``RankMapper.run``'s collective feed loop.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, Optional, Tuple
+import logging
+import zipfile
+from typing import Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..config import MapConfig, ShardConfig
 from ..index.store import KMerIndex
 from ..io.fastq import ReadBatch, rank_batches
-from ..map.driver import MapResult, Mapper, merge_sig_rows
-from ..map.fld import SAMPLE_BATCHES, FLDEstimator
-from ..map.signature import table_to_host
+from ..map.driver import MapResult, Mapper
+from ..map.fld import MAX_LEN, SAMPLE_BATCHES, estimate_from_hist
 from ..utils.metrics import Metrics
 from . import comm
+
+log = logging.getLogger(__name__)
 
 
 def data_ranks(shard: ShardConfig) -> int:
@@ -58,39 +60,91 @@ def data_ranks(shard: ShardConfig) -> int:
     return n
 
 
-class RankMapper:
-    """What a mapper on several ranks does the same whatever cuts its work
-    (``DataParallelMapper`` here, ``prefix_shard.PrefixShardedMapper``):
-    the collective feed loop with checkpoints, the multi-process checkpoint
-    (``ckpt_mp.py``), the FLD histograms summed, and ``finalize``'s merge
-    of every rank's table. A subclass sets ``table``, ``total_reads``,
-    ``fld``, ``n_ranks``, ``counts_complex`` (whether its table counts
-    complex reads), ``ec_csr`` (the EC CSR on its card, which the merged
-    result carries), ``restored_cursor`` (None) and ``_ckpt_step`` (0), and
-    makes its estimator in ``make_fld_estimator(state)``."""
+class RankMapper(Mapper):
+    """A ``Mapper`` on one of several ranks, whatever cuts its work
+    (``DataParallelMapper`` here, ``prefix_shard.PrefixShardedMapper``,
+    which sets ``n_ranks`` and ``rank`` and defines ``select``): the
+    collective feed loop with checkpoints, the multi-process checkpoint
+    (``ckpt_mp.py``) and its agreed restore, the FLD histograms summed,
+    ``finalize``'s gather over the ranks, and rank 0's stage snapshots
+    broadcast (``from_rank0``)."""
 
-    def supports_checkpoint(self) -> bool:
-        return True
+    from_rank0 = staticmethod(comm.broadcast_from0)
+
+    def _reset(self) -> None:
+        super()._reset()
+        # a restored checkpoint's cursor, the one to save again when the
+        # stream has nothing after it, and the step of its last save
+        self.restored_cursor = None
+        self._ckpt_step = 0
 
     def fld_histogram(self) -> np.ndarray:
         """The ranks' FLD histograms summed (collective; a rank without an
         estimator adds zeros)."""
-        from ..map.fld import MAX_LEN
-
         local = (np.zeros(MAX_LEN + 1, np.int64) if self.fld is None
                  else self.fld.hist.cpu().numpy().astype(np.int64))
         return comm.allreduce(local)
 
+    def fld_estimate(self) -> Optional[Tuple[float, float, int]]:
+        """The estimate from the ranks' histograms summed (collective)."""
+        if not self.estimate_fld:
+            return None
+        return estimate_from_hist(self.fld_histogram())
+
+    def _gather(self, sigs: np.ndarray, counts: np.ndarray,
+                counters: List[int]):
+        return (np.concatenate(comm.allgather_rows(sigs)),
+                np.concatenate(comm.allgather_rows(counts)),
+                [int(v) for v in comm.allreduce(np.asarray(counters,
+                                                           np.int64))])
+
     def run(self, batches: Iterable[ReadBatch],
             checkpoint_path: Optional[str] = None,
             checkpoint_every: int = 50) -> MapResult:
-        from ..map.driver import _run_with_checkpoints_multiprocess
-
-        if checkpoint_path:
-            return _run_with_checkpoints_multiprocess(
-                self, batches, checkpoint_path, checkpoint_every)
-        for batch in batches:
-            self.feed(batch)
+        """The feed loop; with ``checkpoint_path`` the JAX package's
+        collective one. A save is collective, and ranks may hold different
+        numbers of batches, so the loop itself is collective: every rank
+        joins one all-gather a round (one of its batches a round while it
+        has any) with (done, has a cursor). Saves fall due on the round
+        count and happen only when every rank offers a cursor (a rank that
+        is done offers its last one, or the one it resumed from); every
+        rank leaves in the same round."""
+        if not checkpoint_path:
+            return super().run(batches)
+        it = iter(batches)
+        rounds = 0
+        due = done = warned = False
+        last_cursor = self.restored_cursor
+        while True:
+            batch = None if done else next(it, None)
+            if batch is None:
+                done = True
+                cur = last_cursor
+            else:
+                self.feed(batch)
+                cur = batch.cursor
+                if cur is not None:
+                    last_cursor = cur
+            rounds += 1
+            # a rank that never saw a cursor offers none: saving it as
+            # "start fresh" on top of a table that holds its reads would
+            # count them twice
+            flags = comm.allgather(np.asarray([done, cur is not None],
+                                              np.int64))
+            if flags[:, 0].all():
+                break
+            due = due or rounds % checkpoint_every == 0
+            if due and flags[:, 1].all():
+                self.save_checkpoint(checkpoint_path, stream_state=cur)
+                due = False
+            elif due and not warned:
+                log.warning(
+                    "periodic checkpoint is blocked: rank(s) %s offered no "
+                    "resume cursor this round; saves happen when every rank "
+                    "has one, and a final table snapshot is written",
+                    np.flatnonzero(flags[:, 1] == 0).tolist())
+                warned = True
+        self.save_checkpoint(checkpoint_path, stream_state=last_cursor)
         return self.finalize()
 
     def save_checkpoint(self, path: str,
@@ -101,51 +155,62 @@ class RankMapper:
         save_mapper_checkpoint(self, path, stream_state)
 
     def restore_checkpoint(self, path: str) -> Optional[dict]:
-        """This rank's part of a multi-process checkpoint: its table, read
-        count and FLD state, and its cursor ({} without one), or None when
-        there is no checkpoint."""
+        """This rank's part of a multi-process checkpoint (its table, read
+        count and FLD state; ``ckpt_mp.py``), agreed by the ranks (the JAX
+        package's protocol): a rank holds its restore error until every
+        rank has reported, then every rank raises at the same point, so
+        none goes on into a later collective alone. Returns the cursor, {}
+        when some rank has none (resume is all or nothing: every rank then
+        starts fresh), or None when no rank has a checkpoint."""
         from .ckpt_mp import restore_mapper_checkpoint
 
-        state = restore_mapper_checkpoint(self, path)
-        if state:
-            self.restored_cursor = state
+        state, err = None, None
+        try:
+            state = restore_mapper_checkpoint(self, path)
+        except (ValueError, OSError, KeyError,
+                zipfile.BadZipFile) as e:  # raised below, once agreed
+            err = e
+        cats = comm.allgather(np.asarray(
+            [state is None and err is None, bool(state), err is not None],
+            np.int64))
+        if cats[:, 2].any():
+            if err is not None:
+                raise err
+            bad = np.flatnonzero(cats[:, 2]).tolist()
+            raise ValueError(
+                f"checkpoint {path} failed to restore on rank(s) "
+                f"{bad} (see their errors); delete the checkpoint files to "
+                "start fresh")
+        if not cats[:, 1].all():
+            if not cats[:, 0].all():
+                log.warning("checkpoint %s is not resumable on every rank; "
+                            "every rank starts fresh", path)
+            return None if cats[:, 0].all() else {}
+        self.restored_cursor = state
         return state
 
-    def finalize(self) -> MapResult:
-        sigs, counts = table_to_host(self.table)
-        sigs = np.concatenate(comm.allgather_rows(sigs))
-        counts = np.concatenate(comm.allgather_rows(counts))
-        t = self.table
-        total, overflow, collisions, complex_reads = (
-            int(v) for v in comm.allreduce(np.asarray(
-                [self.total_reads] + torch.stack(
-                    [t.overflow, t.collisions, t.complex]).tolist(),
-                np.int64)))
-        return merge_sig_rows(
-            sigs, counts, total, overflow, collisions=collisions,
-            complex_reads=complex_reads if self.counts_complex else None,
-            ec_csr=self.ec_csr)
 
-
-class DataParallelMapper(RankMapper, Mapper):
+class DataParallelMapper(RankMapper):
     """A rank's ``Mapper`` that takes its share of the batches and merges
     with the other ranks at ``finalize``."""
 
     def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
                  shard: ShardConfig = ShardConfig(), device="cuda",
                  input_share: Optional[Tuple[int, int]] = None,
-                 metrics: Optional[Metrics] = None):
-        super().__init__(index, cfg, device=device, metrics=metrics)
+                 metrics: Optional[Metrics] = None,
+                 estimate_fld: bool = False):
+        super().__init__(index, cfg, device=device, metrics=metrics,
+                         estimate_fld=estimate_fld)
         self.n_ranks = data_ranks(shard)
         self.rank = comm.rank()
         self.place, self.sharers = (input_share if input_share is not None
                                     else (self.rank, self.n_ranks))
-        # a restored checkpoint's cursor, the one to save again when the
-        # stream has nothing after it, and the global index of the next
-        # batch (its "batch"), from which rank_batches deals
-        self.restored_cursor = None
+
+    def _reset(self) -> None:
+        super()._reset()
+        # the global index of the next batch (a cursor's "batch"), from
+        # which rank_batches deals
         self.first_batch = 0
-        self._ckpt_step = 0
 
     def select(self, batches: Iterable[ReadBatch]) -> Iterator[ReadBatch]:
         """This rank's batches of the stream it reads."""
@@ -157,13 +222,6 @@ class DataParallelMapper(RankMapper, Mapper):
         """The paired batches this rank samples for the FLD: its own among
         the first SAMPLE_BATCHES of the stream it shares."""
         return len(range(self.place, SAMPLE_BATCHES, self.sharers))
-
-    def make_fld_estimator(self, state=None):
-        if self.index.fld_tid is None:
-            return None
-        self.fld = FLDEstimator(self.index, self.device_index, state,
-                                sample_batches=self.fld_batches)
-        return self.fld
 
     def restore_checkpoint(self, path: str) -> Optional[dict]:
         state = super().restore_checkpoint(path)

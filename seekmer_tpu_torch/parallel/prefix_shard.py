@@ -65,8 +65,8 @@ routing rounds (0). With ``probe_stride`` > 1 or ``fusion_pairs`` the JAX
 package runs the dense routed lookup with union signatures of width C,
 and so does the port (not K7, not per-mate signatures).
 
-``finalize`` merges every rank's table (``data_parallel.RankMapper``),
-and ``extra_routing_rounds`` is the largest over the ranks. The FLD is
+``finalize`` merges every rank's table (``data_parallel.RankMapper``'s
+gather), and ``extra_routing_rounds`` is the largest over the ranks. The FLD is
 estimated against prefix shard 0 (``map/fld.FLDEstimator.
 for_prefix_shard0``), each rank on its rows, the histograms summed.
 Checkpoints are the multi-process protocol of ``ckpt_mp.py``; the ranks
@@ -85,17 +85,17 @@ import torch
 from ..config import MapConfig, ShardConfig
 from ..index.build import _next_pow2, build_bucket_table
 from ..index.store import EMPTY, KMerIndex
-from ..io.fastq import ReadBatch, pack_batch_2bit
-from ..map.driver import (audit_this_batch, check_device, to_device,
-                          upload_ec_csr)
+from ..io.fastq import ReadBatch
+from ..map.driver import audit_this_batch, to_device, upload_ec_csr
 from ..map.fld import SAMPLE_BATCHES, FLDEstimator
-from ..map.signature import make_sig_table
+from ..map.signature import SigTable, make_sig_table
 from ..ops import (accumulate_cuda, fast_cuda, pack_cuda, probe_cuda,
                    route_cuda, sig_cuda)
 from ..ops.hash import hash_kmer_np, hash_kmer_stash_np
 from ..ops.probe import classify_samples, device_table_layout, sample_columns
 from ..ops.route import filled, owner_bits
 from . import comm
+from ..utils.metrics import Metrics
 from .data_parallel import RankMapper
 
 log = logging.getLogger(__name__)
@@ -338,13 +338,14 @@ class PrefixShardedMapper(RankMapper):
     every rank of the group reads the whole input (one host). Ranks that
     share an input must hold whole index groups."""
 
+    counts_complex = False  # K3 runs without a counter here
+
     def __init__(self, index: KMerIndex, cfg: MapConfig = MapConfig(),
                  shard: ShardConfig = ShardConfig(index_mode="prefix"),
                  device="cuda", capacity_factor: float = 2.0,
-                 input_share: Optional[Tuple[int, int]] = None):
-        self.device = check_device(device)
-        self.index = index
-        self.cfg = cfg
+                 input_share: Optional[Tuple[int, int]] = None,
+                 metrics: Optional[Metrics] = None,
+                 estimate_fld: bool = False):
         self.n_ranks = prefix_ranks(shard)
         self.n_index = shard.index_axis
         self.rank = comm.rank()
@@ -361,6 +362,16 @@ class PrefixShardedMapper(RankMapper):
                              f"{self.sharers} ranks")
         self.capacity_factor = capacity_factor
         self.group = comm.index_groups(self.n_index)
+        super().__init__(index, cfg, device=device, metrics=metrics,
+                         estimate_fld=estimate_fld)
+        # the ranks build shards of different cost: start mapping together,
+        # so a map stage's wall holds no other rank's build
+        comm.barrier()
+
+    def _upload_index(self):
+        """This rank's prefix shard on its card (and shard 0's main table
+        and FLD payload on the host, for ``make_fld_estimator``)."""
+        index = self.index
         built = shard_index_by_prefix(
             index, self.n_index, return_fld_shard0=index.fld_tid is not None,
             only=[self.column])
@@ -368,23 +379,18 @@ class PrefixShardedMapper(RankMapper):
                                     else (built, None))
         self.sdi = ShardedDeviceIndex.from_shards(shards, self.column,
                                                   self.device)
-        del shards, built
-        self.ec_csr = upload_ec_csr(index, self.device)
-        self.table = make_sig_table(
-            cfg.sig_table_bits, cfg.max_ecs_per_read,
-            num_ecs=0 if cfg.fusion_pairs else index.num_ecs,
+        return upload_ec_csr(index, self.device)
+
+    def _new_table(self) -> SigTable:
+        return make_sig_table(
+            self.cfg.sig_table_bits, self.cfg.max_ecs_per_read,
+            num_ecs=0 if self.cfg.fusion_pairs else self.index.num_ecs,
             device=self.device)
-        self.total_reads = 0
-        self._fed_batches = 0
-        self.counts_complex = False  # K3 runs without a counter here
+
+    def _reset(self) -> None:
+        super()._reset()
         self._rounds_max = 0
         self.extra_routing_rounds = 0  # over every rank, set by finalize
-        self.fld = None
-        self.restored_cursor = None
-        self._ckpt_step = 0
-        # the ranks build shards of different cost: start mapping together,
-        # so a map stage's wall holds no other rank's build
-        comm.barrier()
 
     def select(self, batches: Iterable[ReadBatch]) -> Iterator[ReadBatch]:
         """This rank's rows of every batch of the stream it reads."""
@@ -410,11 +416,7 @@ class PrefixShardedMapper(RankMapper):
             sample_batches=SAMPLE_BATCHES)
         return self.fld
 
-    def feed(self, batch: ReadBatch) -> None:
-        n_real = batch.n_real
-        if batch.pad_len is None:
-            batch = pack_batch_2bit(batch)
-
+    def _fold(self, batch: ReadBatch) -> None:
         def u(x):
             return to_device(x, self.device)
         mates = [(u(batch.codes), u(batch.bad), u(batch.lengths))]
@@ -426,30 +428,13 @@ class PrefixShardedMapper(RankMapper):
             self.table, sig, mapped, weights=u(batch.weights),
             sig_probe=self.cfg.sig_probe,
             audit=audit_this_batch(self.cfg, self._fed_batches))
-        self._fed_batches += 1
-        self.total_reads += n_real
         self._rounds_max = max(self._rounds_max, extra)
-
-    def _pack(self, mates, L: int):
-        """K1 on each mate, side by side in one (B, n_seg P) row."""
-        k = self.sdi.k
-        if len(mates) == 1:
-            return pack_cuda.pack_canonical_2bit(*mates[0], L, k)
-        B, P = mates[0][0].shape[0], max(L - k + 1, 0)
-        dev = mates[0][0].device
-        shape = (B, len(mates) * P)
-        out = (torch.empty(shape, dtype=torch.int32, device=dev),
-               torch.empty(shape, dtype=torch.int32, device=dev),
-               torch.empty(shape, dtype=torch.bool, device=dev))
-        for g, m in enumerate(mates):
-            pack_cuda.pack_canonical_2bit(*m, L, k, out=out, offset=g * P)
-        return out
 
     def _signatures(self, mates, L: int):
         """(sig, mapped, extra rounds) of this rank's rows."""
         cfg = self.cfg
         C = cfg.max_ecs_per_read
-        hi, lo, valid = self._pack(mates, L)
+        hi, lo, valid = pack_cuda.pack_mates(mates, L, self.sdi.k)
         if (cfg.probe_sample >= 2 and cfg.probe_stride <= 1
                 and not cfg.fusion_pairs):
             sig, mapped = self._sampled(mates, L, hi, lo, valid)

@@ -8,6 +8,8 @@
   every N batches; a resume seeks instead of re-decoding.
 - An EM snapshot holds the iterate (alpha) and the iteration count, so a
   run restarts at every stage boundary and inside EM and the bootstrap.
+  ``StageSnapshots`` keeps a run's EM and bootstrap snapshots beside its
+  map checkpoint.
 
 The files are the JAX package's: the same npz keys, ``FORMAT`` 3 and
 ``np.savez_compressed``, so a checkpoint written by either package loads in
@@ -29,8 +31,10 @@ file's ``total_reads`` is then -1.
 from __future__ import annotations
 
 import json
+import logging
 import os
-from typing import Optional, Tuple
+import time
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +43,13 @@ import torch
 # 3: the stream cursor became offset-based (file index + byte offset +
 #    pending partial-bucket rows); format-2 checkpoints are rejected.
 FORMAT = 3
+
+# Minimum seconds between two periodic EM or bootstrap snapshots: the
+# fixed point syncs every ~2 s in pieces, and writing a config-scale
+# alpha at each would dominate. The pin after the EM stage bypasses it.
+SNAPSHOT_MIN_INTERVAL_S = 30.0
+
+log = logging.getLogger(__name__)
 
 _CURSOR_KEYS = ("v", "paired", "s1", "s2")
 _CURSOR_EXTRAS = ("build", "batch")  # the port's, where a cursor has them
@@ -236,3 +247,75 @@ def load_em_snapshot(path: str) -> Optional[Tuple[np.ndarray, int, bool]]:
     with np.load(path, allow_pickle=False) as z:
         converged = bool(z["converged"]) if "converged" in z.files else False
         return z["alpha"], int(z["iteration"]), converged
+
+
+class StageSnapshots:
+    """A run's EM and bootstrap snapshots beside its map checkpoint
+    (``<checkpoint_path>.em.npz``, ``.boot.npz``), so one --checkpoint
+    protects every stage; without a path they do nothing. Only the lead
+    (rank 0) reads, writes and deletes them; ``from_rank0``, the mapper's
+    broadcast (the identity on one card), gives every rank the lead's
+    snapshot, so all take the same resume or skip decision. A snapshot of
+    another shape than (T,) or (T, B) is ignored."""
+
+    def __init__(self, checkpoint_path: Optional[str], T: int, B: int,
+                 lead: bool, from_rank0: Callable):
+        self.paths = ({"EM": checkpoint_path + ".em.npz",
+                       "bootstrap": checkpoint_path + ".boot.npz"}
+                      if checkpoint_path else {})
+        self.shapes = {"EM": (T,), "bootstrap": (T, B)}
+        self.lead, self.from_rank0 = lead, from_rank0
+
+    def load(self, stage: str) -> Tuple[Optional[np.ndarray], int, bool]:
+        """(alpha or None, iteration, converged) of the lead's snapshot of
+        ``stage`` ("EM" or "bootstrap") on every rank; converged marks the
+        pin after the EM stage, with which a resume skips EM."""
+        path, shape = self.paths.get(stage), self.shapes[stage]
+        if path is None:
+            return None, 0, False
+        got = load_em_snapshot(path) if self.lead else None
+        if got is not None and got[0].shape != shape:
+            log.warning("%s snapshot %s has shape %s != %s; ignoring",
+                        stage, path, got[0].shape, shape)
+            got = None
+        elif got is not None:
+            log.info("resuming %s from snapshot at iteration %d%s", stage,
+                     got[1], " (converged: skipping EM)" if got[2] else "")
+        alpha, it, conv = got if got is not None else (None, 0, False)
+        meta = self.from_rank0(np.asarray([alpha is not None, it, conv],
+                                          np.int64))
+        if not meta[0]:
+            return None, 0, False
+        alpha = np.asarray(np.zeros(shape) if alpha is None else alpha,
+                           np.float64)
+        return self.from_rank0(alpha), int(meta[1]), bool(meta[2])
+
+    def on_sync(self, stage: str) -> Optional[Callable]:
+        """The lead's ``on_sync`` of ``stage``: it writes the snapshot at
+        most once every ``SNAPSHOT_MIN_INTERVAL_S``. None elsewhere."""
+        path = self.paths.get(stage) if self.lead else None
+        if path is None:
+            return None
+        last = [float("-inf")]
+
+        def on_sync(a, it):
+            now = time.monotonic()
+            if now - last[0] >= SNAPSHOT_MIN_INTERVAL_S:
+                last[0] = now
+                save_em_snapshot(path, a, it)
+
+        return on_sync
+
+    def pin(self, alpha, iteration: int, converged: bool) -> None:
+        """The EM stage's end, unthrottled, so a crash in the bootstrap
+        resumes with EM skipped; a stage capped by max_iters pins
+        converged=False, so a resume under a raised budget goes on."""
+        if self.lead and "EM" in self.paths:
+            save_em_snapshot(self.paths["EM"], alpha, iteration, converged)
+
+    def done(self) -> None:
+        """A completed run's snapshots deleted: a later fresh run must not
+        warm-start from them."""
+        for p in self.paths.values() if self.lead else ():
+            if os.path.exists(p):
+                os.remove(p)

@@ -27,7 +27,6 @@ from seekmer_tpu_torch.em.bootstrap import run_bootstrap
 from seekmer_tpu_torch.em.em import build_ec_table, run_em
 from seekmer_tpu_torch.io import fastq as tfastq
 from seekmer_tpu_torch.map.driver import Mapper, resolve_signatures
-from seekmer_tpu_torch.models import quantifier as tquantifier
 from seekmer_tpu_torch.models.quantifier import Quantifier
 from seekmer_tpu_torch.utils import checkpoint as tckpt
 from tests.test_torch_self_contained import port_config, port_index
@@ -482,6 +481,53 @@ def test_em_snapshot_roundtrip_across_packages(tmp_path):
     assert tckpt.load_em_snapshot(str(tmp_path / "none.npz")) is None
 
 
+def test_stage_snapshots_one_process(tmp_path):
+    """``StageSnapshots`` on one process: inert without a path; loads a
+    snapshot, ignores one of another shape, throttles its hook, pins EM's
+    end, gives a rank that is not the lead the lead's snapshot and writes
+    nothing there, and deletes both files when the run is done."""
+    T, B = 5, 3
+    none = tckpt.StageSnapshots(None, T, B, True, lambda x: x)
+    assert none.load("EM") == (None, 0, False)
+    assert none.on_sync("bootstrap") is None
+    none.pin(np.ones(T), 3, converged=True)
+    none.done()
+    ckpt = str(tmp_path / "run.ckpt.npz")
+    snaps = tckpt.StageSnapshots(ckpt, T, B, True, lambda x: x)
+    assert snaps.load("EM") == (None, 0, False)
+    tckpt.save_em_snapshot(ckpt + ".em.npz", np.arange(T, dtype=np.float32),
+                           12)
+    alpha, it, conv = snaps.load("EM")
+    np.testing.assert_array_equal(alpha, np.arange(T))
+    assert (it, conv) == (12, False)
+    tckpt.save_em_snapshot(ckpt + ".boot.npz", np.ones((T, B + 1)), 4)
+    assert snaps.load("bootstrap") == (None, 0, False)
+    sync = snaps.on_sync("bootstrap")
+    sync(np.full((T, B), 2.0), 7)
+    sync(np.full((T, B), 3.0), 9)  # within SNAPSHOT_MIN_INTERVAL_S
+    alpha, it, _ = snaps.load("bootstrap")
+    np.testing.assert_array_equal(alpha, np.full((T, B), 2.0))
+    assert it == 7
+    snaps.pin(np.full(T, 5.0), 20, converged=True)
+    sent = []
+    lead = tckpt.StageSnapshots(ckpt, T, B, True,
+                                lambda x: sent.append(x) or x)
+    other = tckpt.StageSnapshots(ckpt, T, B, False, lambda x: sent.pop(0))
+    for stage in ("EM", "bootstrap"):
+        want = lead.load(stage)
+        got = other.load(stage)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+    assert lead.load("EM")[1:] == (20, True)
+    assert other.on_sync("EM") is None
+    other.pin(np.zeros(T), 1, converged=False)
+    other.done()
+    assert lead.load("EM")[1:] == (20, True)
+    snaps.done()
+    assert not os.path.exists(ckpt + ".em.npz")
+    assert not os.path.exists(ckpt + ".boot.npz")
+
+
 def test_pipeline_em_snapshot_lifecycle(tmp_path, world):
     """A leftover EM snapshot warm-starts the quantifier without changing
     its answer beyond the EM tolerance; a completed run deletes its stage
@@ -528,7 +574,7 @@ def test_capped_em_pins_unconverged(tmp_path, world, monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("simulated crash during bootstrap")
 
-    monkeypatch.setattr(tquantifier, "run_bootstrap", boom)
+    monkeypatch.setattr(tbootstrap, "run_bootstrap", boom)
 
     def run(max_iters):
         cfg = port_config(_cpu_pipeline(max_iters=max_iters,
@@ -558,7 +604,7 @@ def test_bootstrap_snapshot_resumes_the_stage(tmp_path, world, monkeypatch):
                                     check_every=8))
     q = Quantifier(port_index(index), cfg, device="cpu")
     fresh = q.quantify_files([fq], checkpoint_path=ckpt)
-    monkeypatch.setattr(q, "SNAPSHOT_MIN_INTERVAL_S", 0.0)
+    monkeypatch.setattr(tckpt, "SNAPSHOT_MIN_INTERVAL_S", 0.0)
     monkeypatch.setattr("seekmer_tpu_torch.em.em.SYNC_TARGET_S", 0.0)
     real = tbootstrap.batched_em
 

@@ -172,6 +172,26 @@ def test_data_parallel_matches_one_rank_and_jax(world, ranks2, case):
     assert jres.total_reads == want.total_reads
 
 
+@pytest.mark.parametrize("case", list(MAP_CASES))
+def test_one_finalize_on_ranks(world, ranks2, case):
+    """The ranks finalize through the one-card ``Mapper.finalize``: its
+    gather step gives every rank the one-card MapResult, the complex-read
+    counter and the EC CSR included, inside the rank's spans
+    ``finalize``, ``readback`` and ``merge``."""
+    _, _, index, reads, r1, r2 = world
+    kw = MAP_CASES[case]
+    src, mates = (r1, r2) if kw.get("paired_end", False) else (reads, None)
+    want, _ = _one_rank_map(index, src, mates, MapConfig(**kw))
+    for out in ranks2[0]:
+        got, t = out[case][0], out["spans"][case]
+        _same_result(got, want)
+        assert got.complex_reads == want.complex_reads
+        assert (got.complex_reads is None) == (case == "fast_s4")
+        for a, b in zip(got.ec_csr, want.ec_csr):
+            assert torch.equal(a, b)
+        assert t["readback"] + t["merge"] <= t["finalize"]
+
+
 def test_fld_histogram_summed_over_ranks(world, ranks2):
     """Fault 5: each rank samples its batches among global batches 0-3
     (batches 0 and 2 on rank 0, 1 and 3 on rank 1), and the histograms

@@ -84,6 +84,18 @@ def _quantify(entry, world, pairs):
 
 
 ENTRIES = ["files_se", "files_pe", "reads_pe"]
+# a one-card paired call's timings with the FLD estimated, bootstrap
+# replicates and a checkpoint: every span's timer, every counter
+ONE_CARD_KEYS = {
+    "mapper_s", "index_upload_s", "index_layout_s", "map_s", "map_wait_s",
+    "fld_s", "finalize_s", "readback_s", "merge_s", "resolve_s",
+    "intersect_s", "ec_table_s", "em_s", "bootstrap_s", "resample_s",
+    "collect_s", "ingest_s", "upload_s", "pack_s", "wall_s", "batches",
+    "bootstrap_iterations", "classes", "complex_fragments",
+    "distinct_signatures", "em_iterations", "em_iterations_per_s",
+    "empty_intersection_fragments", "index_upload_bytes",
+    "intersect_members", "intersect_on_device", "multi_ec_signatures",
+    "multi_gene_classes", "nnz", "readback_bytes", "reads", "reads_per_s"}
 
 
 def _names(path):
@@ -243,3 +255,18 @@ def test_trace_write_failure_raises(tmp_path):
     with pytest.raises(OSError):
         with profiling.maybe_trace(str(tmp_path / "d"), "x"):
             torch.ones(3).sum()
+
+
+def test_one_card_timings_keys(pairs, tmp_path):
+    """A one-card paired ``quantify_files`` with the FLD estimated,
+    bootstrap replicates and a checkpoint reports exactly this set of
+    spans and counters."""
+    index, fq, _ = pairs
+    cfg = port_config(PipelineConfig().replace(
+        map=MapConfig(batch_size=BATCH, sig_table_bits=12, paired_end=True),
+        em=EMConfig(rel_tol=1e-6, bootstrap_samples=2)))
+    res = Quantifier(index, cfg, device="cpu").quantify_files(
+        fq[:1], mate_paths=fq[1:], checkpoint_path=str(tmp_path / "c.npz"),
+        checkpoint_every=2)
+    assert res.fld_mean is not None and res.bootstrap_counts is not None
+    assert set(res.timings) == ONE_CARD_KEYS

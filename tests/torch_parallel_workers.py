@@ -57,11 +57,12 @@ def suite(rank, device, index, reads, mates, map_cases, em_cfgs,
     [(name, PipelineConfig)], each quantifying ``reads`` on every rank
     (its ``shard`` set to the group); ``boot_case``: (member lists,
     counts, an EMConfig with bootstrap_samples), or None."""
-    out = {"rank": rank, "world": comm.world()}
+    out = {"rank": rank, "world": comm.world(), "spans": {}}
     shard = ShardConfig(data_axis=comm.world())
     for name, cfg, paired in map_cases:
         mapper = DataParallelMapper(index, cfg, shard, device=device)
         out[name] = dp_map(mapper, reads, mates if paired else None)
+        out["spans"][name] = dict(mapper.metrics.timings)
     for name, cfg in em_cfgs:
         res = Quantifier(index, cfg.replace(shard=shard),
                          device).quantify_reads(reads)
@@ -81,8 +82,10 @@ def suite_both(rank, device, index, reads, r1, r2, cases, em_cfgs, boot):
     ones on (r1, r2)."""
     out = suite(rank, device, index, reads, None,
                 [c for c in cases if not c[2]], em_cfgs, boot)
-    out.update(suite(rank, device, index, r1, r2,
-                     [c for c in cases if c[2]], [], None))
+    paired = suite(rank, device, index, r1, r2,
+                   [c for c in cases if c[2]], [], None)
+    out["spans"].update(paired.pop("spans"))
+    out.update(paired)
     return out
 
 
@@ -161,7 +164,7 @@ def ckpt_suite(rank, device, index, cfg, boot_cfg, files, work):
     likewise. Returns the runs' QuantResults and the refusals."""
     tfastq.CheckpointableBatchSource.CHUNK = CHUNK
     tem.SYNC_TARGET_S = 0.0
-    Quantifier.SNAPSHOT_MIN_INTERVAL_S = 0.0
+    tckpt.SNAPSHOT_MIN_INTERVAL_S = 0.0
     out = {"plain": _quant(index, cfg, device, files)}
     ckpt = os.path.join(work, "map.ckpt.npz")
     run = lambda: _quant(index, cfg, device, files,  # noqa: E731
